@@ -9,20 +9,37 @@ Phases, each printing ``#`` lines:
     prints the card's name and power limit as nvidia-smi gives them;
 (b) build: compiles the CUDA kernels from ``sonar_tpu_torch/csrc`` (nvcc,
     sm_90a) and prints the build time and the compiler's register report;
-(c) kernels: each of the four kernels against its plain PyTorch version on
-    the card, at the main path's shapes, with the tolerance stated, and
-    both timed with CUDA events (plain, kernel, kernel, plain);
+(c) kernels: each of the six kernels against its plain PyTorch version on
+    the card, at the main paths' shapes, with the tolerance stated, and
+    both timed with CUDA events (plain, kernel, kernel, plain; the kernels
+    line gives each kernel's first timed shape, v2 is timed in fp32 too);
 (d) the slice: the ``basic`` SONAR text encoder at full width (24 layers,
     D 1024, 16 heads, FFN 8192, vocabulary 256,206) with seeded random
     weights, behind ``TextToEmbeddingModelPipeline.predict`` with a
     synthetic NLLB SentencePiece model. int8 and bf16 with static batching
     (lengths reach the 256 and 384 buckets), int8 with dynamic batching
-    (batch_size=5) and fp32 with dynamic batching. The four launch counters
-    are zeroed before and read after; each must be > 0. Embeddings of 16
-    sentences are held against the same pipeline on the CPU (the plain
-    path): cosine >= 0.999 for int8 and bf16, max-abs <= 1e-3 for fp32.
+    (batch_size=5) and fp32 with dynamic batching. The launch counters are
+    zeroed before and read after; the four text kernels' must be > 0.
+    Embeddings of 16 sentences are held against the same pipeline on the
+    CPU (the plain path): cosine >= 0.999 for int8 and bf16, max-abs <=
+    1e-3 for fp32.
+(e) the speech slice: the ``english`` SONAR speech encoder at full width
+    (24 Conformer layers, D 1024, 16 heads x 64, FFN 4096, depthwise kernel
+    31, 80 mel bins, 3-layer post-LN pooler) with seeded random weights,
+    behind ``SpeechToEmbeddingModelPipeline.predict(batch_size=8)`` on 48
+    synthetic 16 kHz clips (tones plus noise) whose length-sorted batches
+    take every path: 8 of 1-2.5 s (plain rel-pos attention, S < 128), 24 of
+    3-20 s and 8 of 25-40 s (the v2 kernel, S up to 1999), 8 of 45-50 s
+    (plain, S 2499). bf16 and fp32; clips/s and RTFx; the launch counters
+    and the plain-path calls are zeroed before and read after each run:
+    v2 and the plain path must be > 0. Four clips (1.5, 2, 2.5 s in one
+    batch with a padding row; 10 s alone) are held against the same
+    pipeline on the CPU: cosine >= 0.999 in bf16, max-abs <= 1e-3 of the
+    embeddings' scale in fp32.
 
-Prints the kernels' JSON record on the line before the last, and as the last
+A kernel's ``launches`` in the JSON record is the sum of its counts over
+(d) and (e); v1 (``relpos_flash_attention``), which no path calls, must
+read 0. Prints that record on the line before the last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (exit != 0).
 """
 
@@ -41,20 +58,47 @@ DEVICE = "cuda"
 F32_MIN = -3.4028234663852886e38
 N_SENTENCES = 3000  # corpus of the slice phase
 
-KERNELS = {  # name -> (CUDA source, TPU kernel it replaces)
+KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its launch count)
     "short_qkv_attention": ("sonar_tpu_torch/csrc/short_attn.cu",
-                            "sonar_tpu/ops/pallas/short_attn.py:59"),
+                            "sonar_tpu/ops/pallas/short_attn.py:59", "short_attn", "LAUNCHES"),
     "fused_attn_block": ("sonar_tpu_torch/csrc/attn_block.cu",
-                         "sonar_tpu/ops/pallas/attn_block.py:106"),
+                         "sonar_tpu/ops/pallas/attn_block.py:106", "attn_block", "LAUNCHES"),
     "fused_int8_ffn": ("sonar_tpu_torch/csrc/ffn.cu",
-                       "sonar_tpu/ops/pallas/ffn.py:206"),
+                       "sonar_tpu/ops/pallas/ffn.py:206", "ffn", "LAUNCHES"),
     "flash_attention": ("sonar_tpu_torch/csrc/flash.cu",
-                        "sonar_tpu/ops/pallas/flash.py:52"),
+                        "sonar_tpu/ops/pallas/flash.py:52", "flash", "LAUNCHES"),
+    "relpos_flash_attention_v2": ("sonar_tpu_torch/csrc/relpos_flash.cu",
+                                  "sonar_tpu/ops/pallas/relpos_flash.py:91", "relpos_flash",
+                                  "LAUNCHES"),
+    "relpos_flash_attention": ("sonar_tpu_torch/csrc/relpos_flash.cu",
+                               "sonar_tpu/ops/pallas/relpos_flash.py:172", "relpos_flash",
+                               "V1_LAUNCHES"),
 }
+# Kernels that no driven path launches (no JAX path calls them either): their
+# counts are read like the others' and must stay 0.
+NO_PATH = ("relpos_flash_attention",)
 
 
 def log(msg: str) -> None:
     print(f"# {msg}", flush=True)
+
+
+def _counter(name: str):
+    import importlib
+
+    _, _, module, attr = KERNELS[name]
+    return importlib.import_module(f"sonar_tpu_torch.ops.cuda.{module}"), attr
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0 (just before a driven path)."""
+    for name in KERNELS:
+        setattr(*_counter(name), 0)
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count (just after a driven path)."""
+    return {name: getattr(*_counter(name)) for name in KERNELS}
 
 
 # -- (a) setup -------------------------------------------------------------------
@@ -131,7 +175,8 @@ def _errors(torch, got, want):
 
 
 def check_kernels(torch):
-    from sonar_tpu_torch.ops.cuda import attn_block, ffn, flash, short_attn
+    from sonar_tpu_torch.nn.conformer import _trig_tables
+    from sonar_tpu_torch.ops.cuda import attn_block, ffn, flash, relpos_flash, short_attn
     from sonar_tpu_torch.ops.quantization import quantize_kernel
 
     dev = torch.device(DEVICE)
@@ -169,7 +214,8 @@ def check_kernels(torch):
             k1 = _timed(torch, kernel_fn, iters)
             k2 = _timed(torch, kernel_fn, iters)
             p2 = _timed(torch, plain_fn, iters)
-            results[name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+            if "ms" not in results[name]:  # the kernels line gives the first timed shape
+                results[name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
             log(f"time {name} {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
 
     # Tolerances: fp32 attention agrees up to summation order (1e-5 of the
@@ -261,6 +307,41 @@ def check_kernels(torch):
           lambda: flash.flash_attention(q, k, v),
           lambda: flash.flash_attention_plain(q, k, v), 1e-2, 0.9999)
 
+    # K5 / K6: Conformer rel-pos attention, v2 building bd inside the kernel
+    # and v1 reading it. Inputs at the model's scales: q, k, v ~ N(0, 1),
+    # Wr_h ~ N(0, 1/D) with D 1024, biases ~ N(0, 0.01), the trig tables
+    # in the model dtype; the key bias holds a padding row of length 0
+    # (B > 1) or a ragged edge (B = 1). Tolerances as for K1 and K2.
+    def relpos_args(b, h, s, dh, dt):
+        d = 1024
+        q, k, v = (rand(b, h, s, dh, dtype=dt) for _ in range(3))
+        wr = rand(h, d, dh, scale=d ** -0.5, dtype=dt)
+        u, vb = rand(h, dh, scale=0.1, dtype=dt), rand(h, dh, scale=0.1, dtype=dt)
+        si, ci, basis = _trig_tables(s, d, dt, dev)
+        lens = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+        lens[0] = s if b > 1 else s - 37
+        if b > 1:
+            lens[-1] = 0
+        kb = torch.where(torch.arange(s, device=dev)[None, :] < lens[:, None], 0.0, F32_MIN)
+        return q, k, v, wr, si, ci, basis, u, vb, kb.float()
+
+    tol = {bf16: (1e-2, 0.9999), f32: (1e-5, 0.999999)}
+    for b, h, s, dh, dt in ((8, 16, 499, 64, bf16), (8, 16, 499, 64, f32), (1, 16, 2048, 64, bf16),
+                            (2, 16, 149, 64, bf16), (2, 8, 300, 128, bf16)):
+        args = relpos_args(b, h, s, dh, dt)
+        check("relpos_flash_attention_v2", f"[{b},{h},{s},{dh}] D 1024 {str(dt)[6:]}",
+              lambda: relpos_flash.relpos_flash_attention_v2(*args),
+              lambda: relpos_flash.relpos_flash_attention_v2_plain(*args),
+              *tol[dt], timed=(b, s) == (8, 499))  # bf16, then fp32
+    for b, h, s, dh, dt in ((8, 16, 499, 64, bf16), (2, 2, 130, 64, f32)):
+        q, k, v, wr, si, ci, basis, u, vb, kb = relpos_args(b, h, s, dh, dt)
+        bd = relpos_flash.relpos_bd_plain(q, wr, si, ci, basis, vb).to(dt)
+        check("relpos_flash_attention", f"[{b},{h},{s},{dh}] {str(dt)[6:]}",
+              lambda: relpos_flash.relpos_flash_attention(q, k, v, bd, u, kb),
+              lambda: relpos_flash.relpos_flash_attention_plain(q, k, v, bd, u, kb),
+              *tol[dt], timed=(b, dt) == (8, bf16))
+        del bd
+
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return results
@@ -318,10 +399,9 @@ def run_slice(torch, card):
         TorchTextEncoder,
     )
     from sonar_tpu_torch.models.sonar_text import sonar_text_encoder_archs
-    from sonar_tpu_torch.ops.cuda import attn_block, ffn, flash, short_attn
 
-    mods = {"short_qkv_attention": short_attn, "fused_attn_block": attn_block,
-            "fused_int8_ffn": ffn, "flash_attention": flash}
+    text_kernels = ("short_qkv_attention", "fused_attn_block", "fused_int8_ffn",
+                    "flash_attention")
     cfg = sonar_text_encoder_archs.get("basic")
     rng = np.random.default_rng(0)
     tmp = REPO / "build" / "chip_smoke"
@@ -357,8 +437,7 @@ def run_slice(torch, card):
         gpu[mode].predict(corpus[:256], source_lang="eng_Latn", batching="static")
     torch.cuda.synchronize()
 
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+    zero_launches()
     tput = {}
     for mode in ("int8", "bf16"):
         t0 = time.perf_counter()
@@ -378,9 +457,9 @@ def run_slice(torch, card):
     runs["int8 dynamic"] = dyn
     runs["fp32"] = gpu["fp32"].predict(ref_texts, source_lang="eng_Latn", batch_size=5)
     torch.cuda.synchronize()
-    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    launches = read_launches()
     log(f"launches during the slice: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in text_kernels if launches[n] == 0]
     if missing:
         raise AssertionError(f"the main path never launched: {missing}")
 
@@ -425,17 +504,123 @@ def run_slice(torch, card):
     return launches, tput
 
 
+# -- (e) the speech slice -------------------------------------------------------------
+
+
+def _clip(rng, seconds: float):
+    """A tone (100-800 Hz) plus noise, 16 kHz."""
+    import numpy as np
+
+    n = int(seconds * 16000)
+    t = np.arange(n, dtype=np.float64) / 16000.0
+    wave = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 800) * t) + 0.05 * rng.standard_normal(n)
+    return wave.astype(np.float32)
+
+
+def _speech_traffic(rng):
+    """48 clips whose length-sorted batches of 8 fall on each path: 8 of
+    1-2.5 s (S <= 124, plain), 24 of 3-20 s (lognormal, median ~8 s) and 8
+    of 25-40 s (the kernel, S up to 1999), 8 of 45-50 s (S 2499, plain)."""
+    import numpy as np
+
+    secs = list(rng.uniform(1.0, 2.5, 8))
+    secs += list(np.clip(rng.lognormal(np.log(8.0), 0.5, 24), 3.0, 20.0))
+    secs += list(rng.uniform(25.0, 40.0, 8)) + list(rng.uniform(45.0, 50.0, 8))
+    rng.shuffle(secs)
+    return [_clip(rng, s) for s in secs]
+
+
+def run_speech(torch, card):
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_speech_encoder_params, speech_encoder_from_numpy
+    from sonar_tpu_torch.inference_pipelines.speech import (
+        SpeechToEmbeddingModelPipeline,
+        TorchSpeechEncoder,
+    )
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.nn import conformer
+
+    cfg = sonar_speech_encoder_archs.get("english")
+    c = cfg.conformer
+    t0 = time.perf_counter()
+    params = init_speech_encoder_params(cfg, seed=0)
+    log(f"english speech encoder weights drawn in {time.perf_counter() - t0:.1f} s "
+        f"({c.num_layers} Conformer layers, D {c.model_dim}, {c.num_heads} heads, FFN "
+        f"{c.ffn_inner_dim}, depthwise kernel {c.depthwise_kernel_size}, "
+        f"{cfg.num_decoder_layers}-layer {cfg.decoder_norm_order}-LN pooler)")
+    rng = np.random.default_rng(0)
+    clips = _speech_traffic(rng)
+    audio_s = sum(w.shape[0] for w in clips) / 16000.0
+    # The reference subset: one batch of three short clips (plain path, a
+    # padding row) and a 10 s clip alone (the kernel, S 499).
+    ref = [_clip(rng, s) for s in (2.0, 10.0, 1.5, 2.5)]
+
+    def pipeline(dtype, device):
+        model = speech_encoder_from_numpy(params, cfg, dtype, device)
+        return SpeechToEmbeddingModelPipeline(TorchSpeechEncoder(model))
+
+    launches = dict.fromkeys(KERNELS, 0)
+    for mode, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        pipe = pipeline(dtype, DEVICE)
+        pipe.predict(ref, batch_size=3)  # warm: allocator, cuBLAS and cuDNN handles
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        conformer.PLAIN_CALLS = 0
+        t0 = time.perf_counter()
+        emb = pipe.predict(clips, batch_size=8)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts, plain = read_launches(), conformer.PLAIN_CALLS
+        v2 = counts["relpos_flash_attention_v2"]
+        launches = {name: launches[name] + counts[name] for name in KERNELS}
+        if emb.shape != (len(clips), cfg.model_dim) or not np.isfinite(emb).all():
+            raise AssertionError(f"speech {mode}: embeddings of shape {emb.shape}, finite "
+                                 f"{bool(np.isfinite(emb).all())}")
+        log(f"speech {mode}: {len(clips)} clips ({audio_s:.1f} s of audio) in {dt:.2f} s = "
+            f"{len(clips) / dt:.2f} clips/s, RTFx {audio_s / dt:.1f} through predict, on {card}")
+        log(f"speech {mode}: launches {counts}, plain-path rel-pos calls {plain}; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if v2 == 0 or plain == 0:
+            raise AssertionError(f"speech {mode}: a rel-pos path was not taken (v2 {v2}, "
+                                 f"plain {plain})")
+        on_card = pipe.predict(ref, batch_size=3)
+        del pipe
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        on_cpu = pipeline(dtype, "cpu").predict(ref, batch_size=3)
+        cpu_s = time.perf_counter() - t0
+        cos = (on_card * on_cpu).sum(1) / (np.linalg.norm(on_card, axis=1)
+                                           * np.linalg.norm(on_cpu, axis=1))
+        max_abs = float(np.abs(on_card - on_cpu).max())
+        scale = float(np.abs(on_cpu).max())
+        ok = cos.min() >= 0.999 if mode == "bf16" else max_abs <= 1e-3 * scale
+        log(f"speech {mode} card vs CPU on {len(ref)} clips: min cos {cos.min():.6f}, max_abs "
+            f"{max_abs:.3e} (embeddings' max-abs {scale:.3g}) {'ok' if ok else 'FAIL'} "
+            f"(CPU {cpu_s:.1f} s)")
+        if not ok:
+            raise AssertionError(f"speech {mode}: the card disagrees with the CPU reference")
+    return launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     torch, card = setup()
     build()
     results = check_kernels(torch)
-    launches, _ = run_slice(torch, card)
+    text, _ = run_slice(torch, card)
+    speech = run_speech(torch, card)
+    launches = {name: text[name] + speech[name] for name in KERNELS}
+    launched = [name for name in NO_PATH if launches[name] != 0]
+    if launched:
+        raise AssertionError(f"kernels that no path calls were launched: {launched}")
     record = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
-        for name, (src, tpu) in KERNELS.items()
+        for name, (src, tpu, _, _) in KERNELS.items()
     ]
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 The JAX package ``sonar_tpu`` is the reference; this package computes the
 same functions with PyTorch tensors, and replaces each Pallas kernel on the
-text -> embedding path with a CUDA C++ kernel written for Hopper (sm_90a,
-``csrc/``). On CPU tensors every kernel wrapper runs its plain PyTorch
+text -> embedding and speech -> embedding paths with a CUDA C++ kernel
+written for Hopper (sm_90a, ``csrc/``). On CPU tensors every kernel wrapper runs its plain PyTorch
 version, so the whole path runs (and is tested) without a GPU.
 
 Host-side code that never touched JAX (``sonar_tpu.data``,
@@ -11,18 +11,27 @@ Host-side code that never touched JAX (``sonar_tpu.data``,
 package imports nothing that imports ``jax``.
 
 Public entry points mirror ``sonar_tpu``'s:
-``TextToEmbeddingModelPipeline(encoder, tokenizer).predict(...)``.
+``TextToEmbeddingModelPipeline(encoder, tokenizer).predict(...)`` and
+``SpeechToEmbeddingModelPipeline(encoder).predict(waveforms)``.
 """
 
 __version__ = "0.1.0"
 
-_PIPELINES = ("TextToEmbeddingModelPipeline", "TorchTextEncoder")
+_PIPELINES = {
+    "TextToEmbeddingModelPipeline": "text",
+    "TorchTextEncoder": "text",
+    "SpeechToEmbeddingModelPipeline": "speech",
+    "SpeechToEmbeddingPipeline": "speech",
+    "SpeechInferenceParams": "speech",
+    "TorchSpeechEncoder": "speech",
+}
 
 
 def __getattr__(name):
     """Lazy imports keep ``import sonar_tpu_torch`` light."""
     if name in _PIPELINES:
-        import sonar_tpu_torch.inference_pipelines.text as _t
+        import importlib
 
-        return getattr(_t, name)
+        module = importlib.import_module(f"sonar_tpu_torch.inference_pipelines.{_PIPELINES[name]}")
+        return getattr(module, name)
     raise AttributeError(f"module 'sonar_tpu_torch' has no attribute {name!r}")

@@ -1,4 +1,4 @@
-"""Card name -> loaded text encoder (``sonar_tpu.assets.hub.load_text_encoder``).
+"""Card name -> loaded encoder or tokenizer (``sonar_tpu.assets.hub``).
 
 The asset-card registry (``sonar_tpu.assets.store``) needs PyYAML, so it is
 imported only when a card is loaded.
@@ -11,6 +11,7 @@ from typing import TYPE_CHECKING, Any
 import torch
 
 if TYPE_CHECKING:
+    from sonar_tpu_torch.inference_pipelines.speech import TorchSpeechEncoder
     from sonar_tpu_torch.inference_pipelines.text import TorchTextEncoder
 
 
@@ -27,6 +28,21 @@ def load_text_encoder(name: str, dtype: torch.dtype = torch.float32, device: Any
     config = sonar_text_encoder_archs.get(card.arch)
     model = load_text_encoder_checkpoint(cached_path(card.checkpoint), config, dtype)
     return TorchTextEncoder(model, fuse_qkv=fuse_qkv, quantize=quantize, device=device)
+
+
+def load_speech_encoder(name: str, dtype: torch.dtype = torch.float32, device: Any = None,
+                        quantize: bool = False) -> "TorchSpeechEncoder":
+    from sonar_tpu.assets.store import cached_path, default_store
+    from sonar_tpu_torch.assets.convert import load_speech_encoder_checkpoint
+    from sonar_tpu_torch.inference_pipelines.speech import TorchSpeechEncoder
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+
+    card = default_store().model_card(name)
+    if card.family != "sonar_speech_encoder":
+        raise ValueError(f"'{name}' is a {card.family} card, not a speech encoder")
+    config = sonar_speech_encoder_archs.get(card.arch)
+    model = load_speech_encoder_checkpoint(cached_path(card.checkpoint), config, dtype)
+    return TorchSpeechEncoder(model, quantize=quantize, device=device)
 
 
 def load_tokenizer(name: str) -> Any:

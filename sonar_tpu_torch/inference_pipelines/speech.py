@@ -1,0 +1,279 @@
+"""Speech -> embedding pipelines of the port (``sonar_tpu.inference_pipelines.speech``).
+
+``TorchSpeechEncoder`` is the counterpart of ``JitSpeechEncoder``: it binds
+a ``SonarSpeechEncoder`` (with int8 weights if asked) on one device. A batch of waveforms
+is padded to its wave bucket and to a power-of-two row count, and fbank
+(``ops.fbank``), the w2v-BERT frontend, the Conformer and the pooler all run
+on that device. PyTorch runs eagerly: there is no per-bucket compile, and
+``warmup`` builds the CUDA kernels and runs each bucket once.
+
+``SpeechToEmbeddingModelPipeline.predict`` keeps the reference semantics
+(wav paths or in-memory [T] / [C, T] 16 kHz arrays; in-memory clips batched
+length-sorted and returned in input order) on the shared host pipeline
+(``sonar_tpu.data``); ``SpeechToEmbeddingPipeline`` is the TSV-driven form.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from fractions import Fraction
+from pathlib import Path
+from typing import Any, List, Optional, Sequence, Union
+
+import numpy as np
+from sonar_tpu_torch.inference_pipelines.text import add_progress_bar
+from sonar_tpu_torch.models.sonar_speech.model import SonarSpeechEncoder
+from sonar_tpu_torch.ops.fbank import FbankConfig, batched_fbank, num_frames
+from sonar_tpu_torch.ops.precision import matmul_precision_for
+import torch
+
+from sonar_tpu.data.audio import AudioDecoder, FileMapper
+from sonar_tpu.data.collate import round_up_pow2
+from sonar_tpu.data.pipeline import DataPipelineBuilder, read_sequence, read_text
+
+# Wave-length buckets (samples at 16 kHz), as in the JAX package: padding is
+# wasted Conformer work, so the steps stay fine (typical waste under ~20%).
+WAVE_BUCKETS = tuple(
+    int(s * 16000)
+    for s in (1, 1.5, 2, 2.5, 3, 4, 5, 6, 8, 10, 12, 15, 20, 25, 30, 40, 50, 60)
+)
+
+
+def _bucket_len(n: int) -> int:
+    for b in WAVE_BUCKETS:
+        if n <= b:
+            return b
+    return ((n + 16000 - 1) // 16000) * 16000
+
+
+def _normalize_fbank_dtype(dt: Any) -> Optional[torch.dtype]:
+    """Accept torch or numpy dtypes or their names; half precision maps to
+    bf16, as in the JAX package."""
+    if dt is None:
+        return None
+    name = getattr(dt, "__name__", None) or str(dt)
+    name = name.replace("torch.", "").replace("jax.numpy.", "")
+    if name in ("float16", "half", "bfloat16"):
+        return torch.bfloat16
+    if name in ("float32", "float"):
+        return torch.float32
+    raise ValueError(f"unsupported fbank_dtype: {dt!r}")
+
+
+class TorchSpeechEncoder:
+    """Waveform batches -> embeddings, fbank and encoder on one device.
+
+    ``quantize`` stores the linear weights as int8 with per-output-channel
+    scales (r_proj and the depthwise convolution stay in floating point).
+    """
+
+    def __init__(self, model: SonarSpeechEncoder, fbank_config: Optional[FbankConfig] = None,
+                 quantize: bool = False, fbank_dtype: Any = None, device: Any = None):
+        self.device = (torch.device(device) if device is not None
+                       else next(iter(model.buffers())).device)
+        if fbank_config is None:
+            # The mel-bin count follows the model's frontend, so every arch
+            # (the 8-bin toy too) works through the pipeline.
+            fbank_config = FbankConfig(num_mel_bins=model.config.frontend.num_fbank_channels)
+        self.fbank_config = fbank_config
+        self.fbank_dtype = _normalize_fbank_dtype(fbank_dtype)
+        params = model.params.tree()
+        if quantize:
+            from sonar_tpu_torch.ops.quantization import quantize_params_int8
+
+            params = quantize_params_int8(params)
+        self.model = SonarSpeechEncoder(model.config, params, dtype=model.dtype).to(self.device)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.model.dtype
+
+    @property
+    def model_dim(self) -> int:
+        return self.model.config.model_dim
+
+    def warmup(self, batch_size: int = 3, max_wave_len: int = 160000) -> int:
+        """Encode one silent batch per ``WAVE_BUCKETS`` entry up to
+        ``max_wave_len`` (this builds the CUDA kernels on first use); returns
+        the number of buckets."""
+        n = 0
+        for b in WAVE_BUCKETS:
+            if b > max_wave_len:
+                break
+            self.encode_waveforms([np.zeros((b,), np.float32)] * batch_size, materialize=False)
+            n += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n
+
+    def encode_waveforms(self, waves: List[np.ndarray], materialize: bool = True) -> Any:
+        """List of [T] float32 mono waveforms -> [N, model_dim] fp32 numpy;
+        ``materialize=False`` keeps the embeddings on the device."""
+        b = len(waves)
+        max_t = _bucket_len(max(w.shape[0] for w in waves))
+        b_pad = round_up_pow2(b)
+        batch = np.zeros((b_pad, max_t), np.float32)
+        lens = np.zeros((b_pad,), np.int32)
+        for i, w in enumerate(waves):
+            batch[i, : w.shape[0]] = w
+            lens[i] = w.shape[0]
+        waves_t = torch.from_numpy(batch).to(self.device)
+        lens_t = torch.from_numpy(lens).to(self.device)
+        with torch.inference_mode(), matmul_precision_for(self.dtype):
+            feats, frame_lens = batched_fbank(
+                waves_t, lens_t, num_frames(max_t, self.fbank_config), self.fbank_config)
+            if self.fbank_dtype is not None:
+                feats = feats.to(self.fbank_dtype)
+            emb = self.model(feats, frame_lens).sentence_embeddings[:b]
+        return emb.float().cpu().numpy() if materialize else emb
+
+
+def _resolve_speech_encoder(encoder: Any, fbank_dtype: Any = None,
+                            device: Any = None) -> TorchSpeechEncoder:
+    if isinstance(encoder, TorchSpeechEncoder):
+        if fbank_dtype is not None:
+            encoder.fbank_dtype = _normalize_fbank_dtype(fbank_dtype)
+        return encoder
+    if isinstance(encoder, str):
+        from sonar_tpu_torch.assets.hub import load_speech_encoder
+
+        enc = load_speech_encoder(encoder, device=device)
+        enc.fbank_dtype = _normalize_fbank_dtype(fbank_dtype)
+        return enc
+    if isinstance(encoder, SonarSpeechEncoder):
+        return TorchSpeechEncoder(encoder, fbank_dtype=fbank_dtype, device=device)
+    raise TypeError("encoder must be a card name, TorchSpeechEncoder, or SonarSpeechEncoder")
+
+
+def _to_mono_wave(decoded: dict) -> np.ndarray:
+    """Decoded audio -> mono 16 kHz float32 (channels averaged; other rates
+    resampled polyphase on the host)."""
+    wave = np.asarray(decoded["waveform"], np.float32)
+    if wave.ndim == 2:
+        wave = wave.mean(axis=1) if wave.shape[1] > 1 else wave[:, 0]
+    rate = float(decoded.get("sample_rate", 16000.0))
+    if rate != 16000.0:
+        from scipy.signal import resample_poly
+
+        frac = Fraction(16000, int(rate)).limit_denominator(1000)
+        wave = resample_poly(wave, frac.numerator, frac.denominator).astype(np.float32)
+    return wave
+
+
+class SpeechModelPipelineInterface:
+    """Shared audio decoding of the speech pipelines."""
+
+    def __init__(self):
+        self.audio_decoder = AudioDecoder()
+
+    def _decode_audio(self, inp: Any) -> np.ndarray:
+        if isinstance(inp, torch.Tensor):
+            inp = inp.detach().float().cpu().numpy()
+        if isinstance(inp, np.ndarray):
+            return _to_mono_wave(self.audio_decoder(inp))
+        return _to_mono_wave(self.audio_decoder(Path(str(inp))))
+
+
+class SpeechToEmbeddingModelPipeline(SpeechModelPipelineInterface):
+    """Waveforms or wav paths -> [N, model_dim] float32 embeddings."""
+
+    def __init__(self, encoder: Union[str, TorchSpeechEncoder, SonarSpeechEncoder],
+                 device: Any = None, fbank_dtype: Any = None) -> None:
+        super().__init__()
+        self.model = _resolve_speech_encoder(encoder, fbank_dtype=fbank_dtype, device=device)
+
+    def warmup(self, batch_size: int = 3, max_wave_len: int = 160000) -> int:
+        return self.model.warmup(batch_size=batch_size, max_wave_len=max_wave_len)
+
+    def predict(
+        self,
+        input: Sequence,
+        batch_size: int = 3,
+        n_parallel: int = 1,
+        pad_idx: int = 0,
+        n_prefetched_batches: int = 2,
+        progress_bar: bool = False,
+    ) -> np.ndarray:
+        items = list(input)
+        # In-memory clips are batched length-sorted (each batch pads to its
+        # longest clip's bucket), then returned in input order; paths stay in
+        # arrival order (their durations are unknown before decoding).
+        sorting_index = None
+        if items and all(hasattr(w, "shape") for w in items):
+            sorting_index = np.argsort([int(w.shape[-1]) for w in items], kind="stable")
+            items = [items[i] for i in sorting_index]
+        pipeline = (
+            read_sequence(items)
+            .map(self._decode_audio, num_parallel_calls=n_parallel)
+            .bucket(batch_size)
+            .prefetch(n_prefetched_batches)
+            .map(self.model.encode_waveforms)
+            .and_return()
+        )
+        iterable = pipeline
+        if progress_bar:
+            iterable = add_progress_bar(pipeline, inputs=items, batch_size=batch_size)
+        results = list(iter(iterable))
+        if not results:
+            return np.zeros((0, self.model.model_dim), np.float32)
+        out = np.concatenate(results, axis=0)
+        if sorting_index is not None:
+            out = out[np.argsort(sorting_index, kind="stable")]
+        return out
+
+
+# -- TSV-driven builders --------------------------------------------------------------
+
+
+@dataclass
+class SpeechInferenceParams:
+    data_file: Path
+    audio_root_dir: Path
+    audio_path_index: int
+    batch_size: int
+    fbank_dtype: object = None
+    target_lang: Optional[str] = None
+    pad_idx: int = 0
+    device: object = None
+    n_parallel: int = 4
+    n_prefetched_batches: int = 4
+
+
+class AudioToFbankDataPipelineBuilder:
+    """TSV -> decoded waveform batches (fbank runs on the device downstream)."""
+
+    def prebuild_pipeline(self, context: SpeechInferenceParams) -> DataPipelineBuilder:
+        mapper = FileMapper(root_dir=context.audio_root_dir, cached_fd_count=10)
+        decoder = AudioDecoder()
+
+        def split_tsv(line: str) -> dict:
+            return {"audio": line.split("\t")[context.audio_path_index]}
+
+        def decode(entry: dict) -> np.ndarray:
+            return _to_mono_wave(decoder(entry["data"]))
+
+        return (
+            read_text(context.data_file)
+            .skip(1)
+            .map(split_tsv)
+            .map(mapper, selector="audio", num_parallel_calls=context.n_parallel)
+            .map(lambda item: decode(item["audio"]), num_parallel_calls=context.n_parallel)
+            .bucket(context.batch_size)
+            .prefetch(context.n_prefetched_batches)
+        )
+
+
+class SpeechToEmbeddingPipeline:
+    def __init__(self, model: Union[str, TorchSpeechEncoder, SonarSpeechEncoder]) -> None:
+        self.model = _resolve_speech_encoder(model)
+        self._audio_builder = AudioToFbankDataPipelineBuilder()
+
+    @classmethod
+    def load_model_from_name(cls, encoder_name: str) -> "SpeechToEmbeddingPipeline":
+        return cls(encoder_name)
+
+    def prebuild_pipeline(self, context: SpeechInferenceParams) -> DataPipelineBuilder:
+        return self._audio_builder.prebuild_pipeline(context).map(self.model.encode_waveforms)
+
+    def build_pipeline(self, context: SpeechInferenceParams) -> Any:
+        return self.prebuild_pipeline(context).and_return()

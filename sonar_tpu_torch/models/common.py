@@ -1,4 +1,5 @@
-"""Shared model-layer types: vocabulary info, encoder output, arch registry.
+"""Shared model-layer types: vocabulary info, encoder output, parameter
+tree, arch registry.
 
 Counterpart of ``sonar_tpu.models.common`` without the JAX pytree
 registration.
@@ -7,9 +8,10 @@ registration.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Generic, Optional, TypeVar
+from typing import Any, Callable, Dict, Generic, Optional, TypeVar
 
 import torch
+from torch import nn
 
 
 @dataclass(frozen=True)
@@ -32,6 +34,28 @@ class SonarEncoderOutput:
     encoded_seqs: torch.Tensor
     sentence_embeddings: torch.Tensor
     seq_lens: Optional[torch.Tensor]
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as an ``nn.Module``: one sub-module per
+    dict, one (persistent) buffer per tensor. ``tree()`` gives the dict back
+    with the module's current tensors (after ``.to(device)`` too)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        self._keys = list(tree)
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            else:
+                self.register_buffer(key, value)
+
+    def tree(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for key in self._keys:
+            value = getattr(self, key)
+            out[key] = value.tree() if isinstance(value, ParamTree) else value
+        return out
 
 
 C = TypeVar("C")

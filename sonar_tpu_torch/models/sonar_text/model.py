@@ -7,49 +7,28 @@ Port of ``SonarTextEncoder.apply`` of ``sonar_tpu.models.sonar_text.model``:
 - N pre-LN encoder layers; a trailing stack LN only when the config is
   ``normalize_before``,
 - the model-level final LayerNorm,
-- MEAN / MAX / LAST pooling.
+- MEAN / MAX / LAST pooling, or the ATTENTION pooler (a small post- or
+  pre-LN decoder attending from one BOS token, then a projection).
 
 The parameters are an ``nn.Module`` tree that mirrors the JAX pytree key
 for key (a sub-module per dict, a buffer per tensor, layers stacked on a
 leading L axis), so ``state_dict()`` names follow the checkpoint layout.
-``apply_packed`` and the ATTENTION pooler are not ported yet.
+``apply_packed`` is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Optional
 
-from sonar_tpu_torch.models.common import SonarEncoderOutput
+from sonar_tpu_torch.models.common import ParamTree, SonarEncoderOutput
 from sonar_tpu_torch.models.sonar_text.config import SonarTextEncoderConfig
 from sonar_tpu_torch.nn.core import Params, layer_norm
 from sonar_tpu_torch.nn.frontend import EmbeddingFrontend
-from sonar_tpu_torch.nn.pooling import Pooling, static_pool
+from sonar_tpu_torch.nn.pooling import Pooling, attention_pool, static_pool
 from sonar_tpu_torch.nn.transformer import encoder_stack
 from sonar_tpu_torch.ops.masks import additive_bias, length_mask
 import torch
 from torch import nn
-
-
-class ParamTree(nn.Module):
-    """A nested dict of tensors held as an ``nn.Module``: one sub-module per
-    dict, one (persistent) buffer per tensor. ``tree()`` gives the dict back
-    with the module's current tensors (after ``.to(device)`` too)."""
-
-    def __init__(self, tree: Dict[str, Any]):
-        super().__init__()
-        self._keys = list(tree)
-        for key, value in tree.items():
-            if isinstance(value, dict):
-                self.add_module(key, ParamTree(value))
-            else:
-                self.register_buffer(key, value)
-
-    def tree(self) -> Params:
-        out: Params = {}
-        for key in self._keys:
-            value = getattr(self, key)
-            out[key] = value.tree() if isinstance(value, ParamTree) else value
-        return out
 
 
 class SonarTextEncoder(nn.Module):
@@ -63,8 +42,6 @@ class SonarTextEncoder(nn.Module):
         self.config = config
         self.dtype = dtype
         self.pooling = Pooling(config.pooling.lower())
-        if self.pooling == Pooling.ATTENTION:
-            raise NotImplementedError("the ATTENTION pooler is not ported yet")
         if config.learned_pos:
             raise NotImplementedError("learned positional embeddings are not ported")
 
@@ -87,6 +64,9 @@ class SonarTextEncoder(nn.Module):
             legacy_pad_idx=config.vocab_info.pad_idx,
             no_pos=config.no_token_positional_embeddings,
         )
+        if self.pooling == Pooling.ATTENTION:
+            self.pooler_frontend = EmbeddingFrontend(
+                model_dim=config.embedding_dim or config.model_dim, max_seq_len=1)
         self.params = ParamTree(params)
 
     def forward(self, seqs: torch.Tensor,
@@ -108,7 +88,14 @@ class SonarTextEncoder(nn.Module):
         if "layer_norm" in params["encoder"]:
             x = layer_norm(params["encoder"]["layer_norm"], x)
         encoded = layer_norm(params["layer_norm"], x)
-        embeddings = static_pool(encoded, seq_lens, self.pooling)
+        if self.pooling == Pooling.ATTENTION:
+            embeddings = attention_pool(
+                params["pooler"], self.pooler_frontend, encoded, seq_lens, bos_idx=0,
+                num_heads=cfg.num_decoder_attn_heads, activation=cfg.activation_fn,
+                norm_order="pre" if cfg.normalize_before else "post",
+            )
+        else:
+            embeddings = static_pool(encoded, seq_lens, self.pooling)
         return SonarEncoderOutput(
             encoded_seqs=encoded, sentence_embeddings=embeddings, seq_lens=seq_lens
         )

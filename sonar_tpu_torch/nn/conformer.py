@@ -1,0 +1,252 @@
+"""w2v-BERT Conformer blocks with Transformer-XL rel-pos attention
+(``sonar_tpu.nn.conformer``).
+
+block = x + 0.5 ffn1 -> x + rel-pos self-attention -> x + conv module ->
+x + 0.5 ffn2 -> LayerNorm, every sub-block pre-LN, SiLU FFNs.
+
+The rel-pos score uses the trig factorisation of the JAX package: the table
+rows are sinusoids, so z . r(i - j) = w_i . basis_j with
+w_i = [z_s sin(i w) + z_c cos(i w) | z_c sin(i w) - z_s cos(i w)] and
+basis_j = [cos(j w) | sin(j w)], where z = (q_i + v_bias) r_proj per head
+with r_proj's input columns de-interleaved (even table columns first).
+bd is one product against the [S, D] basis; no [B, H, S, 2S - 1] table and
+no rel-shift.
+
+Dispatch is the JAX package's, on shapes only: 128 <= S <= 2048, head dim
+64 or 128 and a key-padding bias take ``relpos_flash_attention_v2`` (its
+wrapper then runs the CUDA kernel for CUDA tensors, its plain version for
+CPU tensors); everything else takes ``rel_pos_attend_plain``, the math of
+the JAX package's XLA lowering. ``PLAIN_CALLS`` counts the latter.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+from sonar_tpu_torch.nn.core import Params, layer_norm, linear
+from sonar_tpu_torch.nn.transformer import _merge_heads, _split_heads, layer_slice, num_stacked_layers
+from sonar_tpu_torch.ops.attention import softmax
+import torch
+
+PLAIN_CALLS = 0  # rel-pos attention calls outside the kernel gate
+
+
+@dataclass(frozen=True)
+class ConformerConfig:
+    model_dim: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    ffn_inner_dim: int = 4096
+    depthwise_kernel_size: int = 31
+    dropout_p: float = 0.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.model_dim // self.num_heads
+
+
+# -- relative positions -------------------------------------------------------
+
+
+def _rel_inv_freq(dim: int) -> np.ndarray:
+    """fairseq2/ESPnet frequencies: exp(-2i ln(10000) / dim)."""
+    return np.exp(np.arange(0, dim, 2, dtype=np.float64) * (-np.log(10000.0) / dim))
+
+
+def rel_pos_table(seq_len: int, dim: int) -> torch.Tensor:
+    """[2S - 1, D] fp32 encodings of distances S - 1 .. -(S - 1), with sin on
+    the even and cos on the odd columns (the checkpoints' convention)."""
+    positions = np.arange(seq_len - 1, -seq_len, -1, dtype=np.float64)
+    args = positions[:, None] * _rel_inv_freq(dim)[None, :]
+    table = np.zeros((positions.shape[0], dim))
+    table[:, 0::2] = np.sin(args)
+    table[:, 1::2] = np.cos(args)
+    return torch.from_numpy(table.astype(np.float32))
+
+
+def rel_pos_sin_cos_basis(seq_len: int, dim: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(si, ci, basis): the [S, D/2] sin/cos i-rotations and the [S, D]
+    cos|sin j-basis of the factorisation, as fp32 numpy arrays."""
+    args = np.arange(seq_len, dtype=np.float64)[:, None] * _rel_inv_freq(dim)[None, :]
+    si = np.sin(args).astype(np.float32)
+    ci = np.cos(args).astype(np.float32)
+    return si, ci, np.concatenate([ci, si], axis=-1)
+
+
+@functools.lru_cache(maxsize=64)
+def _trig_tables(seq_len: int, dim: int, dtype: torch.dtype,
+                 device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """``rel_pos_sin_cos_basis`` rounded to ``dtype`` on ``device``, made once
+    per shape (every layer of a batch reads the same tables; read only)."""
+    return tuple(torch.from_numpy(t).to(device=device, dtype=dtype).contiguous()
+                 for t in rel_pos_sin_cos_basis(seq_len, dim))
+
+
+def _deinterleave(dim: int) -> torch.Tensor:
+    return torch.from_numpy(np.concatenate([np.arange(0, dim, 2), np.arange(1, dim, 2)]))
+
+
+def relpos_heads(r_proj_kernel: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """r_proj kernel [..., D, D] -> the kernel's per-head layout
+    [..., H, D, Dh], input columns de-interleaved, contiguous."""
+    *lead, d, _ = r_proj_kernel.shape
+    w = r_proj_kernel.reshape(*lead, d, num_heads, d // num_heads).transpose(-3, -2)
+    return w[..., _deinterleave(d).to(w.device), :].contiguous()
+
+
+def with_relpos_heads(attn: Params, num_heads: int) -> Params:
+    """A copy of a rel-pos attention tree (one layer's or stacked) whose
+    ``sdpa`` also holds ``wr_heads``, ``relpos_heads`` of its r_proj: the
+    kernel path reads it, so it is built once, at load."""
+    sdpa = dict(attn["sdpa"], wr_heads=relpos_heads(attn["sdpa"]["r_proj"]["kernel"], num_heads))
+    return dict(attn, sdpa=sdpa)
+
+
+def _use_relpos_kernel(bias: Optional[torch.Tensor], s: int, hd: int) -> bool:
+    """The JAX package's gate: the kernel reads a broadcastable [B, 1, 1, S]
+    key mask only, and its shared-memory plan covers 128 <= S <= 2048."""
+    if bias is not None and not (bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[-2] == 1):
+        return False
+    return 128 <= s <= 2048 and hd in (64, 128)
+
+
+def rel_pos_qkv(params: Params, x: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, ...]:
+    """[B, S, D] -> per-head q, k, v [B, H, S, Dh]."""
+    return tuple(_split_heads(linear(params[p], x), num_heads)
+                 for p in ("q_proj", "k_proj", "v_proj"))
+
+
+def rel_pos_attend_plain(
+    params: Params,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    si: torch.Tensor,
+    ci: torch.Tensor,
+    basis: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    cfg: ConformerConfig,
+) -> torch.Tensor:
+    """The math of the JAX package's XLA lowering (``rel_pos_attend_xla``):
+    z, w, bd and ac in the compute dtype (bf16 for bf16 models), the scaled
+    scores in fp32, fp32 softmax, P rounded to the model dtype. -> the
+    attention output [B, S, D] after ``output_proj``."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    d, h, hd = cfg.model_dim, cfg.num_heads, cfg.head_dim
+    half = d // 2
+    dt = q.dtype
+    acc = torch.float32 if dt == torch.float32 else dt
+    u = params["sdpa"]["u_bias"].to(dt)
+    vb = params["sdpa"]["v_bias"].to(dt)
+    wr = params["sdpa"]["r_proj"]["kernel"].to(acc).reshape(d, h, hd)
+    wr = wr[_deinterleave(d).to(wr.device)]                              # [D, H, Dh]
+    qv = (q + vb[None, :, None, :]).to(acc)
+    z = torch.einsum("bhie,dhe->bhid", qv, wr)                           # [B, H, S, D]
+    z_s, z_c = z[..., :half], z[..., half:]
+    si, ci = si.to(acc), ci.to(acc)
+    w = torch.cat([z_s * si + z_c * ci, z_c * si - z_s * ci], dim=-1)
+    bd = w @ basis.to(acc).transpose(0, 1)                               # [B, H, S, S]
+    ac = (q + u[None, :, None, :]) @ k.transpose(-1, -2)
+    # The JAX lowering multiplies by a numpy float64 scale, which promotes
+    # the bf16 sum to fp32: the scores and the mask bias are fp32.
+    scores = (ac + bd).float() * (1.0 / math.sqrt(hd))
+    if bias is not None:
+        scores = scores + bias.float()
+    probs = softmax(scores).to(dt)
+    out = (probs.float() @ v.float()).to(dt)
+    return linear(params["output_proj"], _merge_heads(out))
+
+
+def rel_pos_attention(
+    params: Params,
+    x: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    cfg: ConformerConfig,
+) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, D]: score(i, j) = (q_i + u) k_j + (q_i + v) r_(i-j),
+    scaled by Dh^-0.5; ``bias`` broadcasts over [B, H, S, S]. ``params``
+    comes from ``with_relpos_heads`` (the kernel path reads ``wr_heads``)."""
+    b, s, d = x.shape
+    q, k, v = rel_pos_qkv(params, x, cfg.num_heads)
+    if _use_relpos_kernel(bias, s, cfg.head_dim):
+        from sonar_tpu_torch.ops.cuda.relpos_flash import relpos_flash_attention_v2
+
+        sdpa = params["sdpa"]
+        si, ci, basis = _trig_tables(s, d, x.dtype, x.device)
+        out = relpos_flash_attention_v2(
+            q, k, v, sdpa["wr_heads"].to(x.dtype), si, ci, basis,
+            sdpa["u_bias"].to(x.dtype).contiguous(), sdpa["v_bias"].to(x.dtype).contiguous(),
+            None if bias is None else bias[:, 0, 0, :].float(),
+        )
+        return linear(params["output_proj"], _merge_heads(out))
+    si, ci, basis = _trig_tables(s, d, torch.float32, x.device)
+    return rel_pos_attend_plain(params, q, k, v, si, ci, basis, bias, cfg)
+
+
+# -- convolution module --------------------------------------------------------
+
+
+def conv_module(params: Params, x: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, S, D] -> [B, S, D]: pointwise (2D) + GLU -> depthwise conv (groups
+    D, zero padding (K - 1) // 2 before and the rest after) -> inference
+    batch-norm in fp32 -> SiLU -> pointwise. Padded positions are zeroed
+    first, so nothing leaks across the padding boundary."""
+    if pad_mask is not None:
+        x = torch.where(pad_mask[..., None], x, x.new_zeros(()))
+    y = linear(params["pointwise_conv1"], x)
+    a, g = y.chunk(2, dim=-1)
+    y = a * torch.sigmoid(g)                                             # GLU
+    kernel = params["depthwise_conv"]["kernel"].to(x.dtype)              # [K, 1, D]
+    ksize = kernel.shape[0]
+    pad = (ksize - 1) // 2
+    y = torch.nn.functional.pad(y.transpose(1, 2), (pad, ksize - 1 - pad))
+    y = torch.nn.functional.conv1d(y, kernel.permute(2, 1, 0), groups=y.shape[1])
+    y = y.transpose(1, 2)
+    bn = params["batch_norm"]
+    # As the JAX module: fp32 statistics, with rsqrt(var + eps) in the
+    # parameters' own dtype.
+    y32 = (y.float() - bn["running_mean"]) * torch.rsqrt(bn["running_var"] + 1e-5)
+    y = (y32 * bn["weight"] + bn["bias"]).to(x.dtype)
+    y = y * torch.sigmoid(y)                                             # SiLU
+    return linear(params["pointwise_conv2"], y)
+
+
+# -- block and stack ---------------------------------------------------------------
+
+
+def _half_ffn(params: Params, x: torch.Tensor) -> torch.Tensor:
+    h = linear(params["inner_proj"], x)
+    return linear(params["output_proj"], h * torch.sigmoid(h))
+
+
+def conformer_block(
+    params: Params,
+    x: torch.Tensor,
+    attn_bias: Optional[torch.Tensor],
+    pad_mask: Optional[torch.Tensor],
+    cfg: ConformerConfig,
+) -> torch.Tensor:
+    x = x + 0.5 * _half_ffn(params["ffn1"], layer_norm(params["ffn1_layer_norm"], x))
+    x = x + rel_pos_attention(params["self_attn"], layer_norm(params["self_attn_layer_norm"], x),
+                              attn_bias, cfg)
+    x = x + conv_module(params["conv"], layer_norm(params["conv_layer_norm"], x), pad_mask)
+    x = x + 0.5 * _half_ffn(params["ffn2"], layer_norm(params["ffn2_layer_norm"], x))
+    return layer_norm(params["layer_norm"], x)
+
+
+def conformer_stack(
+    stacked: Params,
+    x: torch.Tensor,
+    attn_bias: Optional[torch.Tensor],
+    pad_mask: Optional[torch.Tensor],
+    cfg: ConformerConfig,
+) -> torch.Tensor:
+    """Run the L stacked Conformer blocks in order."""
+    for i in range(num_stacked_layers(stacked)):
+        x = conformer_block(layer_slice(stacked, i), x, attn_bias, pad_mask, cfg)
+    return x

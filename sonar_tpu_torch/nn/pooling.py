@@ -1,14 +1,19 @@
 """Sequence pooling to sentence embeddings (``sonar_tpu.nn.pooling``).
 
-MEAN keeps the reference's ``1 / (len + 1e-7)`` epsilon.
+MEAN keeps the reference's ``1 / (len + 1e-7)`` epsilon. ``attention_pool``
+is the encoders' ATTENTION pooler (``AttentionEncoderOutputPooler``): a
+small Transformer decoder attends from one BOS embedding to the encoded
+sequence, then an output projection.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Optional
+from typing import Any, Optional
 
-from sonar_tpu_torch.ops.masks import length_mask
+from sonar_tpu_torch.nn.core import Params, layer_norm, linear
+from sonar_tpu_torch.nn.transformer import decoder_stack
+from sonar_tpu_torch.ops.masks import additive_bias, length_mask
 import torch
 
 
@@ -50,3 +55,29 @@ def static_pool(
         return total * (1.0 / (denom + 1e-7))[:, None]
 
     raise NotImplementedError(f"static pooling does not support {pooling}")
+
+
+def attention_pool(
+    pooler: Params,
+    frontend: Any,
+    encoded: torch.Tensor,
+    seq_lens: Optional[torch.Tensor],
+    bos_idx: int,
+    num_heads: int,
+    activation: str,
+    norm_order: str,
+) -> torch.Tensor:
+    """[B, S, D] -> [B, D]: the decoder stack of ``pooler`` runs on the
+    embedding of token ``bos_idx`` (``frontend``) against ``encoded``, keys
+    past ``seq_lens`` masked; then ``projection_out``."""
+    b, s, _ = encoded.shape
+    memory_bias = None
+    if seq_lens is not None:
+        memory_bias = additive_bias(length_mask(seq_lens, s))[:, None, None, :]
+    bos = torch.full((b, 1), bos_idx, dtype=torch.int32, device=encoded.device)
+    x = frontend(pooler["decoder_frontend"], bos, dtype=encoded.dtype)
+    x = decoder_stack(pooler["decoder"]["layers"], x, None, encoded, memory_bias, num_heads,
+                      activation, norm_order=norm_order)
+    if "layer_norm" in pooler["decoder"]:
+        x = layer_norm(pooler["decoder"]["layer_norm"], x)
+    return linear(pooler["projection_out"], x)[:, 0]

@@ -1,8 +1,11 @@
-"""Transformer encoder stack (encoder side of ``sonar_tpu.nn.transformer``).
+"""Transformer encoder and decoder stacks (``sonar_tpu.nn.transformer``).
 
-Layer semantics of fairseq2's ``StandardTransformerEncoderLayer`` as SONAR
-instantiates it: pre-LN (or post-LN) residual blocks, MHA with biased
-q/k/v/output projections, FFN = inner_proj -> activation -> output_proj.
+Layer semantics of fairseq2's ``StandardTransformerEncoderLayer`` and
+``StandardTransformerDecoderLayer`` as SONAR instantiates them: pre-LN (or
+post-LN) residual blocks, MHA with biased q/k/v/output projections, FFN =
+inner_proj -> activation -> output_proj. The decoder runs over the full
+sequence (the attention poolers); the KV cache and incremental decoding
+are not ported yet.
 
 Parameters are nested dicts in the JAX layout; the per-layer tensors of a
 stack carry a leading L axis, and ``encoder_stack`` loops over it.
@@ -210,4 +213,47 @@ def encoder_stack(
     for i in range(num_stacked_layers(stacked_params)):
         x = encoder_layer(layer_slice(stacked_params, i), x, bias, num_heads,
                           activation, norm_order)
+    return x
+
+
+def decoder_layer(
+    params: Params,
+    x: torch.Tensor,
+    self_bias: Optional[torch.Tensor],
+    memory: torch.Tensor,
+    memory_bias: Optional[torch.Tensor],
+    num_heads: int,
+    activation: str,
+    norm_order: str = "pre",
+) -> torch.Tensor:
+    """Self-attention, cross-attention on ``memory``, FFN; each residual."""
+    x = _residual_block(
+        params["self_attn_layer_norm"], x,
+        lambda h: mha(params["self_attn"], h, h, self_bias, num_heads), norm_order,
+    )
+    x = _residual_block(
+        params["encoder_decoder_attn_layer_norm"], x,
+        lambda h: mha(params["encoder_decoder_attn"], h, memory, memory_bias, num_heads),
+        norm_order,
+    )
+    return _residual_block(
+        params["ffn_layer_norm"], x,
+        lambda h: ffn(params["ffn"], h, activation), norm_order,
+    )
+
+
+def decoder_stack(
+    stacked_params: Params,
+    x: torch.Tensor,
+    self_bias: Optional[torch.Tensor],
+    memory: torch.Tensor,
+    memory_bias: Optional[torch.Tensor],
+    num_heads: int,
+    activation: str,
+    norm_order: str = "pre",
+) -> torch.Tensor:
+    """Run the L stacked decoder layers in order."""
+    for i in range(num_stacked_layers(stacked_params)):
+        x = decoder_layer(layer_slice(stacked_params, i), x, self_bias, memory, memory_bias,
+                          num_heads, activation, norm_order)
     return x

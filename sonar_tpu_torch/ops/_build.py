@@ -2,7 +2,8 @@
 
 The sources under ``sonar_tpu_torch/csrc/`` are compiled by ``nvcc`` for
 Hopper (``sm_90a``) into one shared library with a plain C interface, at
-first use, into ``build/sonar_tpu_torch/`` at the repository root. The build
+first use, into ``build/sonar_tpu_torch/`` at the repository root: one
+``nvcc`` per source file, all started together, then one link. The build
 is keyed by a hash of the sources: an unchanged tree reuses the library, an
 edited one rebuilds it. A failed build raises with the compiler's output;
 there is no fallback.
@@ -28,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sonar_tpu_torch"
 LIB_NAME = "libsonar_tpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -39,6 +40,8 @@ _SIGNATURES = {
     ),
     "sonar_fused_int8_ffn": [_P, _I, _I, _I, _I, _I] + [_P] * 14 + [_P],
     "sonar_fused_attn_block": [_P, _I, _I, _I, _I, _I] + [_P] * 16 + [_P],
+    "sonar_relpos_flash_v2": [_P] * 11 + [_I] * 5 + [_LL] * 9 + [_I, _P],
+    "sonar_relpos_flash_v1": [_P] * 7 + [_I] * 4 + [_LL] * 9 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -80,17 +83,26 @@ def build() -> Path:
     if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    nvcc = _nvcc()
+    pipe = dict(stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    procs = [(cmd, subprocess.Popen(cmd, **pipe)) for cmd in (
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs))]
+    runs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    if all(rc == 0 for _, _, rc in runs):
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, **pipe)
+        runs.append((link, proc.stdout, proc.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(f"$ {' '.join(c)}\n{o}" for c, o, _ in runs))
+    failed = [f"{' '.join(c)} (exit code {rc}):\n{o}" for c, o, rc in runs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib_path)
     stamp.write_text(digest)
     return lib_path

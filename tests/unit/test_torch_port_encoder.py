@@ -305,6 +305,69 @@ def test_fairseq2_checkpoint_loads_in_both_packages(tmp_path):
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-4)
 
 
+def _pooler_state(cfg, pooler):
+    """An ATTENTION pooler's pytree as fairseq2 ``pooler.*`` state entries."""
+    state = {"pooler.decoder_frontend.embed.weight": pooler["decoder_frontend"]["embed"]["weight"],
+             "pooler.projection_out.weight": pooler["projection_out"]["kernel"].T,
+             "pooler.projection_out.bias": pooler["projection_out"]["bias"]}
+    if "layer_norm" in pooler["decoder"]:
+        for k in ("weight", "bias"):
+            state[f"pooler.decoder.layer_norm.{k}"] = pooler["decoder"]["layer_norm"][k]
+    layers = pooler["decoder"]["layers"]
+    for i in range(cfg.num_decoder_layers):
+        p = f"pooler.decoder.layers.{i}"
+        for blk, names in (("self_attn", ("q_proj", "k_proj", "v_proj", "output_proj")),
+                           ("encoder_decoder_attn", ("q_proj", "k_proj", "v_proj", "output_proj")),
+                           ("ffn", ("inner_proj", "output_proj"))):
+            for n in names:
+                state[f"{p}.{blk}.{n}.weight"] = layers[blk][n]["kernel"][i].T
+                state[f"{p}.{blk}.{n}.bias"] = layers[blk][n]["bias"][i]
+        for ln in ("self_attn_layer_norm", "encoder_decoder_attn_layer_norm", "ffn_layer_norm"):
+            for k in ("weight", "bias"):
+                state[f"{p}.{ln}.{k}"] = layers[ln][k][i]
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in state.items()}
+
+
+@pytest.mark.parametrize("normalize_before", [False, True])
+def test_toy_attention_pooler_matches_jax(tmp_path, normalize_before):
+    """The ATTENTION pooler (a post- or pre-LN decoder attending from one BOS
+    token, then a biased projection), with weights from the JAX init and
+    through the fairseq2 checkpoint bridge; fp32 atol 2e-4 as the encoder."""
+    cfg = dataclasses.replace(jax_archs.get("toy"), pooling="attention",
+                              normalize_before=normalize_before)
+    tcfg = dataclasses.replace(sonar_text_encoder_archs.get("toy"), pooling="attention",
+                               normalize_before=normalize_before)
+    params = _jax_params(cfg, seed=5)
+    got_shapes = {k: v.shape for k, v in ckpt.flatten_params(
+        init_text_encoder_params(tcfg, seed=0)).items()}
+    assert got_shapes == {k: v.shape for k, v in ckpt.flatten_params(params).items()}
+
+    rng = np.random.default_rng(8)
+    seqs, lens = _batch(rng, 3, 12, 1000, [12, 5, 1])
+    want = JaxEncoder(cfg).apply(params, jnp.asarray(seqs), jnp.asarray(lens)).sentence_embeddings
+    with torch.inference_mode():
+        got = text_encoder_from_numpy(params, tcfg)(
+            torch.from_numpy(seqs), torch.from_numpy(lens)).sentence_embeddings
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-4)
+
+    state = {**_fairseq2_state(cfg, params), **_pooler_state(cfg, params["pooler"])}
+    if normalize_before:
+        for k in ("weight", "bias"):
+            state[f"encoder.layer_norm.{k}"] = torch.tensor(params["encoder"]["layer_norm"][k])
+    path = tmp_path / "encoder.pt"
+    torch.save({"model": state}, path)
+    flat = ckpt.load_torch_state_dict(path)
+    jax_tree = ckpt.flatten_params(ckpt.text_encoder_params(flat))
+    port_tree = ckpt.flatten_params(text_encoder_params_from_state(flat))
+    assert jax_tree.keys() == port_tree.keys()
+    for k in jax_tree:
+        np.testing.assert_array_equal(jax_tree[k], port_tree[k])
+    with torch.inference_mode():
+        loaded = load_text_encoder_checkpoint(path, tcfg)(
+            torch.from_numpy(seqs), torch.from_numpy(lens)).sentence_embeddings
+    np.testing.assert_allclose(_np(loaded), _np(want), atol=2e-4)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_hub_loads_a_card_like_the_jax_hub(tmp_path, dtype):
     from sonar_tpu.assets import hub as jax_hub

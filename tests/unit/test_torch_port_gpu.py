@@ -14,7 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from sonar_tpu_torch.ops.cuda import attn_block, ffn, flash, short_attn  # noqa: E402
+from sonar_tpu_torch.nn.conformer import _trig_tables  # noqa: E402
+from sonar_tpu_torch.ops.cuda import attn_block, ffn, flash, relpos_flash, short_attn  # noqa: E402
 from sonar_tpu_torch.ops.quantization import quantize_kernel  # noqa: E402
 
 F32_MIN = torch.finfo(torch.float32).min
@@ -48,11 +49,11 @@ def _assert_close(got, want, rows=None):
     assert cos.min().item() >= 0.9999
 
 
-def _launched(mod, fn):
-    before = mod.LAUNCHES
+def _launched(mod, fn, counter="LAUNCHES"):
+    before = getattr(mod, counter)
     out = fn()
     torch.cuda.synchronize()
-    assert mod.LAUNCHES == before + 1
+    assert getattr(mod, counter) == before + 1
     return out
 
 
@@ -144,3 +145,46 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     w2, s2 = quantize_kernel(_rand(dev, 256, 128))
     with pytest.raises(ValueError):  # a row-major int8 weight
         ffn.fused_int8_ffn(x, w1.contiguous(), s1, _rand(dev, 256), w2, s2, _rand(dev, 128))
+
+
+def _relpos_inputs(dev, dtype, s, dh, h=2):
+    d = 2 * h * dh
+    q, k, v = (_rand(dev, 3, h, s, dh, dtype=dtype, seed=i) for i in range(3))
+    wr = _rand(dev, h, d, dh, scale=d ** -0.5, dtype=dtype, seed=3)
+    u, vb = (_rand(dev, h, dh, scale=0.1, dtype=dtype, seed=4 + i) for i in range(2))
+    si, ci, basis = _trig_tables(s, d, dtype, dev)
+    bias = _key_bias(dev, [s, s // 3, 0], s)  # with a row of length 0
+    return q, k, v, wr, si, ci, basis, u, vb, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,dh", [(130, 64), (257, 128)])
+def test_relpos_v2_kernel(dev, dtype, s, dh):
+    args = _relpos_inputs(dev, dtype, s, dh)
+    got = _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention_v2(*args))
+    _assert_close(got, relpos_flash.relpos_flash_attention_v2_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,dh", [(130, 64), (257, 128)])
+def test_relpos_v1_kernel(dev, dtype, s, dh):
+    q, k, v, _, _, _, _, u, _, bias = _relpos_inputs(dev, dtype, s, dh)
+    bd = _rand(dev, 3, 2, s, s, dtype=dtype, seed=9)
+    got = _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention(q, k, v, bd, u, bias),
+                    counter="V1_LAUNCHES")
+    _assert_close(got, relpos_flash.relpos_flash_attention_plain(q, k, v, bd, u, bias))
+
+
+@pytest.mark.gpu
+def test_relpos_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q, k, v, wr, si, ci, basis, u, vb, bias = _relpos_inputs(dev, torch.float32, 130, 64)
+    with pytest.raises(ValueError):  # tables in another dtype than q
+        relpos_flash.relpos_flash_attention_v2(q, k, v, wr, si.bfloat16(), ci, basis, u, vb, bias)
+    with pytest.raises(ValueError):  # head dim 32
+        q32 = _rand(dev, 3, 2, 130, 32)
+        relpos_flash.relpos_flash_attention(q32, q32, q32, _rand(dev, 3, 2, 130, 130),
+                                            _rand(dev, 2, 32), bias)
+    with pytest.raises(ValueError):  # a key bias of the wrong shape
+        relpos_flash.relpos_flash_attention(q, k, v, _rand(dev, 3, 2, 130, 130), u, bias[:, :64])
