@@ -9,10 +9,15 @@ Phases, each printing ``#`` lines:
     prints the card's name and power limit as nvidia-smi gives them;
 (b) build: compiles the CUDA kernels from ``sonar_tpu_torch/csrc`` (nvcc,
     sm_90a) and prints the build time and the compiler's register report;
-(c) kernels: each of the six kernels against its plain PyTorch version on
+(c) kernels: each of the nine kernels against its plain PyTorch version on
     the card, at the main paths' shapes, with the tolerance stated, and
     both timed with CUDA events (plain, kernel, kernel, plain; the kernels
-    line gives each kernel's first timed shape, v2 is timed in fp32 too);
+    line gives each kernel's first timed shape, v2 is timed in fp32 too),
+    beside one PyTorch call of the same function where there is one
+    (``scaled_dot_product_attention``) and the card's bound for the same
+    work (bytes over 3.35 TB/s or operations over the operand type's peak,
+    computed from the inputs); the three beam-attend kernels at the JAX
+    kernel tests' shapes and the decode shape of (f), in bf16 and fp32;
 (d) the slice: the ``basic`` SONAR text encoder at full width (24 layers,
     D 1024, 16 heads, FFN 8192, vocabulary 256,206) with seeded random
     weights, behind ``TextToEmbeddingModelPipeline.predict`` with a
@@ -37,9 +42,24 @@ Phases, each printing ``#`` lines:
     pipeline on the CPU: cosine >= 0.999 in bf16, max-abs <= 1e-3 of the
     embeddings' scale in fp32.
 
+(f) decoding: the ``basic`` SONAR text decoder at full width and depth (24
+    layers, D 1024, 16 heads x 64, FFN 8192, vocabulary 256,206, tied output
+    projection) with seeded random weights, in bf16 and fp32, behind
+    ``EmbeddingToTextModelPipeline.predict`` on 64 embeddings of (d)'s bf16
+    encoder (batch 32, beam 5, max_gen_len 48), and in bf16 behind
+    ``TextToTextModelPipeline.predict`` on 16 sentences of (d)'s corpus with
+    (d)'s bf16 encoder (batch 8). Sentences/s, generated tokens/s, ms per
+    decode step, peak device memory; ``beam_masked_attend`` must launch
+    exactly 24 times per decode step (prefix steps included), the diagonal
+    and reorder kernels never. The device busy share over one bf16 batch
+    comes from torch.profiler. Four embeddings are decoded on the CPU port
+    too: the fp32 best hypotheses must agree (a tie within 1e-5 in score is
+    printed, not failed) and the teacher-forced logits agree to 1e-3 of
+    their scale in fp32, row cosine >= 0.999 in bf16.
+
 A kernel's ``launches`` in the JSON record is the sum of its counts over
-(d) and (e); v1 (``relpos_flash_attention``), which no path calls, must
-read 0. Prints that record on the line before the last, and as the last
+(d), (e) and (f); the kernels that no path calls (``relpos_flash_attention``,
+``beam_diag_attend``, ``beam_reorder_attend``) must read 0. Prints that record on the line before the last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (exit != 0).
 """
 
@@ -73,10 +93,25 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its
     "relpos_flash_attention": ("sonar_tpu_torch/csrc/relpos_flash.cu",
                                "sonar_tpu/ops/pallas/relpos_flash.py:172", "relpos_flash",
                                "V1_LAUNCHES"),
+    "beam_masked_attend": ("sonar_tpu_torch/csrc/beam_attend.cu",
+                           "sonar_tpu/ops/pallas/beam_attend.py:71", "beam_attend",
+                           "MASKED_LAUNCHES"),
+    "beam_diag_attend": ("sonar_tpu_torch/csrc/beam_attend.cu",
+                         "sonar_tpu/ops/pallas/beam_attend.py:141", "beam_attend",
+                         "DIAG_LAUNCHES"),
+    "beam_reorder_attend": ("sonar_tpu_torch/csrc/beam_attend.cu",
+                            "sonar_tpu/ops/pallas/beam_attend.py:225", "beam_attend",
+                            "REORDER_LAUNCHES"),
 }
 # Kernels that no driven path launches (no JAX path calls them either): their
 # counts are read like the others' and must stay 0.
-NO_PATH = ("relpos_flash_attention",)
+NO_PATH = ("relpos_flash_attention", "beam_diag_attend", "beam_reorder_attend")
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory bytes/s and operations/s by operand type. A kernel's bound is the
+# larger of its bytes over HBM and its operations over their peaks.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -105,7 +140,7 @@ def read_launches() -> dict:
 
 
 def setup():
-    if not (REPO / "sonar_tpu_torch").is_dir() or not (REPO / "sonar_tpu").is_dir():
+    if not (REPO / "sonar_tpu_torch").is_dir():
         log(f"{REPO} is not a checkout of the repository (no sonar_tpu_torch/)")
         sys.exit(2)
     try:
@@ -117,9 +152,6 @@ def setup():
         log("no CUDA device: this script drives the port on an NVIDIA GPU only")
         sys.exit(2)
     sys.path.insert(0, str(REPO))
-    # The tracked native tokenizer library is not rebuilt here; its Python
-    # fallback is bit-identical.
-    os.environ["SONAR_TPU_NO_NATIVE"] = "1"
     card = f"{torch.cuda.get_device_name(0)}, power limit not readable"
     try:
         smi = subprocess.run(
@@ -155,15 +187,35 @@ def build():
 
 
 def _timed(torch, fn, iters: int) -> float:
+    """Device ms per call of ``fn``. The calls are queued behind a ~25 ms
+    spin of the GPU, so the events bracket device work only (a kernel of a
+    few microseconds would otherwise be timed at the host's launch rate)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(moved: int, ops: dict):
+    """(bound_ms, bound_by): the larger of ``moved`` bytes over HBM and the
+    operations ``ops`` ({operand type: count}) over their peaks."""
+    t_bytes = moved / HBM_BYTES_S
+    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _kind(dtype) -> str:
+    return "bf16" if str(dtype).endswith("bfloat16") else "fp32"
 
 
 def _errors(torch, got, want):
@@ -176,8 +228,17 @@ def _errors(torch, got, want):
 
 def check_kernels(torch):
     from sonar_tpu_torch.nn.conformer import _trig_tables
-    from sonar_tpu_torch.ops.cuda import attn_block, ffn, flash, relpos_flash, short_attn
+    from sonar_tpu_torch.ops.cuda import (
+        attn_block,
+        beam_attend,
+        ffn,
+        flash,
+        relpos_flash,
+        short_attn,
+    )
     from sonar_tpu_torch.ops.quantization import quantize_kernel
+
+    F = torch.nn.functional
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -196,10 +257,14 @@ def check_kernels(torch):
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
     failures = []
 
-    def check(name, label, kernel_fn, plain_fn, rtol, min_cos, timed=False):
+    def check(name, label, kernel_fn, plain_fn, rtol, min_cos, timed=False, cost=None,
+              library_fn=None, pick=lambda out: out):
         """Pass if max|kernel - plain| <= rtol * max|plain| and every row's
-        cosine >= min_cos, all values finite."""
-        got, want = kernel_fn(), plain_fn()
+        cosine >= min_cos, all values finite (on ``pick`` of the outputs).
+        A timed call also times ``library_fn`` (one PyTorch call of the same
+        function, or None) and computes the bound from ``cost`` = (bytes,
+        {operand type: operations}) of these inputs."""
+        got, want = pick(kernel_fn()), pick(plain_fn())
         torch.cuda.synchronize()
         max_abs, cos, finite, ref = _errors(torch, got, want)
         ok = finite and max_abs <= rtol * ref and cos >= min_cos
@@ -214,9 +279,15 @@ def check_kernels(torch):
             k1 = _timed(torch, kernel_fn, iters)
             k2 = _timed(torch, kernel_fn, iters)
             p2 = _timed(torch, plain_fn, iters)
+            lib = _timed(torch, library_fn, iters) if library_fn is not None else None
+            bound_ms, bound_by = bound(*cost)
             if "ms" not in results[name]:  # the kernels line gives the first timed shape
-                results[name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-            log(f"time {name} {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+                results[name].update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                                     shape=label)
+            lib_s = "none" if lib is None else f"{lib:.4f} ms"
+            log(f"time {name} {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
+                f"ms, library call {lib_s}, bound {bound_ms:.4f} ms ({bound_by})")
 
     # Tolerances: fp32 attention agrees up to summation order (1e-5 of the
     # output scale); in bf16 an output may move by a few bf16 ulps where a
@@ -227,10 +298,15 @@ def check_kernels(torch):
         bias = key_bias(b, s)
         for dt, atol, mc in ((bf16, 1e-2, 0.9999), (f32, 1e-5, 0.999999)):
             qkv = rand(b, s, 3 * 1024, scale=0.5, dtype=dt)
+            q4, k4, v4 = (t.reshape(b, s, 16, 64).transpose(1, 2) for t in qkv.split(1024, -1))
             check("short_qkv_attention", f"[{b},{s},3072] {str(dt)[6:]}",
                   lambda: short_attn.short_qkv_attention(qkv, bias, 16),
                   lambda: short_attn.short_qkv_attention_plain(qkv, bias, 16),
-                  atol, mc, timed=(b, s, dt) == (64, 128, bf16))
+                  atol, mc, timed=(b, s, dt) == (64, 128, bf16),
+                  cost=(nbytes(qkv, bias) + b * s * 1024 * qkv.element_size(),
+                        {_kind(dt): 4 * b * 16 * s * s * 64}),
+                  library_fn=lambda: F.scaled_dot_product_attention(
+                      q4, k4, v4, attn_mask=bias[:, None, None, :].to(dt)))
 
     # K4 and K3 quantise with the same rules as their plain versions; a
     # value within rounding of a quantisation step may land one int8 level
@@ -251,7 +327,9 @@ def check_kernels(torch):
             check("fused_attn_block", f"[{b},{s},{d}] {str(dt)[6:]}",
                   lambda: attn_block.fused_attn_block(*blk),
                   lambda: attn_block.fused_attn_block_plain(*blk),
-                  int8_tol[dt], 0.9999, timed=(b, s, dt) == (64, 128, bf16))
+                  int8_tol[dt], 0.9999, timed=(b, s, dt) == (64, 128, bf16),
+                  cost=(2 * nbytes(x) + nbytes(*blk[1:10]),
+                        {"int8": 2 * b * s * d * 4 * d, _kind(dt): 4 * b * 16 * s * s * 64}))
 
     def ffn_weights(split_scales: bool):
         w1, w2 = rand(d, f, scale=0.03), rand(f, d, scale=0.01)
@@ -274,7 +352,9 @@ def check_kernels(torch):
                 check("fused_int8_ffn", label + (" halves 8x apart" if split_scales else ""),
                       lambda: ffn._fused_ffn_impl(x, w1, s1, b1, w2, s2, b2, *lnp, 2),
                       lambda: ffn.fused_ffn_plain(x, w1, s1, b1, w2, s2, b2, *lnp, 2),
-                      int8_tol[dt], 0.9999, timed=ln and dt == bf16)
+                      int8_tol[dt], 0.9999, timed=ln and dt == bf16,
+                      cost=(2 * nbytes(x) + nbytes(w1, s1, b1, w2, s2, b2, *lnp),
+                            {"int8": 2 * 2 * x.shape[0] * d * f}))
         if split_scales:  # the case must tell the two kinds of scale apart
             one, two = (ffn.fused_ffn_plain(x, w1, s1, b1, w2, s2, b2, None, None, n)
                         for n in (1, 2))
@@ -293,7 +373,9 @@ def check_kernels(torch):
         check("flash_attention", f"[16,16,{s},64] bf16 key-bias",
               lambda: flash.flash_attention(q, k, v, kb),
               lambda: flash.flash_attention_plain(q, k, v, kb),
-              1e-2, 0.9999, timed=s == 512)
+              1e-2, 0.9999, timed=s == 512,
+              cost=(2 * nbytes(q) + nbytes(k, v, kb), {"bf16": 4 * 16 * 16 * s * s * 64}),
+              library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=kb.to(bf16)))
     seg = torch.arange(512, device=dev) // 128
     full = torch.where(seg[:, None] == seg[None, :], 0.0, F32_MIN).float()
     full = full.expand(16, 1, 512, 512).contiguous()
@@ -332,15 +414,79 @@ def check_kernels(torch):
         check("relpos_flash_attention_v2", f"[{b},{h},{s},{dh}] D 1024 {str(dt)[6:]}",
               lambda: relpos_flash.relpos_flash_attention_v2(*args),
               lambda: relpos_flash.relpos_flash_attention_v2_plain(*args),
-              *tol[dt], timed=(b, s) == (8, 499))  # bf16, then fp32
+              *tol[dt], timed=(b, s) == (8, 499),  # bf16, then fp32
+              # ac, bd and P @ V over (S, S), plus the positional projection
+              # of the 2S - 1 relative positions for every head
+              cost=(nbytes(*args) + nbytes(args[0]),  # inputs, and the output (q's size)
+                    {_kind(dt): 6 * b * h * s * s * dh + 2 * h * (2 * s - 1) * 1024 * dh}))
     for b, h, s, dh, dt in ((8, 16, 499, 64, bf16), (2, 2, 130, 64, f32)):
         q, k, v, wr, si, ci, basis, u, vb, kb = relpos_args(b, h, s, dh, dt)
         bd = relpos_flash.relpos_bd_plain(q, wr, si, ci, basis, vb).to(dt)
         check("relpos_flash_attention", f"[{b},{h},{s},{dh}] {str(dt)[6:]}",
               lambda: relpos_flash.relpos_flash_attention(q, k, v, bd, u, kb),
               lambda: relpos_flash.relpos_flash_attention_plain(q, k, v, bd, u, kb),
-              *tol[dt], timed=(b, dt) == (8, bf16))
+              *tol[dt], timed=(b, dt) == (8, bf16),
+              cost=(2 * nbytes(q) + nbytes(k, v, bd, u, kb), {_kind(dt): 4 * b * h * s * s * dh}))
         del bd
+
+    # K8-K10: the beam-attend kernels, at the JAX kernel tests' shapes and at
+    # the beam-decode shape of phase (f) (B 32, K 5, H 16, S 51, Dh 64; the
+    # write position in the middle of the cache, a random ancestry), each
+    # timed at the decode shape in bf16. Tolerances as for K1; the
+    # reordered caches must be equal bit for bit.
+    for (b, beam, h, s, dh, idx), dt in [(shape, dt) for shape in (
+            (2, 5, 16, 11, 64, 5), (3, 2, 4, 7, 32, 6), (3, 5, 4, 11, 64, 4),
+            (4, 5, 4, 11, 64, 6), (32, 5, 16, 51, 64, 25)) for dt in (bf16, f32)]:
+        label = f"B {b} K {beam} H {h} S {s} Dh {dh} idx {idx} {str(dt)[6:]}"
+        timed = (b, dt) == (32, bf16)
+        q = rand(b, beam, h, dh, dtype=dt)
+        k, v = rand(b, h, beam, s, dh, dtype=dt), rand(b, h, beam, s, dh, dtype=dt)
+        anc = torch.randint(0, beam, (b, beam, s), generator=gen, device=dev, dtype=torch.int32)
+        sel = torch.randint(0, beam, (b, beam), generator=gen, device=dev, dtype=torch.int32)
+        pos = torch.arange(s, device=dev)
+        vbias = torch.where(pos <= idx, 0.0, -1e30).float()
+        woh = (pos == idx).float()
+        qbh = q.permute(0, 2, 1, 3).reshape(b * h, beam, dh).contiguous()
+        kc, vc = k.reshape(b * h, beam, s, dh), v.reshape(b * h, beam, s, dh)
+        row = dh * k.element_size()
+        valid = pos <= idx
+        # Rows a query needs: the distinct (cache row, position) pairs its
+        # ancestry names up to the write position, for every head.
+        needed = torch.zeros(b, beam, s, dtype=torch.bool, device=dev)
+        needed.scatter_(1, anc.long(), True)
+        n_rows = int((needed & valid).sum()) * h
+        mask = ((anc[:, :, None, :] == torch.arange(beam, device=dev)[None, None, :, None])
+                & valid).reshape(b, 1, beam, beam * s)
+        check("beam_masked_attend", label,
+              lambda: beam_attend.beam_masked_attend(qbh, kc, vc, anc, vbias, h),
+              lambda: beam_attend.beam_masked_attend_plain(qbh, kc, vc, anc, vbias, h),
+              *tol[dt], timed=timed,
+              cost=(2 * nbytes(qbh) + nbytes(anc, vbias) + 2 * n_rows * row,
+                    {_kind(dt): 4 * b * h * beam * (idx + 1) * dh}),
+              library_fn=lambda: F.scaled_dot_product_attention(
+                  q.permute(0, 2, 1, 3), k.reshape(b, h, beam * s, dh),
+                  v.reshape(b, h, beam * s, dh), attn_mask=mask))
+        check("beam_diag_attend", label,
+              lambda: beam_attend.beam_diag_attend(q, k, v, vbias),
+              lambda: beam_attend.beam_diag_attend_plain(q, k, v, vbias),
+              *tol[dt], timed=timed,
+              cost=(2 * nbytes(q) + nbytes(vbias) + 2 * b * h * beam * (idx + 1) * row,
+                    {_kind(dt): 4 * b * h * beam * (idx + 1) * dh}),
+              library_fn=lambda: F.scaled_dot_product_attention(
+                  q.permute(0, 2, 1, 3)[:, :, :, None], k, v, attn_mask=valid))
+        kn, vn = rand(b, beam, h, dh, dtype=dt), rand(b, beam, h, dh, dtype=dt)
+        rargs = (q, kn, vn, k, v, sel, vbias, woh)
+        got, want = beam_attend.beam_reorder_attend(*rargs), beam_attend.beam_reorder_attend_plain(*rargs)
+        if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+            failures.append(f"beam_reorder_attend {label}: caches differ")
+        n_src = sum(len(set(r)) for r in sel.tolist()) * h  # distinct winner rows read
+        check("beam_reorder_attend", label,
+              lambda: beam_attend.beam_reorder_attend(*rargs),
+              lambda: beam_attend.beam_reorder_attend_plain(*rargs),
+              *tol[dt], timed=timed, pick=lambda out: out[0],
+              cost=(nbytes(q, kn, vn, sel, vbias, woh, q) + 2 * n_src * s * row + 2 * nbytes(k),
+                    {_kind(dt): 4 * b * h * beam * s * dh}))
+        del k, v, kc, vc, got, want
 
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
@@ -355,7 +501,7 @@ def _tokenizer(tmp: Path, rng):
     pieces, letters; language codes are added as control symbols."""
     import numpy as np
 
-    from sonar_tpu.tokenizers.spm_proto import (
+    from sonar_tpu_torch.tokenizers.spm_proto import (
         PIECE_CONTROL, PIECE_UNKNOWN, ModelProto, NormalizerSpecProto,
         SentencePieceProto as P, TrainerSpecProto, serialize_model_proto,
     )
@@ -449,6 +595,8 @@ def run_slice(torch, card):
             raise AssertionError(f"{mode}: embeddings of shape {emb.shape}, finite "
                                  f"{bool(np.isfinite(emb).all())}")
         runs[mode] = emb[ref_idx]
+        if mode == "bf16":
+            decode_inputs = emb[:64]  # phase (f) decodes these
         stats = gpu[mode].model.stats.snapshot()
         log(f"slice {mode} static: {len(corpus)} sentences in {dt:.2f} s = {tput[mode]:.1f} "
             f"sentences/s end to end (host tokenization included), padding waste "
@@ -464,7 +612,7 @@ def run_slice(torch, card):
         raise AssertionError(f"the main path never launched: {missing}")
 
     # Encode-only rate: pre-batched, pre-tokenized corpus, int8 static.
-    from sonar_tpu.data.batcher import StaticShapeBatcher
+    from sonar_tpu_torch.data.batcher import StaticShapeBatcher
     from sonar_tpu_torch.inference_pipelines.text import _static_len_buckets_for
 
     enc = gpu["int8"].model
@@ -501,7 +649,9 @@ def run_slice(torch, card):
                 f"(CPU {time.perf_counter() - t0:.1f} s)")
             if not ok:
                 raise AssertionError(f"{mode}: the card disagrees with the CPU reference")
-    return launches, tput
+    handoff = {"tokenizer": tokenizer, "corpus": corpus, "embeddings": decode_inputs,
+               "encoder": gpu["bf16"].model}
+    return launches, tput, handoff
 
 
 # -- (e) the speech slice -------------------------------------------------------------
@@ -605,21 +755,222 @@ def run_speech(torch, card):
     return launches
 
 
+# -- (f) embedding -> text decoding --------------------------------------------------
+
+
+DECODE_KW = {"beam_size": 5, "max_gen_len": 48}
+
+
+def _device_profile(torch, fn):
+    """Run ``fn`` under torch.profiler -> ({device op name: (ms, calls)} of
+    its kernels and copies, empty if the profiler saw none; wall ms under
+    the profiler; (host ms, calls) blocked in device-to-host scalar reads,
+    ``aten::_local_scalar_dense``, which holds the wait for the device)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops, reads = {}, (0.0, 0)
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            ops[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
+        elif evt.key == "aten::_local_scalar_dense":
+            reads = (evt.cpu_time_total / 1e3, evt.count)
+    return ops, wall_ms, reads
+
+
+def _recording(dec):
+    """Wrap ``dec.generate_beam`` to keep each call's best-hypothesis lengths."""
+    lens = []
+    generate = dec.generate_beam
+
+    def generate_beam(*args, **kwargs):
+        out = generate(*args, **kwargs)
+        lens.append(out[2][:, 0].copy())
+        return out
+
+    dec.generate_beam = generate_beam
+    return lens
+
+
+def _same_best(label, card, cpu, tol=1e-5):
+    """Best hypotheses of the card and the CPU (tokens [B, K, T], scores,
+    lens) agree, or differ only where two candidates tie within ``tol`` in
+    score (printed, not failed)."""
+    (ct, cs, cl), (pt, ps, pl) = card, cpu
+    hyp = lambda t, n, r, k: t[r, k, : n[r, k]].tolist()
+    for r in range(ct.shape[0]):
+        if hyp(ct, cl, r, 0) == hyp(pt, pl, r, 0):
+            continue
+        in_cpu = [k for k in range(pt.shape[1]) if hyp(pt, pl, r, k) == hyp(ct, cl, r, 0)]
+        in_card = [k for k in range(ct.shape[1]) if hyp(ct, cl, r, k) == hyp(pt, pl, r, 0)]
+        tie = ((in_cpu and abs(ps[r, in_cpu[0]] - ps[r, 0]) <= tol)
+               or (in_card and abs(cs[r, in_card[0]] - cs[r, 0]) <= tol))
+        log(f"decode {label} row {r}: best hypotheses differ (card score {cs[r, 0]:.7f}, CPU "
+            f"{ps[r, 0]:.7f}); {'a tie within 1e-5: not a failure' if tie else 'FAIL'}")
+        if not tie:
+            raise AssertionError(f"decode {label}: the card's best hypothesis of row {r} is not "
+                                 f"the CPU's")
+
+
+def run_decode(torch, card, handoff):
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_decoder_params, text_decoder_from_numpy
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.text_converter import EmbeddingToTextConverter
+    from sonar_tpu_torch.inference_pipelines.text import (
+        EmbeddingToTextModelPipeline,
+        TextToTextModelPipeline,
+    )
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+
+    cfg = sonar_text_decoder_archs.get("basic")
+    n_layers = cfg.num_decoder_layers
+    t0 = time.perf_counter()
+    params = init_text_decoder_params(cfg, seed=0)
+    log(f"basic decoder weights drawn in {time.perf_counter() - t0:.1f} s ({n_layers} layers, "
+        f"D {cfg.model_dim}, {cfg.num_decoder_attn_heads} heads, FFN {cfg.ffn_inner_dim}, "
+        f"vocab {cfg.vocab_info.size}, tied output projection)")
+    tok, emb = handoff["tokenizer"], handoff["embeddings"]
+    decoders = {mode: TorchTextDecoder(text_decoder_from_numpy(params, cfg, dtype, DEVICE))
+                for mode, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def drive(label, dec, fn, n_sentences):
+        lens = _recording(dec)
+        dec.decode_steps = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_launches()
+        del dec.generate_beam  # drop the recording wrapper
+        steps, n_tok = dec.decode_steps, int(sum(x.sum() for x in lens))
+        for name in KERNELS:
+            launches[name] += counts[name]
+        log(f"decode {label}: {n_sentences} sentences in {dt:.3f} s = {n_sentences / dt:.2f} "
+            f"sentences/s, {n_tok / dt:.1f} generated tokens/s ({n_tok} tokens of the best "
+            f"hypotheses), {steps} decode steps = {dt * 1e3 / steps:.3f} ms per step; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+        log(f"decode {label}: launches {counts}")
+        if not (counts["beam_masked_attend"] == n_layers * steps > 0
+                and counts["beam_diag_attend"] == 0 and counts["beam_reorder_attend"] == 0):
+            raise AssertionError(f"decode {label}: beam_masked_attend launched "
+                                 f"{counts['beam_masked_attend']} times over {steps} steps of "
+                                 f"{n_layers} layers; diag / reorder must read 0")
+        if len(out) != n_sentences or not all(isinstance(t, str) for t in out):
+            raise AssertionError(f"decode {label}: {len(out)} outputs for {n_sentences} inputs")
+        return out
+
+    for mode in ("bf16", "fp32"):
+        pipe = EmbeddingToTextModelPipeline(decoders[mode], tok)
+        pipe.predict(emb[:32], target_lang="eng_Latn", batch_size=32, beam_size=5,
+                     max_gen_len=4)  # warm: allocator, cuBLAS handles
+        drive(f"{mode} embedding->text (64 embeddings, batch 32, beam 5, max_gen_len 48)",
+              decoders[mode], lambda: pipe.predict(emb, target_lang="eng_Latn", batch_size=32,
+                                                   **DECODE_KW), len(emb))
+    texts = handoff["corpus"][:16]
+    t2t = TextToTextModelPipeline(handoff["encoder"], decoders["bf16"], tok)
+    drive("bf16 text->text (16 sentences, batch 8, beam 5, max_gen_len 48)", decoders["bf16"],
+          lambda: t2t.predict(texts, source_lang="eng_Latn", target_lang="eng_Latn",
+                              batch_size=8, **DECODE_KW), len(texts))
+
+    # Device busy share over one bf16 batch of 32: the device time of its
+    # kernels (torch.profiler) over the batch's wall time without the
+    # profiler. The exit test of the beam loop reads one boolean from the
+    # device per step, so the host cannot run ahead of the device; the time
+    # the host is blocked in those reads is what the test costs at most.
+    gen_cfg = BeamSearchConfig(**DECODE_KW)
+    converter = EmbeddingToTextConverter(decoders["bf16"], tok, "eng_Latn", gen_cfg)
+    decoders["bf16"].decode_steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    converter.batch_convert(emb[:32])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    steps = decoders["bf16"].decode_steps
+    ops, prof_wall, (read_ms, n_reads) = _device_profile(
+        torch, lambda: converter.batch_convert(emb[:32]))
+    if not ops:
+        log("decode bf16 busy share: the profiler saw no device time (not measured)")
+    else:
+        busy = sum(ms for ms, _ in ops.values())
+        launches_per_step = sum(n for _, n in ops.values()) / steps
+        log(f"decode bf16 batch of 32, {steps} steps: device busy {busy:.2f} ms of {wall:.2f} ms "
+            f"wall ({prof_wall:.2f} ms under the profiler) = {busy / wall:.3f} busy share; "
+            f"{busy / steps:.3f} ms device and {(wall - busy) / steps:.3f} ms idle per step; "
+            f"{launches_per_step:.0f} device ops per step; on {card}")
+        log(f"decode bf16 exit test: the host is blocked {read_ms:.3f} ms in {n_reads} "
+            f"device-to-host scalar reads (aten::_local_scalar_dense, under the profiler) = "
+            f"{read_ms / steps:.4f} ms per step, {100 * read_ms / prof_wall:.2f}% of the "
+            f"profiled wall; on {card}")
+        for name, (ms, n) in sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]:
+            log(f"decode bf16 device time: {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:6d} calls "
+                f"{name[:90]}")
+
+    # The card against the CPU port on 4 embeddings: the fp32 beam search on
+    # both, then the teacher-forced logits of the CPU's best hypotheses.
+    prefix = tok.create_encoder(lang="eng_Latn", mode="target").prefix_indices
+    memory = emb[:4, None, :]
+    t0 = time.perf_counter()
+    cpu = TorchTextDecoder(text_decoder_from_numpy(params, cfg, torch.float32, "cpu"), device="cpu")
+    on_cpu = cpu.generate_beam(memory, prefix, gen_cfg)
+    _same_best("fp32", decoders["fp32"].generate_beam(memory, prefix, gen_cfg), on_cpu)
+    lens = len(prefix) + on_cpu[2][:, 0]
+    seqs = np.full((4, int(lens.max())), 1, np.int32)
+    for r in range(4):
+        seqs[r, :lens[r]] = list(prefix) + on_cpu[0][r, 0, : on_cpu[2][r, 0]].tolist()
+    valid = np.arange(seqs.shape[1])[None, :] < lens[:, None]
+    for mode, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        if mode == "bf16":
+            cpu = TorchTextDecoder(text_decoder_from_numpy(params, cfg, dtype, "cpu"), device="cpu")
+        want = cpu.score(seqs, lens, memory)[valid]
+        got = decoders[mode].score(seqs, lens, memory)[valid]
+        if mode == "fp32":
+            max_abs, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+            ok = max_abs <= 1e-3 * scale
+            log(f"decode fp32 card vs CPU on 4 embeddings: best hypotheses agree; teacher-forced "
+                f"logits max_abs {max_abs:.3e} (<= 1e-3 x scale {scale:.3g}) "
+                f"{'ok' if ok else 'FAIL'} (CPU {time.perf_counter() - t0:.1f} s)")
+        else:
+            cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+            ok = cos.min() >= 0.999
+            log(f"decode bf16 card vs CPU on 4 embeddings: teacher-forced logits min row cos "
+                f"{cos.min():.6f} (>= 0.999) {'ok' if ok else 'FAIL'} "
+                f"(CPU {time.perf_counter() - t0:.1f} s)")
+        if not ok:
+            raise AssertionError(f"decode {mode}: the card disagrees with the CPU reference")
+        del cpu
+    return launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     torch, card = setup()
     build()
     results = check_kernels(torch)
-    text, _ = run_slice(torch, card)
+    text, _, handoff = run_slice(torch, card)
     speech = run_speech(torch, card)
-    launches = {name: text[name] + speech[name] for name in KERNELS}
+    decode = run_decode(torch, card, handoff)
+    launches = {name: text[name] + speech[name] + decode[name] for name in KERNELS}
     launched = [name for name in NO_PATH if launches[name] != 0]
     if launched:
         raise AssertionError(f"kernels that no path calls were launched: {launched}")
     record = [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         **{key: results[name][key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}}
         for name, (src, tpu, _, _) in KERNELS.items()
     ]
     print(json.dumps({"kernels": record}), flush=True)

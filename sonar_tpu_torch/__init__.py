@@ -2,17 +2,22 @@
 
 The JAX package ``sonar_tpu`` is the reference; this package computes the
 same functions with PyTorch tensors, and replaces each Pallas kernel on the
-text -> embedding and speech -> embedding paths with a CUDA C++ kernel
-written for Hopper (sm_90a, ``csrc/``). On CPU tensors every kernel wrapper runs its plain PyTorch
-version, so the whole path runs (and is tested) without a GPU.
+text -> embedding, speech -> embedding and embedding -> text paths with a
+CUDA C++ kernel written for Hopper (sm_90a, ``csrc/``). On CPU tensors every
+kernel wrapper runs its plain PyTorch version, so the whole path runs (and
+is tested) without a GPU.
 
-Host-side code that never touched JAX (``sonar_tpu.data``,
-``sonar_tpu.tokenizers.spm``, ``sonar_tpu.native``) is reused as it is; this
-package imports nothing that imports ``jax``.
+The package stands alone: it imports nothing of ``sonar_tpu`` and nothing
+of ``jax``. It keeps its own copies of the host code it shares with the
+JAX package (``data``, ``tokenizers.spm``, ``native``, the checkpoint key
+maps and the asset store). Every entry point runs on the GPU unless it is
+given ``device="cpu"``.
 
 Public entry points mirror ``sonar_tpu``'s:
-``TextToEmbeddingModelPipeline(encoder, tokenizer).predict(...)`` and
-``SpeechToEmbeddingModelPipeline(encoder).predict(waveforms)``.
+``TextToEmbeddingModelPipeline(encoder, tokenizer).predict(...)``,
+``SpeechToEmbeddingModelPipeline(encoder).predict(waveforms)``,
+``EmbeddingToTextModelPipeline(decoder, tokenizer).predict(embeddings, ...)``
+and ``TextToTextModelPipeline(encoder, decoder, tokenizer).predict(...)``.
 """
 
 __version__ = "0.1.0"
@@ -20,6 +25,8 @@ __version__ = "0.1.0"
 _PIPELINES = {
     "TextToEmbeddingModelPipeline": "text",
     "TorchTextEncoder": "text",
+    "TextToTextModelPipeline": "text",
+    "EmbeddingToTextModelPipeline": "text",
     "SpeechToEmbeddingModelPipeline": "speech",
     "SpeechToEmbeddingPipeline": "speech",
     "SpeechInferenceParams": "speech",
@@ -29,6 +36,10 @@ _PIPELINES = {
 
 def __getattr__(name):
     """Lazy imports keep ``import sonar_tpu_torch`` light."""
+    if name == "TorchTextDecoder":
+        from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+
+        return TorchTextDecoder
     if name in _PIPELINES:
         import importlib
 

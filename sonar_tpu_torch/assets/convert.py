@@ -1,20 +1,21 @@
-"""Weights for the port's text and speech encoders.
+"""Weights for the port's text encoder, speech encoder and text decoder.
 
 All routes produce the JAX package's parameter layout (linear kernels
 [in, out], per-layer tensors stacked on a leading L axis) as numpy arrays,
-then load it into ``SonarTextEncoder`` or ``SonarSpeechEncoder``:
+then load it into ``SonarTextEncoder``, ``SonarSpeechEncoder`` or
+``ConditionalTransformerDecoder``:
 
-- ``text_encoder_from_numpy`` / ``speech_encoder_from_numpy``: the JAX
-  package's pytree (from ``init_params`` or the ``checkpoint`` converters,
-  as numpy) -> the port's module computing the same function;
-- ``init_text_encoder_params`` / ``init_speech_encoder_params``: seeded
-  numpy-only initialisers with the JAX package's distributions (for runs
-  where JAX is absent);
-- ``text_encoder_params_from_state`` / ``load_text_encoder_checkpoint`` and
-  ``speech_encoder_params_from_state`` / ``load_speech_encoder_checkpoint``:
-  a fairseq2 or fairseq1 state dict -> the pytree, without JAX (the key
-  maps of ``sonar_tpu.assets.checkpoint`` and ``checkpoint_speech``, layers
-  stacked with numpy).
+- ``text_encoder_from_numpy`` / ``speech_encoder_from_numpy`` /
+  ``text_decoder_from_numpy``: the JAX package's pytree (from
+  ``init_params`` or the checkpoint converters, as numpy) -> the port's
+  module computing the same function;
+- ``init_text_encoder_params`` / ``init_speech_encoder_params`` /
+  ``init_text_decoder_params``: seeded numpy initialisers with the JAX
+  package's distributions;
+- ``load_text_encoder_checkpoint`` / ``load_speech_encoder_checkpoint`` /
+  ``load_text_decoder_checkpoint``: a fairseq2 or fairseq1 ``.pt`` state
+  dict -> the port's module, through the port's own copies of the key maps
+  (``checkpoint``, ``checkpoint_speech``).
 """
 
 from __future__ import annotations
@@ -24,10 +25,13 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
+from sonar_tpu_torch.assets import checkpoint as ckpt
+from sonar_tpu_torch.assets import checkpoint_speech
 from sonar_tpu_torch.models.sonar_speech.config import SonarSpeechEncoderConfig
 from sonar_tpu_torch.models.sonar_speech.model import SonarSpeechEncoder
-from sonar_tpu_torch.models.sonar_text.config import SonarTextEncoderConfig
+from sonar_tpu_torch.models.sonar_text.config import SonarTextDecoderConfig, SonarTextEncoderConfig
 from sonar_tpu_torch.models.sonar_text.model import SonarTextEncoder
+from sonar_tpu_torch.nn.conditional_decoder import ConditionalTransformerDecoder
 import torch
 
 
@@ -84,25 +88,33 @@ def _init_embedding(rng: np.random.Generator, rows: int, dim: int,
     return embed
 
 
-def _init_pooler(rng: np.random.Generator, n: int, dim: int, kv_dim: int, ffn_dim: int,
-                 embed_rows: int, pad_idx: int, proj_bias: bool,
-                 final_ln: bool) -> Dict[str, Any]:
-    """An ATTENTION pooler: ``n`` decoder layers, its BOS table, projection."""
-    def attn(in_kv: int) -> Dict[str, Any]:
-        return {"q_proj": _init_linear(rng, n, dim, dim),
-                "k_proj": _init_linear(rng, n, in_kv, dim),
-                "v_proj": _init_linear(rng, n, in_kv, dim),
-                "output_proj": _init_linear(rng, n, dim, dim)}
+def _init_attn(rng: np.random.Generator, n: int, dim: int, kv_dim: int) -> Dict[str, Any]:
+    return {"q_proj": _init_linear(rng, n, dim, dim),
+            "k_proj": _init_linear(rng, n, kv_dim, dim),
+            "v_proj": _init_linear(rng, n, kv_dim, dim),
+            "output_proj": _init_linear(rng, n, dim, dim)}
 
-    layers = {
-        "self_attn": attn(dim),
+
+def _init_decoder_layers(rng: np.random.Generator, n: int, dim: int, kv_dim: int,
+                         ffn_dim: int) -> Dict[str, Any]:
+    """``n`` stacked decoder layers: self-attention, cross-attention on a
+    ``kv_dim`` memory, FFN, each with its LayerNorm."""
+    return {
+        "self_attn": _init_attn(rng, n, dim, dim),
         "self_attn_layer_norm": _init_ln((n, dim)),
-        "encoder_decoder_attn": attn(kv_dim),
+        "encoder_decoder_attn": _init_attn(rng, n, dim, kv_dim),
         "encoder_decoder_attn_layer_norm": _init_ln((n, dim)),
         "ffn": {"inner_proj": _init_linear(rng, n, dim, ffn_dim),
                 "output_proj": _init_linear(rng, n, ffn_dim, dim)},
         "ffn_layer_norm": _init_ln((n, dim)),
     }
+
+
+def _init_pooler(rng: np.random.Generator, n: int, dim: int, kv_dim: int, ffn_dim: int,
+                 embed_rows: int, pad_idx: int, proj_bias: bool,
+                 final_ln: bool) -> Dict[str, Any]:
+    """An ATTENTION pooler: ``n`` decoder layers, its BOS table, projection."""
+    layers = _init_decoder_layers(rng, n, dim, kv_dim, ffn_dim)
     pooler: Dict[str, Any] = {
         "decoder_frontend": {"embed": {"weight": _init_embedding(rng, embed_rows, dim, pad_idx)}},
         "decoder": {"layers": layers},
@@ -201,72 +213,10 @@ def init_speech_encoder_params(config: SonarSpeechEncoderConfig,
     }
 
 
-def _stack(layer_dicts: list) -> Dict[str, Any]:
-    first = layer_dicts[0]
-    return {
-        k: _stack([ld[k] for ld in layer_dicts]) if isinstance(first[k], dict)
-        else np.stack([ld[k] for ld in layer_dicts])
-        for k in first
-    }
-
-
 def text_encoder_params_from_state(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
-    """Flat fairseq2 (or fairseq1) state dict -> the JAX-layout pytree.
-
-    The same conversion as ``sonar_tpu.assets.checkpoint.text_encoder_params``
-    (whose layer stacking goes through jax), stacked with numpy here.
-    """
-    from sonar_tpu.assets import checkpoint as ckpt
-
-    flat = ckpt.convert_text_encoder_state(flat)
-    layers = []
-    for i in range(ckpt._num_layers(flat, "encoder.layers")):
-        p = f"encoder.layers.{i}"
-        layers.append({
-            "self_attn": ckpt._mha(flat, f"{p}.self_attn"),
-            "self_attn_layer_norm": ckpt._layer_norm(flat, f"{p}.self_attn_layer_norm"),
-            "ffn": ckpt._ffn(flat, f"{p}.ffn"),
-            "ffn_layer_norm": ckpt._layer_norm(flat, f"{p}.ffn_layer_norm"),
-        })
-    params: Dict[str, Any] = {
-        "encoder_frontend": {"embed": {"weight": flat["encoder_frontend.embed.weight"]}},
-        "encoder": {"layers": _stack(layers)},
-        "layer_norm": ckpt._layer_norm(flat, "layer_norm"),
-    }
-    if "encoder.layer_norm.weight" in flat:
-        params["encoder"]["layer_norm"] = ckpt._layer_norm(flat, "encoder.layer_norm")
-    if "pooler.projection_out.weight" in flat:
-        params["pooler"] = _pooler_from_state(flat, "pooler")
-    return params
-
-
-def _pooler_from_state(flat: Dict[str, np.ndarray], stem: str) -> Dict[str, Any]:
-    """An ATTENTION pooler's converted state -> its pytree, as
-    ``checkpoint._attention_pooler_params`` and
-    ``checkpoint_speech._pooler_params`` build it (the speech one's
-    ``projection_out`` has no bias)."""
-    from sonar_tpu.assets import checkpoint as ckpt
-
-    layers = []
-    for i in range(ckpt._num_layers(flat, f"{stem}.decoder.layers")):
-        p = f"{stem}.decoder.layers.{i}"
-        layers.append({
-            "self_attn": ckpt._mha(flat, f"{p}.self_attn"),
-            "self_attn_layer_norm": ckpt._layer_norm(flat, f"{p}.self_attn_layer_norm"),
-            "encoder_decoder_attn": ckpt._mha(flat, f"{p}.encoder_decoder_attn"),
-            "encoder_decoder_attn_layer_norm": ckpt._layer_norm(
-                flat, f"{p}.encoder_decoder_attn_layer_norm"),
-            "ffn": ckpt._ffn(flat, f"{p}.ffn"),
-            "ffn_layer_norm": ckpt._layer_norm(flat, f"{p}.ffn_layer_norm"),
-        })
-    pooler: Dict[str, Any] = {
-        "decoder_frontend": {"embed": {"weight": flat[f"{stem}.decoder_frontend.embed.weight"]}},
-        "decoder": {"layers": _stack(layers)},
-        "projection_out": ckpt._linear(flat, f"{stem}.projection_out"),
-    }
-    if f"{stem}.decoder.layer_norm.weight" in flat:
-        pooler["decoder"]["layer_norm"] = ckpt._layer_norm(flat, f"{stem}.decoder.layer_norm")
-    return pooler
+    """Flat fairseq2 (or fairseq1) state dict -> the JAX-layout pytree
+    (``checkpoint.text_encoder_params``)."""
+    return ckpt.text_encoder_params(flat)
 
 
 def load_text_encoder_checkpoint(
@@ -277,9 +227,7 @@ def load_text_encoder_checkpoint(
 ) -> SonarTextEncoder:
     """A ``.pt`` text-encoder checkpoint -> the port's encoder, its
     floating-point parameters stored in ``dtype``."""
-    from sonar_tpu.assets.checkpoint import load_torch_state_dict
-
-    params = text_encoder_params_from_state(load_torch_state_dict(path))
+    params = text_encoder_params_from_state(ckpt.load_torch_state_dict(path))
     return text_encoder_from_numpy(params, config, dtype, device)
 
 
@@ -297,43 +245,8 @@ def speech_encoder_from_numpy(
 
 def speech_encoder_params_from_state(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     """Flat fairseq1 (w2v-BERT) or fairseq2 speech state dict -> the
-    JAX-layout pytree: ``checkpoint_speech.speech_encoder_params`` (whose
-    layer stacking goes through jax), stacked with numpy here."""
-    from sonar_tpu.assets import checkpoint as ckpt
-    from sonar_tpu.assets import checkpoint_speech as cks
-
-    flat = cks.convert_speech_state(flat)
-    layers = []
-    for i in range(ckpt._num_layers(flat, "encoder.layers")):
-        p = f"encoder.layers.{i}"
-        layers.append({
-            "ffn1_layer_norm": ckpt._layer_norm(flat, f"{p}.ffn1_layer_norm"),
-            "ffn1": ckpt._ffn(flat, f"{p}.ffn1"),
-            "self_attn_layer_norm": ckpt._layer_norm(flat, f"{p}.self_attn_layer_norm"),
-            "self_attn": {
-                **ckpt._mha(flat, f"{p}.self_attn"),
-                "sdpa": {
-                    "r_proj": ckpt._linear(flat, f"{p}.self_attn.sdpa.r_proj"),
-                    "u_bias": flat[f"{p}.self_attn.sdpa.u_bias"],
-                    "v_bias": flat[f"{p}.self_attn.sdpa.v_bias"],
-                },
-            },
-            "conv_layer_norm": ckpt._layer_norm(flat, f"{p}.conv_layer_norm"),
-            "conv": cks._conv_module(flat, f"{p}.conv"),
-            "ffn2_layer_norm": ckpt._layer_norm(flat, f"{p}.ffn2_layer_norm"),
-            "ffn2": ckpt._ffn(flat, f"{p}.ffn2"),
-            "layer_norm": ckpt._layer_norm(flat, f"{p}.layer_norm"),
-        })
-    return {
-        "encoder_frontend": {
-            "post_extract_layer_norm": ckpt._layer_norm(
-                flat, "encoder_frontend.post_extract_layer_norm"),
-            "model_dim_proj": ckpt._linear(flat, "encoder_frontend.model_dim_proj"),
-        },
-        "encoder": {"layers": _stack(layers)},
-        "layer_norm": ckpt._layer_norm(flat, "layer_norm"),
-        "encoder_pooler": _pooler_from_state(flat, "encoder_pooler"),
-    }
+    JAX-layout pytree (``checkpoint_speech.speech_encoder_params``)."""
+    return checkpoint_speech.speech_encoder_params(flat)
 
 
 def load_speech_encoder_checkpoint(
@@ -344,7 +257,47 @@ def load_speech_encoder_checkpoint(
 ) -> SonarSpeechEncoder:
     """A ``.pt`` speech-encoder checkpoint -> the port's encoder, its
     floating-point parameters stored in ``dtype``."""
-    from sonar_tpu.assets.checkpoint import load_torch_state_dict
-
-    params = speech_encoder_params_from_state(load_torch_state_dict(path))
+    params = speech_encoder_params_from_state(ckpt.load_torch_state_dict(path))
     return speech_encoder_from_numpy(params, config, dtype, device)
+
+
+def text_decoder_from_numpy(
+    params: Dict[str, Any],
+    config: SonarTextDecoderConfig,
+    dtype: torch.dtype = torch.float32,
+    device: Any = "cpu",
+) -> ConditionalTransformerDecoder:
+    """The port's text decoder holding ``params`` (a JAX-layout pytree of
+    numpy arrays) and computing in ``dtype``; floating-point parameters are
+    stored in ``dtype``, as the JAX hub loads a checkpoint."""
+    return ConditionalTransformerDecoder(config, _to_torch(params, dtype, device), dtype=dtype)
+
+
+def init_text_decoder_params(config: SonarTextDecoderConfig, seed: int = 0) -> Dict[str, Any]:
+    """Seeded random pytree of ``config``'s shape, drawn with numpy, with the
+    JAX ``init_params`` distributions (not its numbers): Kaiming-uniform
+    linears, N(0, d^-0.5) embedding with a zero pad row (the tied output
+    projection), unit LayerNorms."""
+    rng = np.random.default_rng(seed)
+    d = config.model_dim
+    return {
+        "decoder_frontend": {"embed": {"weight": _init_embedding(
+            rng, config.vocab_info.size, d, config.vocab_info.pad_idx)}},
+        "decoder": {
+            "layers": _init_decoder_layers(rng, config.num_decoder_layers, d,
+                                           config.input_dim or d, config.ffn_inner_dim),
+            "layer_norm": _init_ln((d,)),
+        },
+    }
+
+
+def load_text_decoder_checkpoint(
+    path: Union[str, Path],
+    config: SonarTextDecoderConfig,
+    dtype: torch.dtype = torch.float32,
+    device: Any = "cpu",
+) -> ConditionalTransformerDecoder:
+    """A ``.pt`` text-decoder checkpoint -> the port's decoder, its
+    floating-point parameters stored in ``dtype``."""
+    params = ckpt.text_decoder_params(ckpt.load_torch_state_dict(path))
+    return text_decoder_from_numpy(params, config, dtype, device)

@@ -1,0 +1,245 @@
+// Beam-decode self-attention over the un-reordered KV cache: three kernels.
+//
+// Replace the TPU kernels of sonar_tpu/ops/pallas/beam_attend.py:
+//
+//   beam_masked_attend  (MODE_MASKED)  each of the K query beams of a
+//       sentence attends every cache row c and position s that its ancestry
+//       names (anc[b, q, s] == c), with an additive position bias; the
+//       compute core of the port's _beam_self_attend, launched at every
+//       layer of every beam-decode step;
+//   beam_diag_attend    (MODE_DIAG)    beam row k attends its own cache row;
+//   beam_reorder_attend (MODE_REORDER) gathers each row's winner history
+//       (sel), writes this step's K/V at the write position into new caches
+//       and attends the row's own (reordered) history.
+//
+// The cache is [B, H, C, S, Dh] (C cache rows per sentence, C == K), seen
+// here as [B*H, C, S, Dh]. Numerics follow the TPU kernels: q scaled in
+// fp32 before the dot, fp32 logits plus the additive bias, softmax and P @ V
+// in fp32, the output cast to the input dtype.
+//
+// What bounds them on the H100: almost no arithmetic (a decode query is one
+// Dh vector), so bytes. A query needs, at each position, one cache row: the
+// one its ancestry names (MODE_MASKED) or its own (MODE_DIAG). So the
+// kernels read rows, not the whole C x S slab: a position that no query
+// references, or whose bias is <= -1e29, is never read. Such a position's
+// term in the reference is exp(-1e29 - m) == 0 in fp32 exactly (a valid
+// position always exists on the decode path: position 0), so skipping it is
+// the same function. MODE_REORDER rewrites both caches whole, so it moves
+// read (the rows sel names) plus write (two full caches).
+//
+// Design: one block per (sentence, head), one warp per query beam (at most
+// 16). A warp walks the positions 32 at a time: each lane finds the row its
+// position reads and computes the logit with unrolled 16-byte loads (32
+// rows in flight per warp), an online softmax folds the chunk in, and then
+// the lanes switch to the feature axis (Dh / 32 values each) to accumulate
+// P @ V 8 positions at a time, the row index passed by shuffle and the 8
+// coalesced loads issued together. Everything lives in registers; the
+// queries are kept in shared memory as fp32 and read by broadcast.
+#include "common.cuh"
+
+namespace {
+
+enum BeamMode { MODE_MASKED = 0, MODE_DIAG = 1, MODE_REORDER = 2 };
+
+constexpr float kMasked = -1e29f;  // a bias at or below this contributes exactly 0
+
+struct BeamArgs {
+  const void* q;      // MASKED: [B*H, K, Dh]; DIAG, REORDER: [B, K, H, Dh]
+  const void* k;      // [B*H, C, S, Dh]
+  const void* v;
+  const int* anc;     // MASKED: [B, K, S] cache row per (query beam, position)
+  const int* sel;     // REORDER: [B, K] winner row each beam inherits from
+  const void* k_new;  // REORDER: [B, K, H, Dh] this step's keys
+  const void* v_new;
+  const float* vbias; // [S] additive position bias
+  const float* wpos;  // REORDER: [S], != 0 at the write position
+  void* k_out;        // REORDER: [B*H, K, S, Dh]
+  void* v_out;
+  void* out;          // laid out like q
+  int H, K, C, S, Dh;
+  float scale;
+};
+
+// DPL consecutive elements of a row slice as floats (the lane's feature
+// slice: Dh = 32 * DPL).
+template <typename T, int DPL> struct Slice {
+  static __device__ __forceinline__ void load(const T* p, float* o) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) o[i] = to_float(p[i]);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* o) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) p[i] = from_float<T>(o[i]);
+  }
+};
+
+// Offset of query beam kq's row of head (bh % H) in q and out.
+__device__ __forceinline__ size_t q_offset(const BeamArgs& a, int mode, int bh, int kq) {
+  const int b = bh / a.H, h = bh % a.H;
+  const size_t row = mode == MODE_MASKED ? (size_t)bh * a.K + kq
+                                         : ((size_t)b * a.K + kq) * a.H + h;
+  return row * a.Dh;
+}
+
+template <typename T, int DPL, int MODE>
+__global__ void __launch_bounds__(512) beam_attend_kernel(BeamArgs a) {
+  extern __shared__ float qs[];  // [K, Dh] scaled queries
+  constexpr int DH = 32 * DPL;
+  constexpr int PER = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int NONE = -1, FRESH = -2;  // no row; REORDER: this step's k_new / v_new row
+  constexpr int UNROLL = 8;             // positions of P @ V whose loads are in flight together
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int kq = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int S = a.S;
+
+  for (int i = threadIdx.x; i < a.K * DH; i += blockDim.x) {
+    qs[i] = to_float(static_cast<const T*>(a.q)[q_offset(a, MODE, bh, i / DH) + i % DH]) *
+            a.scale;
+  }
+  __syncthreads();
+  const float* q = qs + kq * DH;
+
+  const T* kc = static_cast<const T*>(a.k) + (size_t)bh * a.C * S * DH;
+  const T* vc = static_cast<const T*>(a.v) + (size_t)bh * a.C * S * DH;
+  const int* anc = MODE == MODE_MASKED ? a.anc + ((size_t)b * a.K + kq) * S : nullptr;
+  const int src = MODE == MODE_REORDER ? a.sel[b * a.K + kq] : kq;
+  const size_t new_row = ((size_t)b * a.K + kq) * a.H + h;  // REORDER: row of k_new/v_new
+  T* ko = MODE == MODE_REORDER ? static_cast<T*>(a.k_out) + ((size_t)bh * a.K + kq) * S * DH
+                               : nullptr;
+  T* vo = MODE == MODE_REORDER ? static_cast<T*>(a.v_out) + ((size_t)bh * a.K + kq) * S * DH
+                               : nullptr;
+
+  // The row position s of this query reads: a cache row (>= 0), FRESH or NONE.
+  auto code_of = [&](int s) -> int {
+    if (MODE == MODE_REORDER) {
+      if (a.wpos[s] != 0.f) return FRESH;
+      return (src >= 0 && src < a.C) ? src : NONE;
+    }
+    const int c = MODE == MODE_MASKED ? anc[s] : kq;
+    return (c >= 0 && c < a.C) ? c : NONE;
+  };
+  auto row_ptr = [&](const T* cache, const void* fresh, int code, int s) -> const T* {
+    return code == FRESH ? static_cast<const T*>(fresh) + new_row * DH
+                         : cache + ((size_t)code * S + s) * DH;
+  };
+
+  float m = -INFINITY, l = 0.f, acc[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    // Logits: lane = position, its whole row with 16-byte loads.
+    const int s = s0 + lane;
+    float logit = -INFINITY;
+    int code = NONE;
+    if (s < S) {
+      const float vb = a.vbias[s];
+      if (vb > kMasked || MODE == MODE_REORDER) code = code_of(s);
+      if (code != NONE) {
+        const uint4* r = reinterpret_cast<const uint4*>(row_ptr(kc, a.k_new, code, s));
+        uint4* w = MODE == MODE_REORDER ? reinterpret_cast<uint4*>(ko + (size_t)s * DH) : nullptr;
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < DH / PER; ++i) {
+          const uint4 u = r[i];
+          if (MODE == MODE_REORDER) w[i] = u;
+          const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+          for (int j = 0; j < PER; ++j) dot += q[i * PER + j] * to_float(e[j]);
+        }
+        if (vb > kMasked) logit = dot + vb;
+      }
+    }
+    const float m_new = fmaxf(m, warp_max(logit));
+    const float corr = m_new == -INFINITY ? 1.f : expf(m - m_new);
+    const float p = logit == -INFINITY ? 0.f : expf(logit - m_new);
+    l = l * corr + warp_sum(p);
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[i] *= corr;
+    m = m_new;
+    // P @ V: lane = feature slice, UNROLL positions at a time.
+    const int n = min(32, S - s0);
+    for (int j0 = 0; j0 < n; j0 += UNROLL) {
+      float pj[UNROLL], val[UNROLL][DPL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int j = j0 + u;  // < 32: j0 <= 24
+        pj[u] = __shfl_sync(0xffffffffu, p, j);
+        const int cj = __shfl_sync(0xffffffffu, code, j);
+        const bool take = j < n && cj != NONE && (MODE == MODE_REORDER || pj[u] != 0.f);
+        if (take) {
+          Slice<T, DPL>::load(row_ptr(vc, a.v_new, cj, s0 + j) + lane * DPL, val[u]);
+          if (MODE == MODE_REORDER) Slice<T, DPL>::store(vo + (size_t)(s0 + j) * DH + lane * DPL, val[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) val[u][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[i] += pj[u] * val[u][i];
+      }
+    }
+  }
+  T* out = static_cast<T*>(a.out) + q_offset(a, MODE, bh, kq);
+  float res[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) res[i] = acc[i] / l;
+  Slice<T, DPL>::store(out + lane * DPL, res);
+}
+
+template <typename T, int MODE>
+int launch_dpl(const BeamArgs& a, int BH, cudaStream_t st) {
+  const dim3 grid(BH), block(32 * a.K);
+  const size_t smem = (size_t)a.K * a.Dh * sizeof(float);
+  switch (a.Dh / 32) {
+    case 1: beam_attend_kernel<T, 1, MODE><<<grid, block, smem, st>>>(a); break;
+    case 2: beam_attend_kernel<T, 2, MODE><<<grid, block, smem, st>>>(a); break;
+    case 4: beam_attend_kernel<T, 4, MODE><<<grid, block, smem, st>>>(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch(BeamArgs a, int BH, int kind, cudaStream_t st) {
+  if (a.K < 1 || a.K > 16 || a.Dh % 32 != 0 || a.Dh > 128)
+    return (int)cudaErrorInvalidValue;
+  a.scale = 1.0f / sqrtf((float)a.Dh);
+  return kind == KIND_BF16 ? launch_dpl<__nv_bfloat16, MODE>(a, BH, st)
+                           : launch_dpl<float, MODE>(a, BH, st);
+}
+
+}  // namespace
+
+extern "C" int sonar_beam_masked_attend(const void* q, const void* k, const void* v,
+                                        const int* anc, const float* vbias, void* out, int BH,
+                                        int H, int K, int C, int S, int Dh, int kind,
+                                        void* stream) {
+  BeamArgs a{};
+  a.q = q; a.k = k; a.v = v; a.anc = anc; a.vbias = vbias; a.out = out;
+  a.H = H; a.K = K; a.C = C; a.S = S; a.Dh = Dh;
+  return launch<MODE_MASKED>(a, BH, kind, (cudaStream_t)stream);
+}
+
+extern "C" int sonar_beam_diag_attend(const void* q, const void* k, const void* v,
+                                      const float* vbias, void* out, int B, int H, int K, int S,
+                                      int Dh, int kind, void* stream) {
+  BeamArgs a{};
+  a.q = q; a.k = k; a.v = v; a.vbias = vbias; a.out = out;
+  a.H = H; a.K = K; a.C = K; a.S = S; a.Dh = Dh;
+  return launch<MODE_DIAG>(a, B * H, kind, (cudaStream_t)stream);
+}
+
+extern "C" int sonar_beam_reorder_attend(const void* q, const void* k_new, const void* v_new,
+                                         const void* k, const void* v, const int* sel,
+                                         const float* vbias, const float* wpos, void* k_out,
+                                         void* v_out, void* out, int B, int H, int K, int S,
+                                         int Dh, int kind, void* stream) {
+  BeamArgs a{};
+  a.q = q; a.k = k; a.v = v; a.sel = sel; a.k_new = k_new; a.v_new = v_new; a.vbias = vbias;
+  a.wpos = wpos; a.k_out = k_out; a.v_out = v_out; a.out = out;
+  a.H = H; a.K = K; a.C = K; a.S = S; a.Dh = Dh;
+  return launch<MODE_REORDER>(a, B * H, kind, (cudaStream_t)stream);
+}

@@ -1,0 +1,123 @@
+"""The conditional text decoder bound for generation on one device.
+
+``TorchTextDecoder`` is the counterpart of ``JitTextDecoder``
+(``sonar_tpu.generation.decoder_runtime``): teacher-forced ``score`` and
+beam-search ``generate_beam``. PyTorch runs eagerly, so there is no program
+per shape and the batch is decoded as given, without the JAX package's
+power-of-two padding. Sampling, int8 decode and ``mesh`` are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence, Tuple
+
+import numpy as np
+from sonar_tpu_torch.device import resolve_device
+from sonar_tpu_torch.generation.beam_search import BeamSearchConfig, beam_search_lax
+from sonar_tpu_torch.nn.conditional_decoder import ConditionalTransformerDecoder
+from sonar_tpu_torch.ops.precision import matmul_precision_for
+import torch
+
+
+class TorchTextDecoder:
+    """A ``ConditionalTransformerDecoder`` on one device (``device=None``
+    means the GPU). ``decode_steps`` counts the decoder steps run (prefix
+    steps included), each of which goes through every layer once."""
+
+    def __init__(self, model: ConditionalTransformerDecoder, quantize: bool = False,
+                 device: Any = None):
+        if quantize:
+            raise NotImplementedError(
+                "int8 decode is not ported (ROADMAP queue 1: int8 decode, opt-in and "
+                "off in the JAX package)"
+            )
+        self.device = resolve_device(device)
+        self.model = ConditionalTransformerDecoder(
+            model.config, model.params.tree(), dtype=model.dtype
+        ).to(self.device)
+        self.decode_steps = 0
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.model.dtype
+
+    @property
+    def max_target_len(self) -> int:
+        return self.model.max_target_len
+
+    @property
+    def vocab_info(self) -> Any:
+        return self.model.config.vocab_info
+
+    def _tensor(self, x: Any, dtype: torch.dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               dtype=dtype).to(self.device)
+
+    # -- scoring (teacher-forced logits) --------------------------------------
+
+    def score(self, seqs: Any, seq_lens: Any, memory: Any) -> np.ndarray:
+        """[B, S] ids, [B] lengths or None, [B, S_mem, D] memory -> [B, S, V]
+        fp32 logits."""
+        with torch.inference_mode(), matmul_precision_for(self.dtype):
+            logits = self.model(
+                self._tensor(seqs, torch.int32),
+                None if seq_lens is None else self._tensor(seq_lens, torch.int32),
+                self._tensor(memory, torch.float32),
+            )
+        return logits.cpu().numpy()
+
+    # -- beam search -----------------------------------------------------------
+
+    def _cap_gen_len(self, config: BeamSearchConfig, prefix_len: int) -> BeamSearchConfig:
+        """Cap max_gen_len so the prompt plus the generation fit the position
+        table (the reference's prompt-aware cap)."""
+        limit = self.max_target_len - prefix_len
+        if limit < 1:
+            raise ValueError(
+                f"prefix of {prefix_len} tokens leaves no room to generate "
+                f"(usable target length {self.max_target_len})"
+            )
+        if config.max_gen_len > limit:
+            config = dataclasses.replace(config, max_gen_len=limit)
+        return config
+
+    def warmup(self, config: BeamSearchConfig, prefix_len: int = 2,
+               batch_sizes: Sequence[int] = (32,)) -> int:
+        """Run one beam decode per batch size (this builds the CUDA kernels
+        on first use); returns the number of batch sizes."""
+        eos = self.vocab_info.eos_idx
+        d = self.model.config.model_dim
+        for b in batch_sizes:
+            self.generate_beam(np.zeros((b, 1, d), np.float32), [eos] * prefix_len, config)
+        return len(tuple(batch_sizes))
+
+    def generate_beam(self, memory: Any, prefix_ids: Sequence[int],
+                      config: BeamSearchConfig) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """memory: [B, 1, D] (numpy or a tensor, which may stay on the
+        device); returns (tokens [B, K, T], scores [B, K], lens [B, K])."""
+        config = self._cap_gen_len(config, len(prefix_ids))
+        mem = self._tensor(memory, torch.float32)
+        prefix = torch.tensor(list(prefix_ids), dtype=torch.long, device=self.device)
+        prefix = prefix[None, :].expand(mem.shape[0], -1)
+        vocab = self.vocab_info
+        # normalize_scores=False is len_penalty 0, as in the JAX runtime.
+        config = dataclasses.replace(
+            config, normalize_scores=True,
+            len_penalty=config.len_penalty if config.normalize_scores else 0.0)
+        k = config.beam_size
+        cache_len = len(prefix_ids) + config.max_gen_len + 1
+
+        def step_fn(tokens, cache, ancestry):
+            self.decode_steps += 1
+            return self.model.step(tokens, cache, ancestry=ancestry, beam_size=k)
+
+        with torch.inference_mode(), matmul_precision_for(self.dtype):
+            cache = self.model.init_cache(mem.repeat_interleave(k, dim=0), cache_len, beam_size=k)
+            tokens, scores, lens = beam_search_lax(
+                step_fn, cache, prefix, vocab.eos_idx, vocab.size, config,
+                pad_idx=vocab.pad_idx or 0,
+                unk_idx=vocab.unk_idx if config.unk_penalty else None,
+                cache_len=cache_len,
+            )
+        return tokens.cpu().numpy(), scores.cpu().numpy(), lens.cpu().numpy()

@@ -1,0 +1,70 @@
+"""Embedding -> text and text -> text through the embedding
+(``sonar_tpu.generation.text_converter``).
+
+The NLLB decoder prompt is ``[</s>, <target_lang>]`` (the tokenizer's
+target-mode prefix); the best hypothesis of each row is cut at its length
+and SentencePiece-decoded with control tokens filtered. The port decodes
+each batch in one call: its beam loop syncs with the host every step, so
+the JAX package's dispatch-ahead pipelining has nothing to overlap.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Sequence
+
+import numpy as np
+from sonar_tpu_torch.data.collate import Collater, DEFAULT_LEN_BUCKETS
+from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+import torch
+
+
+def _decode_hypotheses(tokenizer: Any, tokens: np.ndarray, lens: np.ndarray) -> List[str]:
+    """tokens: [B, T] best hypotheses (generated part incl. EOS)."""
+    decoder = tokenizer.create_decoder()
+    return [decoder([int(t) for t in row[: int(n)]]) for row, n in zip(tokens, lens)]
+
+
+class EmbeddingToTextConverter:
+    def __init__(self, decoder: Any, tokenizer: Any, target_lang: str,
+                 gen_config: BeamSearchConfig, sampler: Any = None):
+        if sampler is not None:
+            raise NotImplementedError(
+                "sampling is not ported (ROADMAP queue 1); use beam search")
+        self.decoder = decoder
+        self.tokenizer = tokenizer
+        self.gen_config = gen_config
+        target_encoder = tokenizer.create_encoder(lang=target_lang, mode="target")
+        self.prefix_ids: List[int] = list(target_encoder.prefix_indices)
+
+    def batch_convert(self, embeddings: Any) -> List[str]:
+        """[B, D] sentence embeddings (numpy, or a tensor that may stay on
+        the device) -> B decoded strings."""
+        if torch.is_tensor(embeddings):
+            memory = embeddings.float()[:, None, :]
+        else:
+            memory = np.asarray(embeddings, np.float32)[:, None, :]
+        tokens, _, lens = self.decoder.generate_beam(memory, self.prefix_ids, self.gen_config)
+        return _decode_hypotheses(self.tokenizer, tokens[:, 0], lens[:, 0])
+
+
+class TextTranslator:
+    """Source texts -> embeddings (encoder) -> target texts (decoder)."""
+
+    def __init__(self, encoder: Any, decoder: Any, tokenizer: Any, source_lang: str,
+                 target_lang: str, gen_config: BeamSearchConfig):
+        self.encoder = encoder
+        self.converter = EmbeddingToTextConverter(decoder, tokenizer, target_lang, gen_config)
+        self.source_encoder = tokenizer.create_encoder(lang=source_lang, mode="source")
+        self.collater = Collater(tokenizer.vocab_info.pad_idx, len_buckets=DEFAULT_LEN_BUCKETS)
+
+    def batch_translate(self, texts: Sequence[str]) -> List[str]:
+        encode_batch = getattr(self.source_encoder, "encode_batch", None)
+        if encode_batch is not None:  # one native call for the batch
+            token_lists = encode_batch(texts)
+        else:
+            token_lists = [self.source_encoder(t) for t in texts]
+        max_len = self.encoder.max_source_len
+        batch = self.collater([ids[:max_len] for ids in token_lists])
+        # The embeddings stay on the device into the decoder.
+        embeddings = self.encoder.encode_batch(batch, materialize=False)
+        return self.converter.batch_convert(embeddings)

@@ -9,8 +9,10 @@ on that device. PyTorch runs eagerly: there is no per-bucket compile, and
 
 ``SpeechToEmbeddingModelPipeline.predict`` keeps the reference semantics
 (wav paths or in-memory [T] / [C, T] 16 kHz arrays; in-memory clips batched
-length-sorted and returned in input order) on the shared host pipeline
-(``sonar_tpu.data``); ``SpeechToEmbeddingPipeline`` is the TSV-driven form.
+length-sorted and returned in input order) on the port's copy of the host
+pipeline (``sonar_tpu_torch.data``); ``SpeechToEmbeddingPipeline`` is the
+TSV-driven form. Every entry point runs on the GPU unless it is given
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,15 +23,15 @@ from pathlib import Path
 from typing import Any, List, Optional, Sequence, Union
 
 import numpy as np
+from sonar_tpu_torch.data.audio import AudioDecoder, FileMapper
+from sonar_tpu_torch.data.collate import round_up_pow2
+from sonar_tpu_torch.data.pipeline import DataPipelineBuilder, read_sequence, read_text
+from sonar_tpu_torch.device import resolve_device
 from sonar_tpu_torch.inference_pipelines.text import add_progress_bar
 from sonar_tpu_torch.models.sonar_speech.model import SonarSpeechEncoder
 from sonar_tpu_torch.ops.fbank import FbankConfig, batched_fbank, num_frames
 from sonar_tpu_torch.ops.precision import matmul_precision_for
 import torch
-
-from sonar_tpu.data.audio import AudioDecoder, FileMapper
-from sonar_tpu.data.collate import round_up_pow2
-from sonar_tpu.data.pipeline import DataPipelineBuilder, read_sequence, read_text
 
 # Wave-length buckets (samples at 16 kHz), as in the JAX package: padding is
 # wasted Conformer work, so the steps stay fine (typical waste under ~20%).
@@ -65,12 +67,12 @@ class TorchSpeechEncoder:
 
     ``quantize`` stores the linear weights as int8 with per-output-channel
     scales (r_proj and the depthwise convolution stay in floating point).
+    ``device=None`` means the GPU.
     """
 
     def __init__(self, model: SonarSpeechEncoder, fbank_config: Optional[FbankConfig] = None,
                  quantize: bool = False, fbank_dtype: Any = None, device: Any = None):
-        self.device = (torch.device(device) if device is not None
-                       else next(iter(model.buffers())).device)
+        self.device = resolve_device(device)
         if fbank_config is None:
             # The mel-bin count follows the model's frontend, so every arch
             # (the 8-bin toy too) works through the pipeline.
@@ -264,8 +266,9 @@ class AudioToFbankDataPipelineBuilder:
 
 
 class SpeechToEmbeddingPipeline:
-    def __init__(self, model: Union[str, TorchSpeechEncoder, SonarSpeechEncoder]) -> None:
-        self.model = _resolve_speech_encoder(model)
+    def __init__(self, model: Union[str, TorchSpeechEncoder, SonarSpeechEncoder],
+                 device: Any = None) -> None:
+        self.model = _resolve_speech_encoder(model, device=device)
         self._audio_builder = AudioToFbankDataPipelineBuilder()
 
     @classmethod

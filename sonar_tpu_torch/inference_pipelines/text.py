@@ -1,4 +1,4 @@
-"""Text -> embedding pipeline of the port (``sonar_tpu.inference_pipelines.text``).
+"""Text pipelines of the port (``sonar_tpu.inference_pipelines.text``).
 
 ``TorchTextEncoder`` is the counterpart of ``JitTextEncoder``: it binds a
 ``SonarTextEncoder`` with its runtime parameter rewrites (fused QKV, int8
@@ -9,7 +9,14 @@ CUDA kernels and runs each serving shape once.
 ``TextToEmbeddingModelPipeline.predict`` keeps the reference semantics
 (length-sorted token-budget batching, truncation warning, order
 restoration) and the static-shape batching of the JAX package, on the
-shared host pipeline (``sonar_tpu.data``).
+port's copy of the host pipeline (``sonar_tpu_torch.data``).
+
+``TextToTextModelPipeline`` (texts -> embeddings -> texts) and
+``EmbeddingToTextModelPipeline`` decode with beam search through
+``TorchTextDecoder``; sampling is not ported.
+
+Every entry point runs on the GPU unless it is given ``device="cpu"``
+(``sonar_tpu_torch.device``).
 """
 
 from __future__ import annotations
@@ -22,13 +29,14 @@ from typing import Any, Iterable, List, Optional, Sequence, Sized, Union
 import warnings
 
 import numpy as np
+from sonar_tpu_torch.data.batcher import StaticShapeBatcher
+from sonar_tpu_torch.data.collate import Collater, DEFAULT_LEN_BUCKETS, SequenceBatch
+from sonar_tpu_torch.data.pipeline import read_iterator, read_sequence, read_text
+from sonar_tpu_torch.device import resolve_device
 from sonar_tpu_torch.models.sonar_text.model import SonarTextEncoder
 from sonar_tpu_torch.nn.core import Params
 from sonar_tpu_torch.ops.precision import matmul_precision_for
 import torch
-
-from sonar_tpu.data.collate import Collater, DEFAULT_LEN_BUCKETS, SequenceBatch
-from sonar_tpu.data.pipeline import read_iterator, read_sequence, read_text
 
 
 def _len_buckets_for(max_len: int) -> tuple:
@@ -78,22 +86,19 @@ class EncodeStats:
         }
 
 
-def _model_device(model: SonarTextEncoder) -> torch.device:
-    return next(iter(model.buffers())).device
-
-
 class TorchTextEncoder:
     """A ``SonarTextEncoder`` bound for serving on one device.
 
     ``fuse_qkv`` concatenates each self-attention's q/k/v projections into
     one [D, 3D] projection; ``quantize`` stores the linear weights as int8
     with per-output-channel scales (the int8 serving mode). Both are
-    runtime copies; the checkpoint layout is unchanged.
+    runtime copies; the checkpoint layout is unchanged. ``device=None``
+    means the GPU.
     """
 
     def __init__(self, model: SonarTextEncoder, fuse_qkv: bool = True,
                  quantize: bool = False, device: Any = None):
-        self.device = torch.device(device) if device is not None else _model_device(model)
+        self.device = resolve_device(device)
         params: Params = model.params.tree()
         if fuse_qkv:
             from sonar_tpu_torch.nn.transformer import fuse_qkv as _fuse
@@ -132,8 +137,6 @@ class TorchTextEncoder:
                tokens_per_batch: int = 8192) -> int:
         """Run one dummy batch per static serving shape (this builds the CUDA
         kernels on first use); returns the number of shapes."""
-        from sonar_tpu.data.batcher import StaticShapeBatcher
-
         if len_buckets is None:
             len_buckets = _static_len_buckets_for(self.max_source_len)
         batcher = StaticShapeBatcher(pad_value=1, len_buckets=len_buckets,
@@ -297,8 +300,6 @@ class TextToEmbeddingModelPipeline:
         pad_idx = self.tokenizer.vocab_info.pad_idx
 
         if batching == "static":
-            from sonar_tpu.data.batcher import StaticShapeBatcher
-
             batcher = StaticShapeBatcher(
                 pad_value=pad_idx,
                 len_buckets=_static_len_buckets_for(max_seq_len),
@@ -358,3 +359,121 @@ class TextToEmbeddingModelPipeline:
         if sorting_index is not None:
             embeddings = embeddings[np.argsort(sorting_index, kind="stable")]
         return embeddings
+
+
+class TextToTextModelPipeline:
+    """Texts -> translated texts through the 1024-d embedding bottleneck."""
+
+    def __init__(self, encoder: Union[str, TorchTextEncoder, SonarTextEncoder],
+                 decoder: Any, tokenizer: Any, device: Any = None, dtype: Any = None,
+                 quantize: bool = False) -> None:
+        self.model = _resolve_encoder(encoder, dtype, device)
+        self.decoder = _resolve_decoder(decoder, dtype, quantize=quantize, device=device)
+        self.tokenizer = _resolve_tokenizer(tokenizer)
+
+    def warmup(self, batch_size: int = 5, target_lang: Optional[str] = None,
+               **generator_kwargs: Any) -> int:
+        """Run the encoder at every length bucket of ``predict``'s padded
+        batch and one beam decode at ``batch_size`` (this builds the CUDA
+        kernels); returns the number of shapes run."""
+        from sonar_tpu_torch.data.collate import round_up_pow2
+        from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+
+        gen_config = BeamSearchConfig.from_kwargs(self.decoder.max_target_len,
+                                                  **generator_kwargs)
+        b_pad = round_up_pow2(batch_size)
+        pad = self.tokenizer.vocab_info.pad_idx
+        n = 0
+        for bucket in DEFAULT_LEN_BUCKETS:
+            if bucket > self.model.max_source_len:
+                break
+            self.model.encode_batch(SequenceBatch(
+                seqs=np.full((b_pad, bucket), pad, np.int32),
+                seq_lens=np.full((b_pad,), bucket, np.int32), true_batch=b_pad,
+            ), materialize=False)
+            n += 1
+        return n + self.decoder.warmup(gen_config, prefix_len=_prefix_len(self.tokenizer,
+                                                                           target_lang),
+                                       batch_sizes=(batch_size,))
+
+    def predict(self, input: Union[str, Path, Sequence[str]], source_lang: str,
+                target_lang: str, batch_size: int = 5, progress_bar: bool = False,
+                **generator_kwargs: Any) -> List[str]:
+        from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+        from sonar_tpu_torch.generation.text_converter import TextTranslator
+
+        gen_config = BeamSearchConfig.from_kwargs(self.decoder.max_target_len,
+                                                  **generator_kwargs)
+        translator = TextTranslator(self.model, self.decoder, self.tokenizer, source_lang,
+                                    target_lang, gen_config)
+        builder = (read_text(Path(input)) if isinstance(input, (str, Path))
+                   else read_sequence(list(input)))
+        pipeline = builder.bucket(batch_size).map(translator.batch_translate).and_return()
+        iterable = pipeline
+        if progress_bar:
+            iterable = add_progress_bar(pipeline, inputs=input, batch_size=batch_size)
+        return [x for y in iterable for x in y]
+
+
+class EmbeddingToTextModelPipeline:
+    """[N, model_dim] embeddings -> texts (beam search)."""
+
+    def __init__(self, decoder: Any, tokenizer: Any, device: Any = None, dtype: Any = None,
+                 quantize: bool = False) -> None:
+        self.decoder = _resolve_decoder(decoder, dtype, quantize=quantize, device=device)
+        self.tokenizer = _resolve_tokenizer(tokenizer)
+
+    def warmup(self, batch_size: int = 5, target_lang: Optional[str] = None,
+               **generator_kwargs: Any) -> int:
+        """One beam decode at ``batch_size`` and this generator config."""
+        from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+
+        gen_config = BeamSearchConfig.from_kwargs(self.decoder.max_target_len,
+                                                  **generator_kwargs)
+        return self.decoder.warmup(gen_config, prefix_len=_prefix_len(self.tokenizer, target_lang),
+                                   batch_sizes=(batch_size,))
+
+    def predict(self, inputs: Any, target_lang: str, batch_size: int = 5,
+                progress_bar: bool = False, sampler: Any = None,
+                **generator_kwargs: Any) -> List[str]:
+        from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+        from sonar_tpu_torch.generation.text_converter import EmbeddingToTextConverter
+
+        gen_config = BeamSearchConfig.from_kwargs(self.decoder.max_target_len,
+                                                  **generator_kwargs)
+        converter = EmbeddingToTextConverter(self.decoder, self.tokenizer, target_lang,
+                                             gen_config, sampler=sampler)
+        if torch.is_tensor(inputs):
+            inputs = inputs.float().cpu().numpy()
+        inputs = np.asarray(inputs)
+        pipeline = (read_sequence(list(inputs)).bucket(batch_size)
+                    .map(lambda chunk: converter.batch_convert(np.stack(chunk))).and_return())
+        iterable = pipeline
+        if progress_bar:
+            iterable = add_progress_bar(pipeline, inputs=inputs, batch_size=batch_size)
+        return [x for y in iterable for x in y]
+
+
+def _prefix_len(tokenizer: Any, target_lang: Optional[str]) -> int:
+    lang = target_lang or getattr(tokenizer, "default_lang", None)
+    if lang is None:
+        return 2  # NLLB target prefix: [</s>, lang]
+    return len(tokenizer.create_encoder(lang=lang, mode="target").prefix_indices)
+
+
+def _resolve_decoder(decoder: Any, dtype: Any = None, quantize: bool = False,
+                     device: Any = None) -> Any:
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.nn.conditional_decoder import ConditionalTransformerDecoder
+
+    if isinstance(decoder, TorchTextDecoder):
+        return decoder
+    if isinstance(decoder, str):
+        from sonar_tpu_torch.assets.hub import load_text_decoder
+
+        return load_text_decoder(decoder, dtype=dtype or torch.float32, device=device,
+                                 quantize=quantize)
+    if isinstance(decoder, ConditionalTransformerDecoder):
+        return TorchTextDecoder(decoder, quantize=quantize, device=device)
+    raise TypeError(
+        "decoder must be a card name, TorchTextDecoder, or ConditionalTransformerDecoder")

@@ -1,7 +1,8 @@
-"""SONAR text encoder configs + arch registry.
+"""SONAR text encoder and decoder configs + arch registries.
 
-Field-for-field copy of ``sonar_tpu.models.sonar_text.config`` (encoder
-side); the ``basic``, ``small`` and ``toy`` archs hold identical values.
+Field-for-field copy of ``sonar_tpu.models.sonar_text.config``; the
+``basic``, ``small`` and ``toy`` archs of both registries hold identical
+values.
 """
 
 from __future__ import annotations
@@ -42,8 +43,33 @@ class SonarTextEncoderConfig:
     _from_fairseq: bool = False
 
 
+@dataclass
+class SonarTextDecoderConfig:
+    model_dim: int
+    max_seq_len: int
+    vocab_info: VocabularyInfo
+    activation_fn: str = "relu"
+    layernorm_embedding: bool = False
+    no_scale_embedding: bool = False
+    no_token_positional_embeddings: bool = False
+    learned_pos: bool = False
+    emb_dropout_p: float = 0.1
+    attention_dropout_p: float = 0.1
+    activation_dropout_p: float = 0.1
+    normalize_before: bool = True
+    num_encoder_layers: int = 24
+    num_decoder_layers: int = 24
+    num_encoder_attn_heads: int = 16
+    num_decoder_attn_heads: int = 16
+    ffn_inner_dim: int = 1024 * 8
+    input_dim: Optional[int] = None
+
+
 sonar_text_encoder_archs: ConfigRegistry[SonarTextEncoderConfig] = ConfigRegistry(
     "sonar_text_encoder"
+)
+sonar_text_decoder_archs: ConfigRegistry[SonarTextDecoderConfig] = ConfigRegistry(
+    "sonar_text_decoder"
 )
 
 
@@ -89,4 +115,47 @@ def _encoder_toy() -> SonarTextEncoderConfig:
         ffn_inner_dim=128,
         pooling="mean",
         _from_fairseq=True,
+    )
+
+
+@sonar_text_decoder_archs.arch("basic")
+def _decoder_basic() -> SonarTextDecoderConfig:
+    return SonarTextDecoderConfig(
+        model_dim=1024,
+        max_seq_len=512,
+        vocab_info=NLLB_VOCAB,
+        normalize_before=True,
+        num_encoder_layers=24,
+        num_decoder_layers=24,
+        num_encoder_attn_heads=16,
+        num_decoder_attn_heads=16,
+        ffn_inner_dim=1024 * 8,
+    )
+
+
+@sonar_text_decoder_archs.arch("small")
+def _decoder_small() -> SonarTextDecoderConfig:
+    cfg = _decoder_basic()
+    return dataclasses.replace(
+        cfg,
+        vocab_info=_SMALL_VOCAB,
+        num_encoder_layers=6,
+        num_decoder_layers=6,
+        ffn_inner_dim=1024 * 4,
+    )
+
+
+@sonar_text_decoder_archs.arch("toy")
+def _decoder_toy() -> SonarTextDecoderConfig:
+    """Tiny decoder for tests."""
+    return SonarTextDecoderConfig(
+        model_dim=32,
+        max_seq_len=512,
+        vocab_info=_TOY_VOCAB,
+        normalize_before=True,
+        num_encoder_layers=2,
+        num_decoder_layers=2,
+        num_encoder_attn_heads=4,
+        num_decoder_attn_heads=4,
+        ffn_inner_dim=128,
     )

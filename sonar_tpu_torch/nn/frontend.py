@@ -37,16 +37,18 @@ class EmbeddingFrontend:
         )
 
     def __call__(
-        self, params: Params, seqs: torch.Tensor, dtype: torch.dtype = torch.float32
+        self, params: Params, seqs: torch.Tensor, dtype: torch.dtype = torch.float32,
+        step: int = 0,
     ) -> torch.Tensor:
-        """seqs: [B, S] int token ids -> [B, S, D] embeddings."""
+        """seqs: [B, S] int token ids -> [B, S, D] embeddings; ``step`` is
+        the position of the first token (incremental decoding)."""
         x = embedding_lookup(params["embed"], seqs, dtype=dtype)
         if self.scale != 1.0:
             # Scale in the compute dtype, as the reference multiplies by a
             # dtype-typed scalar.
             x = x * torch.tensor(self.scale, dtype=dtype)
         if self.pos_encoder is not None:
-            x = self.pos_encoder(x)
+            x = self.pos_encoder(x, step=step)
         if self.layernorm:
             x = layer_norm(params["layer_norm"], x)
         return x

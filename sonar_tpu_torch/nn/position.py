@@ -50,8 +50,13 @@ class SinusoidalPositionEncoder:
             self._cache[key] = self._table.to(device=device, dtype=dtype)
         return self._cache[key]
 
-    def __call__(self, seqs: torch.Tensor) -> torch.Tensor:
-        """seqs: [B, S, D]; returns seqs + PE[offset : offset + S]."""
+    def __call__(self, seqs: torch.Tensor, step: int = 0) -> torch.Tensor:
+        """seqs: [B, S, D]; returns seqs + PE[offset + step : offset + step + S]
+        (``step`` is the position of an incremental decode step)."""
         seq_len = seqs.shape[1]
-        pe = self.table(seqs.device, seqs.dtype)[self.offset:self.offset + seq_len]
+        start = self.offset + step
+        if start + seq_len > self.max_seq_len:
+            raise ValueError(f"positions up to {start + seq_len} exceed the "
+                             f"{self.max_seq_len}-row position table")
+        pe = self.table(seqs.device, seqs.dtype)[start:start + seq_len]
         return seqs + pe[None, :, :]

@@ -4,8 +4,11 @@ Layer semantics of fairseq2's ``StandardTransformerEncoderLayer`` and
 ``StandardTransformerDecoderLayer`` as SONAR instantiates them: pre-LN (or
 post-LN) residual blocks, MHA with biased q/k/v/output projections, FFN =
 inner_proj -> activation -> output_proj. The decoder runs over the full
-sequence (the attention poolers); the KV cache and incremental decoding
-are not ported yet.
+sequence (the attention poolers, teacher-forced scoring) or one position
+at a time against a preallocated KV cache (``DecoderCache``,
+``decoder_step``), in plain mode or in beam mode, where self-attention reads
+the un-reordered cache through an ancestry table (``_beam_self_attend``,
+whose core is the ``beam_masked_attend`` kernel).
 
 Parameters are nested dicts in the JAX layout; the per-layer tensors of a
 stack carry a leading L axis, and ``encoder_stack`` loops over it.
@@ -18,11 +21,14 @@ tuned on a TPU; re-tuning them on the H100 is open work.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 from sonar_tpu_torch.nn.core import Params, get_activation, layer_norm, linear
 from sonar_tpu_torch.ops.attention import dispatch_sdpa
 import torch
+
+F32_MIN = torch.finfo(torch.float32).min
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -59,9 +65,21 @@ def mha(
         q, k, v = (_split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
         out = dispatch_sdpa(q, k, v, bias=bias)
         return linear(params["output_proj"], _merge_heads(out))
-    q = _split_heads(linear(params["q_proj"], x), num_heads)
+    k, v = mha_project_kv(params, kv, num_heads)
+    return mha_attend(params, x, k, v, bias, num_heads)
+
+
+def mha_project_kv(params: Params, kv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, ...]:
+    """Project memory once for reuse across decode steps: -> ([B,H,S,Dh], x2)."""
     k = _split_heads(linear(params["k_proj"], kv), num_heads)
     v = _split_heads(linear(params["v_proj"], kv), num_heads)
+    return k, v
+
+
+def mha_attend(params: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """Attention with pre-projected K/V (shared by full and incremental paths)."""
+    q = _split_heads(linear(params["q_proj"], x), num_heads)
     out = dispatch_sdpa(q, k, v, bias=bias)
     return linear(params["output_proj"], _merge_heads(out))
 
@@ -257,3 +275,180 @@ def decoder_stack(
         x = decoder_layer(layer_slice(stacked_params, i), x, self_bias, memory, memory_bias,
                           num_heads, activation, norm_order)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Incremental decoding with a preallocated KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DecoderCache:
+    """KV cache of the whole decoder stack (``sonar_tpu.nn.transformer``).
+
+    self_k / self_v: [L, B, H, S_max, Dh]; in beam mode
+    (``init_decoder_cache(beam_size=K)``) [L, B, H, K, S_max, Dh], the layout
+    ``_beam_self_attend`` reads through the ancestry table without a
+    transpose. ``decoder_step`` writes them IN PLACE (the JAX package
+    returns updated copies): a cache is a buffer of one generation run.
+    cross_k / cross_v: [L, B, H, S_mem, Dh], projected once from memory.
+    cross_out: [L, B, 1, D] or None. For a length-1 unmasked memory (the
+    SONAR embedding bottleneck) the cross-attention block is exactly
+    ``output_proj(v_proj(memory))`` (softmax over one position is 1), so
+    it is precomputed and cross_k / cross_v are empty.
+    index: the next write position, a host integer.
+    """
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    index: int
+    cross_out: Optional[torch.Tensor] = None
+
+
+def init_decoder_cache(
+    stacked_params: Params,
+    memory: torch.Tensor,
+    num_heads: int,
+    max_len: int,
+    batch: int,
+    model_dim: int,
+    dtype: torch.dtype,
+    beam_size: Optional[int] = None,
+) -> DecoderCache:
+    """Allocate the cache and project the cross-attention K/V of every
+    layer (or, for a length-1 memory, the constant ``cross_out``)."""
+    n_layers = num_stacked_layers(stacked_params)
+    head_dim = model_dim // num_heads
+    dev = memory.device
+    layers = [layer_slice(stacked_params, i)["encoder_decoder_attn"] for i in range(n_layers)]
+    if memory.shape[1] == 1:
+        cross_out = torch.stack(
+            [linear(p["output_proj"], linear(p["v_proj"], memory)) for p in layers]
+        ).to(dtype)
+        cross_k = cross_v = torch.zeros((n_layers, batch, num_heads, 0, head_dim),
+                                        dtype=dtype, device=dev)
+    else:
+        kv = [mha_project_kv(p, memory, num_heads) for p in layers]
+        cross_k = torch.stack([k for k, _ in kv]).to(dtype)
+        cross_v = torch.stack([v for _, v in kv]).to(dtype)
+        cross_out = None
+    if beam_size is not None:
+        shape = (n_layers, batch // beam_size, num_heads, beam_size, max_len, head_dim)
+    else:
+        shape = (n_layers, batch, num_heads, max_len, head_dim)
+    return DecoderCache(
+        self_k=torch.zeros(shape, dtype=dtype, device=dev),
+        self_v=torch.zeros(shape, dtype=dtype, device=dev),
+        cross_k=cross_k,
+        cross_v=cross_v,
+        index=0,
+        cross_out=cross_out,
+    )
+
+
+def valid_bias(max_len: int, idx: int, device: Any) -> torch.Tensor:
+    """[S_max] fp32: 0 at positions <= idx, -1e30 after (the beam kernels'
+    additive position mask)."""
+    pos = torch.arange(max_len, device=device)
+    return torch.where(pos <= idx, 0.0, -1e30).float()
+
+
+def _beam_self_attend(
+    params: Params,
+    x: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    anc_b: torch.Tensor,
+    bias: torch.Tensor,
+    num_heads: int,
+    beam_size: int,
+) -> torch.Tensor:
+    """Beam-decode self-attention reading the cache through the ancestry
+    table instead of reordering it (``sonar_tpu.nn.transformer``).
+
+    x: [N, 1, D], N = B*K; k_cache / v_cache: [B, H, K, S, Dh] un-reordered;
+    anc_b: [B, K, S] int32, for (query beam, position) the cache row that
+    holds the winning token; bias: [S] fp32 ``valid_bias`` of this step
+    (positions past the step's index carry -1e30). The core is the
+    ``beam_masked_attend`` kernel (its plain version on the CPU); it keeps
+    P in fp32 for P @ V, where the JAX einsum rounds P to the model dtype
+    first, so in bf16 the two differ by that rounding.
+    """
+    from sonar_tpu_torch.ops.cuda.beam_attend import beam_masked_attend
+
+    b, h, k, s, dh = k_cache.shape
+    n = b * beam_size
+    q = linear(params["q_proj"], x).reshape(b, beam_size, h, dh)
+    qbh = q.permute(0, 2, 1, 3).reshape(b * h, beam_size, dh).contiguous()
+    out = beam_masked_attend(
+        qbh, k_cache.reshape(b * h, k, s, dh), v_cache.reshape(b * h, k, s, dh),
+        anc_b, bias, num_heads,
+    )
+    out = out.reshape(b, h, beam_size, dh).permute(0, 2, 1, 3).reshape(n, 1, h * dh)
+    return linear(params["output_proj"], out)
+
+
+def decoder_step(
+    stacked_params: Params,
+    x: torch.Tensor,
+    cache: DecoderCache,
+    memory_bias: Optional[torch.Tensor],
+    num_heads: int,
+    activation: str,
+    ancestry: Optional[torch.Tensor] = None,
+    beam_size: Optional[int] = None,
+) -> Tuple[torch.Tensor, DecoderCache]:
+    """One incremental step of the whole stack: x [B, 1, D] at position
+    ``cache.index`` -> (output [B, 1, D], the cache with index + 1).
+
+    Writes this position's K/V into the cache in place. ``ancestry``
+    [N, S_max] int32 in [0, beam_size) selects beam mode: self-attention
+    reads the un-reordered cache through it (``_beam_self_attend``).
+    """
+    idx = cache.index
+    max_len = cache.self_k.shape[-2]
+    if ancestry is None:
+        pos = torch.arange(max_len, device=x.device)
+        self_bias = torch.where(pos <= idx, 0.0, F32_MIN).float()[None, None, None, :]
+        anc_b = None
+    else:
+        if beam_size is None:
+            raise ValueError("beam mode needs beam_size")
+        anc_b = ancestry.reshape(ancestry.shape[0] // beam_size, beam_size, max_len)
+        anc_b = anc_b.to(torch.int32).contiguous()
+        beam_bias = valid_bias(max_len, idx, x.device)
+    if cache.cross_out is not None and memory_bias is not None:
+        raise ValueError(
+            "cache was built for an unmasked length-1 memory (cross_out set); "
+            "memory_bias is not applicable"
+        )
+    for layer in range(num_stacked_layers(stacked_params)):
+        p = layer_slice(stacked_params, layer)
+        sk, sv = cache.self_k[layer], cache.self_v[layer]
+        h = layer_norm(p["self_attn_layer_norm"], x)
+        k_new = _split_heads(linear(p["self_attn"]["k_proj"], h), num_heads)  # [N, H, 1, Dh]
+        v_new = _split_heads(linear(p["self_attn"]["v_proj"], h), num_heads)
+        if anc_b is not None:
+            b, hh, kk, _, dh = sk.shape
+            sk[:, :, :, idx] = k_new.reshape(b, kk, hh, dh).transpose(1, 2).to(sk.dtype)
+            sv[:, :, :, idx] = v_new.reshape(b, kk, hh, dh).transpose(1, 2).to(sv.dtype)
+            y = x + _beam_self_attend(p["self_attn"], h, sk, sv, anc_b, beam_bias,
+                                      num_heads, beam_size)
+        else:
+            sk[:, :, idx] = k_new[:, :, 0].to(sk.dtype)
+            sv[:, :, idx] = v_new[:, :, 0].to(sv.dtype)
+            y = x + mha_attend(p["self_attn"], h, sk, sv, self_bias, num_heads)
+        if cache.cross_out is not None:
+            y = y + cache.cross_out[layer]
+        else:
+            h = layer_norm(p["encoder_decoder_attn_layer_norm"], y)
+            y = y + mha_attend(p["encoder_decoder_attn"], h, cache.cross_k[layer],
+                               cache.cross_v[layer], memory_bias, num_heads)
+        h = layer_norm(p["ffn_layer_norm"], y)
+        x = y + ffn(p["ffn"], h, activation)
+    return x, DecoderCache(
+        self_k=cache.self_k, self_v=cache.self_v, cross_k=cache.cross_k,
+        cross_v=cache.cross_v, index=idx + 1, cross_out=cache.cross_out,
+    )

@@ -1,10 +1,9 @@
 """NLLB tokenizer for the port.
 
 Same conventions as ``sonar_tpu.tokenizers.nllb.NllbTokenizer`` (source
-encoding ``[<lang>] pieces [</s>]``), built on the framework-free
-``sonar_tpu.tokenizers.spm.SentencePieceModel``. ``vocab_info`` is the
-port's own ``VocabularyInfo``: the JAX package builds its copy through
-``sonar_tpu.models.common``, which imports jax.
+encoding ``[<lang>] pieces [</s>]``, target ``[</s>, <lang>] pieces [</s>]``),
+built on the port's copy of the SentencePiece model
+(``sonar_tpu_torch.tokenizers.spm``).
 """
 
 from __future__ import annotations
@@ -12,23 +11,12 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Optional, Sequence, Union
 
-from sonar_tpu_torch.models.common import VocabularyInfo
-
-from sonar_tpu.tokenizers.spm import (
+from sonar_tpu_torch.tokenizers.spm import (
     SentencePieceDecoder,
     SentencePieceEncoder,
     SentencePieceModel,
+    vocab_info_from_sentencepiece,
 )
-
-
-def vocab_info_from_sentencepiece(model: SentencePieceModel) -> VocabularyInfo:
-    return VocabularyInfo(
-        size=len(model),
-        unk_idx=model.unk_idx,
-        bos_idx=model.bos_idx,
-        eos_idx=model.eos_idx,
-        pad_idx=model.pad_idx if model.pad_idx is not None else model.unk_idx,
-    )
 
 
 class NllbTokenizer:

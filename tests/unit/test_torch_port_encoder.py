@@ -181,7 +181,7 @@ def test_toy_encoder_int8_matches_jax(fuse):
     seqs, lens = _batch(rng, 4, 16, 1000, [16, 9, 3, 0])
     batch = SequenceBatch(seqs=seqs, seq_lens=lens, true_batch=4)
     enc = TorchTextEncoder(text_encoder_from_numpy(params, sonar_text_encoder_archs.get("toy")),
-                           fuse_qkv=fuse, quantize=True)
+                           fuse_qkv=fuse, quantize=True, device="cpu")
     got = enc.encode_batch(batch)
     want = JitTextEncoder(JaxEncoder(cfg), params, fuse_qkv=fuse, quantize=True).encode_batch(batch)
     assert _row_cos(got[:3], want[:3]).min() >= 0.999
@@ -204,7 +204,8 @@ def test_wide_encoder_through_every_gate(mode):
     batch = SequenceBatch(seqs=seqs, seq_lens=lens, true_batch=len(lens))
     tdt, jdt = DTYPES["bfloat16" if mode == "bf16_flash" else "float32"]
     quantize = mode.startswith("int8")
-    enc = TorchTextEncoder(text_encoder_from_numpy(params, tcfg, tdt), quantize=quantize)
+    enc = TorchTextEncoder(text_encoder_from_numpy(params, tcfg, tdt), quantize=quantize,
+                           device="cpu")
     got = enc.encode_batch(batch)
     want = np.asarray(JitTextEncoder(JaxEncoder(cfg, dtype=jdt), params,
                                      quantize=quantize).encode_batch(batch), np.float32)
@@ -227,7 +228,8 @@ def test_kernel_gates_route_like_jax():
     try:
         tcfg = _wide_cfg(sonar_text_encoder_archs)
         params = init_text_encoder_params(tcfg, seed=0)
-        enc = TorchTextEncoder(text_encoder_from_numpy(params, tcfg), quantize=True)
+        enc = TorchTextEncoder(text_encoder_from_numpy(params, tcfg), quantize=True,
+                               device="cpu")
         for b, s in ((64, 32), (2, 256), (2, 16)):
             calls.clear()
             enc.encode_batch(SequenceBatch(seqs=np.full((b, s), 5, np.int32),
@@ -373,21 +375,24 @@ def test_hub_loads_a_card_like_the_jax_hub(tmp_path, dtype):
     from sonar_tpu.assets import hub as jax_hub
     from sonar_tpu.assets.store import ModelCard, default_store
     from sonar_tpu_torch.assets import hub
+    from sonar_tpu_torch.assets import store as port_store
 
     cfg = jax_archs.get("toy")
     params = _jax_params(cfg, seed=4)
     path = tmp_path / "encoder.pt"
     torch.save({"model": _fairseq2_state(cfg, params)}, path)
     name = f"torch_port_test_card_{dtype}"
-    store = default_store()
+    store, pstore = default_store(), port_store.default_store()
     store.register_model(ModelCard(name=name, family="sonar_text_encoder", arch="toy",
                                    checkpoint=str(path)))
+    pstore.register_model(port_store.ModelCard(name=name, family="sonar_text_encoder",
+                                               arch="toy", checkpoint=str(path)))
     tdt, jdt = DTYPES[dtype]
     try:
-        port = hub.load_text_encoder(name, dtype=tdt)
+        port = hub.load_text_encoder(name, dtype=tdt, device="cpu")
         ref = jax_hub.load_text_encoder(name, dtype=jdt)
     finally:
-        del store.models[name]
+        del store.models[name], pstore.models[name]
     rng = np.random.default_rng(7)
     seqs, lens = _batch(rng, 3, 12, 1000, [12, 7, 2])
     batch = SequenceBatch(seqs=seqs, seq_lens=lens, true_batch=3)

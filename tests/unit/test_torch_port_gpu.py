@@ -15,7 +15,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from sonar_tpu_torch.nn.conformer import _trig_tables  # noqa: E402
-from sonar_tpu_torch.ops.cuda import attn_block, ffn, flash, relpos_flash, short_attn  # noqa: E402
+from sonar_tpu_torch.ops.cuda import (  # noqa: E402
+    attn_block,
+    beam_attend,
+    ffn,
+    flash,
+    relpos_flash,
+    short_attn,
+)
 from sonar_tpu_torch.ops.quantization import quantize_kernel  # noqa: E402
 
 F32_MIN = torch.finfo(torch.float32).min
@@ -188,3 +195,72 @@ def test_relpos_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                                             _rand(dev, 2, 32), bias)
     with pytest.raises(ValueError):  # a key bias of the wrong shape
         relpos_flash.relpos_flash_attention(q, k, v, _rand(dev, 3, 2, 130, 130), u, bias[:, :64])
+
+
+def _beam_inputs(dev, dtype, b, beam, h, s, dh, idx):
+    q = _rand(dev, b, beam, h, dh, dtype=dtype, seed=1)
+    k, v = (_rand(dev, b, h, beam, s, dh, dtype=dtype, seed=2 + i) for i in range(2))
+    gen = torch.Generator().manual_seed(s + idx)
+    anc = torch.randint(0, beam, (b, beam, s), generator=gen, dtype=torch.int32).to(dev)
+    sel = torch.randint(0, beam, (b, beam), generator=gen, dtype=torch.int32).to(dev)
+    pos = torch.arange(s, device=dev)
+    vbias = torch.where(pos <= idx, 0.0, -1e30).float()
+    return q, k, v, anc, sel, vbias, (pos == idx).float()
+
+
+# The beam kernels' shapes: those of the JAX kernel tests and the beam-decode
+# path of the full-width decoder (B 32, K 5, H 16, S 51, Dh 64).
+BEAM_SHAPES = [(2, 5, 16, 11, 64, 5), (3, 2, 4, 7, 32, 6), (32, 5, 16, 51, 64, 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BEAM_SHAPES)
+def test_beam_masked_attend_kernel(dev, dtype, shape):
+    b, beam, h, s, dh, idx = shape
+    q, k, v, anc, _, vbias, _ = _beam_inputs(dev, dtype, b, beam, h, s, dh, idx)
+    qbh = q.permute(0, 2, 1, 3).reshape(b * h, beam, dh).contiguous()
+    kc, vc = k.reshape(b * h, beam, s, dh), v.reshape(b * h, beam, s, dh)
+    got = _launched(beam_attend, lambda: beam_attend.beam_masked_attend(qbh, kc, vc, anc, vbias, h),
+                    counter="MASKED_LAUNCHES")
+    _assert_close(got, beam_attend.beam_masked_attend_plain(qbh, kc, vc, anc, vbias, h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BEAM_SHAPES)
+def test_beam_diag_attend_kernel(dev, dtype, shape):
+    b, beam, h, s, dh, idx = shape
+    q, k, v, _, _, vbias, _ = _beam_inputs(dev, dtype, b, beam, h, s, dh, idx)
+    got = _launched(beam_attend, lambda: beam_attend.beam_diag_attend(q, k, v, vbias),
+                    counter="DIAG_LAUNCHES")
+    _assert_close(got, beam_attend.beam_diag_attend_plain(q, k, v, vbias))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BEAM_SHAPES)
+def test_beam_reorder_attend_kernel(dev, dtype, shape):
+    b, beam, h, s, dh, idx = shape
+    q, k, v, _, sel, vbias, woh = _beam_inputs(dev, dtype, b, beam, h, s, dh, idx)
+    kn, vn = (_rand(dev, b, beam, h, dh, dtype=dtype, seed=7 + i) for i in range(2))
+    args = (q, kn, vn, k, v, sel, vbias, woh)
+    got = _launched(beam_attend, lambda: beam_attend.beam_reorder_attend(*args),
+                    counter="REORDER_LAUNCHES")
+    want = beam_attend.beam_reorder_attend_plain(*args)
+    _assert_close(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+def test_beam_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q, k, v, anc, _, vbias, _ = _beam_inputs(dev, torch.float32, 2, 3, 2, 9, 64, 4)
+    qbh = q.permute(0, 2, 1, 3).reshape(4, 3, 64).contiguous()
+    kc, vc = k.reshape(4, 3, 9, 64), v.reshape(4, 3, 9, 64)
+    with pytest.raises(ValueError):  # caches in another dtype than q
+        beam_attend.beam_masked_attend(qbh, kc.bfloat16(), vc.bfloat16(), anc, vbias, 2)
+    with pytest.raises(ValueError):  # int64 ancestry
+        beam_attend.beam_masked_attend(qbh, kc, vc, anc.long(), vbias, 2)
+    with pytest.raises(ValueError):  # head dim 48
+        beam_attend.beam_diag_attend(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                     v[..., :48].contiguous(), vbias)

@@ -74,7 +74,7 @@ def test_tokenizer_matches_jax_tokenizer(tmp_path):
 def test_predict_matches_jax_pipeline(toy, tmp_path, batching, quantize):
     cfg, params = toy
     model = text_encoder_from_numpy(params, sonar_text_encoder_archs.get("toy"))
-    port = TextToEmbeddingModelPipeline(TorchTextEncoder(model, quantize=quantize),
+    port = TextToEmbeddingModelPipeline(TorchTextEncoder(model, quantize=quantize, device="cpu"),
                                         _port_tokenizer(tmp_path))
     ref = JaxPipeline(JitTextEncoder(JaxEncoder(cfg), params, quantize=quantize),
                       build_toy_nllb(tmp_path))
@@ -91,7 +91,8 @@ def test_predict_matches_jax_pipeline(toy, tmp_path, batching, quantize):
 
 def test_predict_options_and_stats(toy, tmp_path):
     cfg, params = toy
-    enc = TorchTextEncoder(text_encoder_from_numpy(params, sonar_text_encoder_archs.get("toy")))
+    enc = TorchTextEncoder(text_encoder_from_numpy(params, sonar_text_encoder_archs.get("toy")),
+                           device="cpu")
     pipe = TextToEmbeddingModelPipeline(enc, _port_tokenizer(tmp_path))
     assert pipe.predict([], source_lang="eng_Latn").shape == (0, 32)
     with pytest.raises(ValueError):
@@ -127,7 +128,7 @@ path = Path({str(tmp_path)!r}) / "t.model"
 path.write_bytes(serialize_model_proto(build_toy_spm_proto()))
 tok = NllbTokenizer(path, langs=["eng_Latn"])
 cfg = sonar_text_encoder_archs.get("toy")
-enc = TorchTextEncoder(text_encoder_from_numpy(init_text_encoder_params(cfg, 0), cfg), quantize=True)
+enc = TorchTextEncoder(text_encoder_from_numpy(init_text_encoder_params(cfg, 0), cfg), quantize=True, device="cpu")
 emb = TextToEmbeddingModelPipeline(enc, tok).predict(["hello world", "the cat"], source_lang="eng_Latn", batching="static")
 assert emb.shape == (2, 32) and np.isfinite(emb).all()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))

@@ -113,7 +113,8 @@ def _jax_pipeline(params, dtype, quantize=False, fbank_dtype=None):
 def _port_pipeline(params, dtype, quantize=False, fbank_dtype=None):
     model = speech_encoder_from_numpy(params, PORT_CFG, DT[dtype][0])
     return speech.SpeechToEmbeddingModelPipeline(
-        speech.TorchSpeechEncoder(model, quantize=quantize, fbank_dtype=fbank_dtype))
+        speech.TorchSpeechEncoder(model, quantize=quantize, fbank_dtype=fbank_dtype,
+                                  device="cpu"))
 
 
 def _clips(seconds, seed=5):
@@ -213,7 +214,7 @@ def test_encoder_builds_wr_heads_at_load(wide_params, quantize):
     """The model's tree holds the kernel's per-head r_proj of every layer,
     built from r_proj (which int8 quantisation leaves in floating point)."""
     model = speech_encoder_from_numpy(wide_params, PORT_CFG, torch.bfloat16)
-    sdpa = speech.TorchSpeechEncoder(model, quantize=quantize).model.params.tree()[
+    sdpa = speech.TorchSpeechEncoder(model, quantize=quantize, device="cpu").model.params.tree()[
         "encoder"]["layers"]["self_attn"]["sdpa"]
     r_proj = wide_params["encoder"]["layers"]["self_attn"]["sdpa"]["r_proj"]["kernel"]
     want = conformer.relpos_heads(torch.tensor(np.array(r_proj)).to(torch.bfloat16), 2)
@@ -399,16 +400,19 @@ def test_checkpoint_bridge_matches_jax(tmp_path):
     from sonar_tpu.assets import hub as jax_hub
     from sonar_tpu.assets.store import ModelCard, default_store
     from sonar_tpu_torch.assets import hub
+    from sonar_tpu_torch.assets import store as port_store
 
-    store = default_store()
-    store.register_model(ModelCard(name="torch_port_speech_test_card",
-                                   family="sonar_speech_encoder", arch="toy",
+    name = "torch_port_speech_test_card"
+    store, pstore = default_store(), port_store.default_store()
+    store.register_model(ModelCard(name=name, family="sonar_speech_encoder", arch="toy",
                                    checkpoint=str(path)))
+    pstore.register_model(port_store.ModelCard(name=name, family="sonar_speech_encoder",
+                                               arch="toy", checkpoint=str(path)))
     try:
-        port = hub.load_speech_encoder("torch_port_speech_test_card")
-        ref = jax_hub.load_speech_encoder("torch_port_speech_test_card")
+        port = hub.load_speech_encoder(name, device="cpu")
+        ref = jax_hub.load_speech_encoder(name)
     finally:
-        del store.models["torch_port_speech_test_card"]
+        del store.models[name], pstore.models[name]
     waves = _clips([1.2, 0.7])
     np.testing.assert_allclose(port.encode_waveforms(waves),
                                np.asarray(ref.encode_waveforms(waves)), atol=5e-4)
@@ -441,7 +445,8 @@ from sonar_tpu_torch.assets.convert import init_speech_encoder_params, speech_en
 from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
 cfg = sonar_speech_encoder_archs.get("toy")
 enc = sonar_tpu_torch.TorchSpeechEncoder(
-    speech_encoder_from_numpy(init_speech_encoder_params(cfg, 0), cfg), quantize=True)
+    speech_encoder_from_numpy(init_speech_encoder_params(cfg, 0), cfg), quantize=True,
+    device="cpu")
 pipe = sonar_tpu_torch.SpeechToEmbeddingModelPipeline(enc)
 rng = np.random.default_rng(0)
 emb = pipe.predict([rng.standard_normal(n).astype(np.float32) * 0.1 for n in (9000, 20000, 300)])

@@ -1,0 +1,166 @@
+"""The port stands alone and runs on the GPU unless asked for the CPU.
+
+- a fresh interpreter in which ``jax`` and ``sonar_tpu`` cannot be imported
+  imports every module of ``sonar_tpu_torch`` and runs text, speech and
+  decode ``predict`` on the CPU at toy size;
+- no file of the port, and not ``chip_smoke.py``, imports ``sonar_tpu`` or
+  ``jax`` (an ``ast`` scan);
+- with no GPU, every entry point given ``device=None`` raises instead of
+  running on the CPU.
+"""
+
+import ast
+import os
+from pathlib import Path
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[2]
+PORT_FILES = sorted((REPO / "sonar_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+from pathlib import Path
+sys.modules["jax"] = None        # any import of jax now raises ImportError
+sys.modules["sonar_tpu"] = None  # and so does any import of the JAX package
+import numpy as np
+import sonar_tpu_torch
+
+for info in pkgutil.walk_packages(sonar_tpu_torch.__path__, "sonar_tpu_torch."):
+    importlib.import_module(info.name)
+
+from sonar_tpu_torch.assets import convert
+from sonar_tpu_torch.inference_pipelines.speech import SpeechToEmbeddingModelPipeline
+from sonar_tpu_torch.inference_pipelines.text import (
+    EmbeddingToTextModelPipeline, TextToEmbeddingModelPipeline, TextToTextModelPipeline)
+from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs, sonar_text_encoder_archs
+from sonar_tpu_torch.tokenizers.nllb import NllbTokenizer
+from sonar_tpu_torch.tokenizers.spm_proto import (
+    PIECE_CONTROL, PIECE_UNKNOWN, ModelProto, NormalizerSpecProto, SentencePieceProto as P,
+    TrainerSpecProto, serialize_model_proto)
+
+pieces = [P("<blank>", 0.0, PIECE_CONTROL), P("<unk>", 0.0, PIECE_UNKNOWN),
+          P("<s>", 0.0, PIECE_CONTROL), P("</s>", 0.0, PIECE_CONTROL)]
+pieces += [P("▁" + w, -1.0) for w in ("hello", "world", "the", "cat", "sat")]
+pieces += [P(c, -5.0) for c in "abcdefghijklmnopqrstuvwxyz"] + [P("▁", -4.0)]
+proto = ModelProto(pieces=pieces, trainer=TrainerSpecProto(unk_id=1, bos_id=2, eos_id=3, pad_id=1),
+                   normalizer=NormalizerSpecProto())
+path = Path(sys.argv[1]) / "t.model"
+path.write_bytes(serialize_model_proto(proto))
+tok = NllbTokenizer(path, langs=["eng_Latn", "fra_Latn"])
+
+cfg = sonar_text_encoder_archs.get("toy")
+enc = convert.text_encoder_from_numpy(convert.init_text_encoder_params(cfg, 0), cfg)
+emb = TextToEmbeddingModelPipeline(enc, tok, device="cpu").predict(
+    ["hello world", "the cat sat"], source_lang="eng_Latn")
+assert emb.shape == (2, 32) and np.isfinite(emb).all()
+
+scfg = sonar_speech_encoder_archs.get("toy")
+senc = convert.speech_encoder_from_numpy(convert.init_speech_encoder_params(scfg, 0), scfg)
+rng = np.random.default_rng(0)
+semb = SpeechToEmbeddingModelPipeline(senc, device="cpu").predict(
+    [rng.standard_normal(n).astype(np.float32) * 0.1 for n in (9000, 3000)])
+assert semb.shape == (2, 32) and np.isfinite(semb).all()
+
+import dataclasses
+dcfg = sonar_text_decoder_archs.get("toy")
+dcfg = dataclasses.replace(dcfg, vocab_info=dataclasses.replace(dcfg.vocab_info,
+                                                                size=tok.vocab_info.size))
+dec = convert.text_decoder_from_numpy(convert.init_text_decoder_params(dcfg, 0), dcfg)
+texts = EmbeddingToTextModelPipeline(dec, tok, device="cpu").predict(
+    emb, target_lang="fra_Latn", beam_size=2, max_gen_len=5)
+assert len(texts) == 2 and all(isinstance(t, str) for t in texts)
+texts = TextToTextModelPipeline(enc, dec, tok, device="cpu").predict(
+    ["hello world"], source_lang="eng_Latn", target_lang="fra_Latn", max_gen_len=5)
+assert len(texts) == 1
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "sonar_tpu")
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_port_runs_with_jax_and_sonar_tpu_blocked(tmp_path):
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_file_imports_jax_or_sonar_tpu(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "sonar_tpu"}
+
+
+def test_scan_sees_an_import(tmp_path):
+    """The scan catches both import forms, also inside a function."""
+    src = tmp_path / "m.py"
+    src.write_text("def f():\n    from sonar_tpu.data import collate\n    import jax.numpy\n"
+                   "from sonar_tpu_torch.ops import topk\n")
+    assert _imported_roots(src) == {"sonar_tpu", "jax", "sonar_tpu_torch"}
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_the_gpu(no_gpu):
+    """``device=None`` means ``cuda``: without a GPU each entry point raises
+    before it runs anything, and ``device="cpu"`` is what the CPU needs."""
+    from sonar_tpu_torch.assets import convert, hub
+    from sonar_tpu_torch.data.collate import SequenceBatch
+    from sonar_tpu_torch.device import resolve_device
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.inference_pipelines import speech, text
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs, sonar_text_encoder_archs
+
+    tcfg = sonar_text_encoder_archs.get("toy")
+    tenc = convert.text_encoder_from_numpy(convert.init_text_encoder_params(tcfg, 0), tcfg)
+    scfg = sonar_speech_encoder_archs.get("toy")
+    senc = convert.speech_encoder_from_numpy(convert.init_speech_encoder_params(scfg, 0), scfg)
+    dcfg = sonar_text_decoder_archs.get("toy")
+    dec = convert.text_decoder_from_numpy(convert.init_text_decoder_params(dcfg, 0), dcfg)
+    calls = [
+        lambda: text.TorchTextEncoder(tenc),
+        lambda: speech.TorchSpeechEncoder(senc),
+        lambda: TorchTextDecoder(dec),
+        lambda: text.TextToEmbeddingModelPipeline(tenc, tokenizer=None),
+        lambda: speech.SpeechToEmbeddingModelPipeline(senc),
+        lambda: speech.SpeechToEmbeddingPipeline(senc),
+        lambda: text.EmbeddingToTextModelPipeline(dec, tokenizer=None),
+        lambda: text.TextToTextModelPipeline(tenc, dec, tokenizer=None),
+        lambda: hub.load_text_encoder("text_sonar_basic_encoder"),
+        lambda: hub.load_speech_encoder("sonar_speech_encoder_eng"),
+        lambda: hub.load_text_decoder("text_sonar_basic_decoder"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert TorchTextDecoder(dec, device="cpu").device == torch.device("cpu")
+    enc = text.TorchTextEncoder(tenc, device="cpu")
+    emb = enc.encode_batch(SequenceBatch(seqs=np.full((1, 4), 5, np.int32),
+                                         seq_lens=np.asarray([4], np.int32), true_batch=1))
+    assert enc.device == torch.device("cpu") and emb.shape == (1, 32)
