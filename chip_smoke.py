@@ -9,7 +9,7 @@ Phases, each printing ``#`` lines:
     prints the card's name and power limit as nvidia-smi gives them;
 (b) build: compiles the CUDA kernels from ``sonar_tpu_torch/csrc`` (nvcc,
     sm_90a) and prints the build time and the compiler's register report;
-(c) kernels: each of the nine kernels against its plain PyTorch version on
+(c) kernels: each of the ten kernels against its plain PyTorch version on
     the card, at the main paths' shapes, with the tolerance stated, and
     both timed with CUDA events (plain, kernel, kernel, plain; the kernels
     line gives each kernel's first timed shape, v2 is timed in fp32 too),
@@ -18,6 +18,9 @@ Phases, each printing ``#`` lines:
     work (bytes over 3.35 TB/s or operations over the operand type's peak,
     computed from the inputs); the three beam-attend kernels at the JAX
     kernel tests' shapes and the decode shape of (f), in bf16 and fp32;
+    the Conformer half-FFN (``fused_bf16_ffn_ln_residual``) at the
+    ``english`` encoder's S 499 batch and at the JAX test's shape, bf16 and
+    fp32, beside the port's eager Conformer branch at the same shape;
 (d) the slice: the ``basic`` SONAR text encoder at full width (24 layers,
     D 1024, 16 heads, FFN 8192, vocabulary 256,206) with seeded random
     weights, behind ``TextToEmbeddingModelPipeline.predict`` with a
@@ -57,10 +60,33 @@ Phases, each printing ``#`` lines:
     printed, not failed) and the teacher-forced logits agree to 1e-3 of
     their scale in fp32, row cosine >= 0.999 in bf16.
 
+(g) speech -> text: the ``english`` encoder and the ``basic`` decoder in
+    bf16 behind ``SpeechToTextModelPipeline.predict(batch_size=8)`` on 16
+    synthetic clips (8 of 3-20 s, 8 of 25-40 s: S 299-1999, the v2
+    kernel), beam 5, max_gen_len 48. Clips/s, sentences/s, ms per decode
+    step; v2 must launch and ``beam_masked_attend`` exactly 24 times per
+    decode step. Two short clips in fp32: the card's and the CPU's
+    embeddings within 1e-3 of their scale, and the same best hypotheses.
+(h) sampling, int8 decode and the heads: top-p 0.9 and top-k 10 sampling
+    with the ``basic`` decoder in bf16 and fp32 on (d)'s 64 embeddings
+    (batch 32, max_gen_len 48), and in fp32 on 4 embeddings against the
+    CPU port with the same Gumbel noise (``noise`` hook; identical tokens,
+    a tie within 1e-5 printed); int8 decode (``quantize=True``, beam 5) on
+    the 64 embeddings and on 2 (10 beam rows, ``int8_matmul``'s float64
+    route), its teacher-forced logits' row cosine >= 0.99 against the
+    card's fp32 decoder and >= 0.9999 against the CPU port in int8; BLASER
+    ``basic_ref`` and ``basic_qe`` and MuTox on 3000 embeddings of (d),
+    the MuTox speech pipeline on 8 clips, and LASER2 (``laser2``: 5 x
+    BiLSTM 512) on 512 sentences of (d)'s corpus, each at its published
+    width with seeded random weights, against the CPU port in fp32 to 1e-4
+    of the output's scale.
+
 A kernel's ``launches`` in the JSON record is the sum of its counts over
-(d), (e) and (f); the kernels that no path calls (``relpos_flash_attention``,
-``beam_diag_attend``, ``beam_reorder_attend``) must read 0. Prints that record on the line before the last, and as the last
-line ``{"ok": true, "device": {...}}``. Any failure raises (exit != 0).
+(d) to (h); the kernels that no path calls (``relpos_flash_attention``,
+``beam_diag_attend``, ``beam_reorder_attend``,
+``fused_bf16_ffn_ln_residual``) must read 0. Prints that record on the
+line before the last, and as the last line ``{"ok": true, "device":
+{...}}``. Any failure raises (exit != 0).
 """
 
 from __future__ import annotations
@@ -102,10 +128,13 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its
     "beam_reorder_attend": ("sonar_tpu_torch/csrc/beam_attend.cu",
                             "sonar_tpu/ops/pallas/beam_attend.py:225", "beam_attend",
                             "REORDER_LAUNCHES"),
+    "fused_bf16_ffn_ln_residual": ("sonar_tpu_torch/csrc/bf16_ffn.cu",
+                                   "sonar_tpu/ops/pallas/ffn.py:137", "ffn", "BF16_LAUNCHES"),
 }
 # Kernels that no driven path launches (no JAX path calls them either): their
 # counts are read like the others' and must stay 0.
-NO_PATH = ("relpos_flash_attention", "beam_diag_attend", "beam_reorder_attend")
+NO_PATH = ("relpos_flash_attention", "beam_diag_attend", "beam_reorder_attend",
+           "fused_bf16_ffn_ln_residual")
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): device
 # memory bytes/s and operations/s by operand type. A kernel's bound is the
@@ -258,17 +287,19 @@ def check_kernels(torch):
     failures = []
 
     def check(name, label, kernel_fn, plain_fn, rtol, min_cos, timed=False, cost=None,
-              library_fn=None, pick=lambda out: out):
-        """Pass if max|kernel - plain| <= rtol * max|plain| and every row's
-        cosine >= min_cos, all values finite (on ``pick`` of the outputs).
-        A timed call also times ``library_fn`` (one PyTorch call of the same
-        function, or None) and computes the bound from ``cost`` = (bytes,
-        {operand type: operations}) of these inputs."""
+              library_fn=None, pick=lambda out: out, atol=None):
+        """Pass if max|kernel - plain| <= rtol * max|plain| (or <= atol when
+        given) and every row's cosine >= min_cos, all values finite (on
+        ``pick`` of the outputs). A timed call also times ``library_fn`` (one
+        PyTorch call of the same function, or None) and computes the bound
+        from ``cost`` = (bytes, {operand type: operations}) of these inputs."""
         got, want = pick(kernel_fn()), pick(plain_fn())
         torch.cuda.synchronize()
         max_abs, cos, finite, ref = _errors(torch, got, want)
-        ok = finite and max_abs <= rtol * ref and cos >= min_cos
-        log(f"check {name} {label}: max_abs {max_abs:.3e} (<= {rtol:.0e} x ref max {ref:.3g}) "
+        limit = rtol * ref if atol is None else atol
+        ok = finite and max_abs <= limit and cos >= min_cos
+        log(f"check {name} {label}: max_abs {max_abs:.3e} (<= "
+            f"{f'{rtol:.0e} x ref max {ref:.3g}' if atol is None else f'{atol:.0e}'}) "
             f"min row cos {cos:.7f} (>= {min_cos}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} {label}")
@@ -363,6 +394,41 @@ def check_kernels(torch):
                 f"half) moves the output by {gap:.3e} (ref max {ref:.3g})")
             if gap <= int8_tol[f32] * ref:
                 failures.append("fused_int8_ffn split-scale case does not discriminate")
+
+    # K11: the Conformer half-FFN x + 0.5 * (SiLU(LN(x) @ W1 + b1) @ W2 + b2),
+    # which no path calls: at the full-width ``english`` encoder's shape (the
+    # S 499 batch of phase (e): M 3992, D 1024, F 4096, 2 splits) and at the
+    # JAX test's (M 300, D 128, F 512; 1, 2 and 4 splits, a ragged M), bf16
+    # and fp32, weights at Kaiming scale. fp32 to max-abs 2e-4 (the JAX
+    # test's tolerance: products summed in another order); bf16 to 2^-7 of
+    # the output scale (one bf16 ulp of the largest value: a rounding of the
+    # inner activation or the output may flip), row cosine >= 0.9999. The
+    # port's eager Conformer branch (``nn/conformer.py``) is timed beside it.
+    from sonar_tpu_torch.nn.conformer import _half_ffn
+    from sonar_tpu_torch.nn.core import layer_norm
+
+    for m, dm, fm, splits in ((3992, 1024, 4096, (2,)), (300, 128, 512, (1, 2, 4))):
+        lnp = {"weight": 1 + rand(dm, scale=0.1), "bias": rand(dm, scale=0.1)}
+        w1, b1 = rand(dm, fm, scale=dm ** -0.5), rand(fm, scale=0.1)
+        w2, b2 = rand(fm, dm, scale=fm ** -0.5), rand(dm, scale=0.1)
+        for dt in (bf16, f32):
+            x = rand(m, dm, dtype=dt)
+            w1d, w2d = w1.to(dt), w2.to(dt)  # a model of dtype dt stores its weights so
+            fargs = (x, lnp["weight"], lnp["bias"], w1d, b1, w2d, b2, 0.5)
+            kind = str(dt)[6:]
+            for n in splits:
+                timed = n == 2
+                check("fused_bf16_ffn_ln_residual", f"M={m} D={dm} F={fm} splits={n} {kind}",
+                      lambda: ffn.fused_bf16_ffn_ln_residual(*fargs, n_splits=n),
+                      lambda: ffn.fused_bf16_ffn_ln_residual_plain(*fargs, n_splits=n),
+                      2.0 ** -7, 0.9999, timed=timed, atol=2e-4 if dt == f32 else None,
+                      cost=(2 * nbytes(x) + nbytes(w1d, w2d, b1, b2, lnp["weight"], lnp["bias"]),
+                            {_kind(dt): 4 * m * dm * fm}))
+            branch = {"inner_proj": {"kernel": w1d, "bias": b1.to(dt)},
+                      "output_proj": {"kernel": w2d, "bias": b2.to(dt)}}
+            eager = _timed(torch, lambda: x + 0.5 * _half_ffn(branch, layer_norm(lnp, x)), 20)
+            log(f"time fused_bf16_ffn_ln_residual M={m} D={dm} F={fm} {kind}: the port's eager "
+                f"Conformer branch (x + 0.5 * _half_ffn(LN(x))) {eager:.4f} ms")
 
     # K2: flash attention. P is normalised before its rounding to the value
     # dtype in both versions (as in the TPU kernel), so the tolerances are
@@ -596,7 +662,7 @@ def run_slice(torch, card):
                                  f"{bool(np.isfinite(emb).all())}")
         runs[mode] = emb[ref_idx]
         if mode == "bf16":
-            decode_inputs = emb[:64]  # phase (f) decodes these
+            bf16_embeddings = emb  # phases (f) and (h) decode and score these
         stats = gpu[mode].model.stats.snapshot()
         log(f"slice {mode} static: {len(corpus)} sentences in {dt:.2f} s = {tput[mode]:.1f} "
             f"sentences/s end to end (host tokenization included), padding waste "
@@ -649,8 +715,9 @@ def run_slice(torch, card):
                 f"(CPU {time.perf_counter() - t0:.1f} s)")
             if not ok:
                 raise AssertionError(f"{mode}: the card disagrees with the CPU reference")
-    handoff = {"tokenizer": tokenizer, "corpus": corpus, "embeddings": decode_inputs,
-               "encoder": gpu["bf16"].model}
+    handoff = {"tokenizer": tokenizer, "corpus": corpus, "embeddings": bf16_embeddings[:64],
+               "corpus_embeddings": bf16_embeddings, "encoder": gpu["bf16"].model,
+               "tokenizer_path": tmp / "synthetic_nllb.model"}
     return launches, tput, handoff
 
 
@@ -680,7 +747,7 @@ def _speech_traffic(rng):
     return [_clip(rng, s) for s in secs]
 
 
-def run_speech(torch, card):
+def run_speech(torch, card, handoff):
     import numpy as np
 
     from sonar_tpu_torch.assets.convert import init_speech_encoder_params, speech_encoder_from_numpy
@@ -694,7 +761,7 @@ def run_speech(torch, card):
     cfg = sonar_speech_encoder_archs.get("english")
     c = cfg.conformer
     t0 = time.perf_counter()
-    params = init_speech_encoder_params(cfg, seed=0)
+    params = handoff["speech_params"] = init_speech_encoder_params(cfg, seed=0)
     log(f"english speech encoder weights drawn in {time.perf_counter() - t0:.1f} s "
         f"({c.num_layers} Conformer layers, D {c.model_dim}, {c.num_heads} heads, FFN "
         f"{c.ffn_inner_dim}, depthwise kernel {c.depthwise_kernel_size}, "
@@ -784,6 +851,40 @@ def _device_profile(torch, fn):
     return ops, wall_ms, reads
 
 
+def _busy_share(torch, card, label, dec, fn, top=8):
+    """The device busy share of ``fn`` (one decode batch on ``dec``): the
+    device time of its kernels (torch.profiler) over its wall time without
+    the profiler, per decode step, with the device operations a step, the
+    time the host is blocked in the loop's per-step exit-test read (what
+    that test costs at most: the host cannot run ahead of the device) and
+    the ``top`` operations by device time."""
+    dec.decode_steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    steps = dec.decode_steps
+    t0 = time.perf_counter()
+    ops, prof_wall, (read_ms, n_reads) = _device_profile(torch, fn)
+    log(f"{label}: profiled and read in {time.perf_counter() - t0:.1f} s")
+    if not ops:
+        log(f"{label} busy share: the profiler saw no device time (not measured)")
+        return
+    busy = sum(ms for ms, _ in ops.values())
+    log(f"{label}, {steps} steps: device busy {busy:.2f} ms of {wall:.2f} ms wall "
+        f"({prof_wall:.2f} ms under the profiler) = {busy / wall:.3f} busy share; "
+        f"{busy / steps:.3f} ms device and {(wall - busy) / steps:.3f} ms idle per step; "
+        f"{sum(n for _, n in ops.values()) / steps:.0f} device ops per step; on {card}")
+    log(f"{label} exit test: the host is blocked {read_ms:.3f} ms in {n_reads} device-to-host "
+        f"scalar reads (aten::_local_scalar_dense, under the profiler) = "
+        f"{read_ms / steps:.4f} ms per step, {100 * read_ms / prof_wall:.2f}% of the profiled "
+        f"wall; on {card}")
+    for name, (ms, n) in sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"{label} device time: {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:6d} calls "
+            f"{name[:90]}")
+
+
 def _recording(dec):
     """Wrap ``dec.generate_beam`` to keep each call's best-hypothesis lengths."""
     lens = []
@@ -834,13 +935,14 @@ def run_decode(torch, card, handoff):
     cfg = sonar_text_decoder_archs.get("basic")
     n_layers = cfg.num_decoder_layers
     t0 = time.perf_counter()
-    params = init_text_decoder_params(cfg, seed=0)
+    params = handoff["decoder_params"] = init_text_decoder_params(cfg, seed=0)
     log(f"basic decoder weights drawn in {time.perf_counter() - t0:.1f} s ({n_layers} layers, "
         f"D {cfg.model_dim}, {cfg.num_decoder_attn_heads} heads, FFN {cfg.ffn_inner_dim}, "
         f"vocab {cfg.vocab_info.size}, tied output projection)")
     tok, emb = handoff["tokenizer"], handoff["embeddings"]
-    decoders = {mode: TorchTextDecoder(text_decoder_from_numpy(params, cfg, dtype, DEVICE))
-                for mode, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
+    decoders = handoff["decoders"] = {
+        mode: TorchTextDecoder(text_decoder_from_numpy(params, cfg, dtype, DEVICE))
+        for mode, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
     launches = dict.fromkeys(KERNELS, 0)
 
     def drive(label, dec, fn, n_sentences):
@@ -885,38 +987,11 @@ def run_decode(torch, card, handoff):
           lambda: t2t.predict(texts, source_lang="eng_Latn", target_lang="eng_Latn",
                               batch_size=8, **DECODE_KW), len(texts))
 
-    # Device busy share over one bf16 batch of 32: the device time of its
-    # kernels (torch.profiler) over the batch's wall time without the
-    # profiler. The exit test of the beam loop reads one boolean from the
-    # device per step, so the host cannot run ahead of the device; the time
-    # the host is blocked in those reads is what the test costs at most.
+    # Device busy share over one bf16 batch of 32.
     gen_cfg = BeamSearchConfig(**DECODE_KW)
     converter = EmbeddingToTextConverter(decoders["bf16"], tok, "eng_Latn", gen_cfg)
-    decoders["bf16"].decode_steps = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    converter.batch_convert(emb[:32])
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    steps = decoders["bf16"].decode_steps
-    ops, prof_wall, (read_ms, n_reads) = _device_profile(
-        torch, lambda: converter.batch_convert(emb[:32]))
-    if not ops:
-        log("decode bf16 busy share: the profiler saw no device time (not measured)")
-    else:
-        busy = sum(ms for ms, _ in ops.values())
-        launches_per_step = sum(n for _, n in ops.values()) / steps
-        log(f"decode bf16 batch of 32, {steps} steps: device busy {busy:.2f} ms of {wall:.2f} ms "
-            f"wall ({prof_wall:.2f} ms under the profiler) = {busy / wall:.3f} busy share; "
-            f"{busy / steps:.3f} ms device and {(wall - busy) / steps:.3f} ms idle per step; "
-            f"{launches_per_step:.0f} device ops per step; on {card}")
-        log(f"decode bf16 exit test: the host is blocked {read_ms:.3f} ms in {n_reads} "
-            f"device-to-host scalar reads (aten::_local_scalar_dense, under the profiler) = "
-            f"{read_ms / steps:.4f} ms per step, {100 * read_ms / prof_wall:.2f}% of the "
-            f"profiled wall; on {card}")
-        for name, (ms, n) in sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]:
-            log(f"decode bf16 device time: {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:6d} calls "
-                f"{name[:90]}")
+    _busy_share(torch, card, "decode bf16 batch of 32", decoders["bf16"],
+                lambda: converter.batch_convert(emb[:32]))
 
     # The card against the CPU port on 4 embeddings: the fp32 beam search on
     # both, then the teacher-forced logits of the CPU's best hypotheses.
@@ -954,15 +1029,365 @@ def run_decode(torch, card, handoff):
     return launches
 
 
+# -- (g) speech -> text ------------------------------------------------------------------
+
+
+def _cos_rows(a, b):
+    import numpy as np
+
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def run_speech_to_text(torch, card, handoff):
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import speech_encoder_from_numpy, text_decoder_from_numpy
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.inference_pipelines.speech import (
+        SpeechToTextModelPipeline,
+        TorchSpeechEncoder,
+    )
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+
+    cfg = sonar_speech_encoder_archs.get("english")
+    dcfg = sonar_text_decoder_archs.get("basic")
+    n_layers = dcfg.num_decoder_layers
+    tok, dec = handoff["tokenizer"], handoff["decoders"]["bf16"]
+    rng = np.random.default_rng(1)
+    # 16 clips in arrival order (the pipeline keeps it): 8 of 3-20 s, then 8
+    # of 25-40 s, so that the two batches of 8 take S 299-999 and 1249-1999,
+    # all through the v2 kernel.
+    secs = list(np.clip(rng.lognormal(np.log(8.0), 0.5, 8), 3.0, 20.0))
+    secs += list(rng.uniform(25.0, 40.0, 8))
+    clips = [_clip(rng, x) for x in secs]
+    audio_s = sum(secs)
+    enc = TorchSpeechEncoder(speech_encoder_from_numpy(handoff["speech_params"], cfg,
+                                                       torch.bfloat16, DEVICE))
+    pipe = SpeechToTextModelPipeline(enc, dec, tok)
+    pipe.predict(clips[:2], target_lang="eng_Latn", batch_size=8, beam_size=5,
+                 max_gen_len=4)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(clips), 8):  # the encoder alone on the same batches
+        enc.encode_waveforms(clips[i:i + 8], materialize=False)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+
+    lens = _recording(dec)
+    dec.decode_steps = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = pipe.predict(clips, target_lang="eng_Latn", batch_size=8, **DECODE_KW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_launches()
+    del dec.generate_beam
+    steps, n_tok = dec.decode_steps, int(sum(x.sum() for x in lens))
+    log(f"speech->text bf16: {len(clips)} clips ({audio_s:.1f} s of audio) in {dt:.3f} s = "
+        f"{len(clips) / dt:.2f} clips/s = {len(out) / dt:.2f} sentences/s, RTFx "
+        f"{audio_s / dt:.1f}, {n_tok} generated tokens; encoder alone {encode_s:.3f} s, so "
+        f"{(dt - encode_s) * 1e3 / steps:.3f} ms per decode step over {steps} steps; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+    log(f"speech->text bf16: launches {counts}")
+    if not (counts["relpos_flash_attention_v2"] > 0
+            and counts["beam_masked_attend"] == n_layers * steps > 0):
+        raise AssertionError(f"speech->text: v2 launched {counts['relpos_flash_attention_v2']} "
+                             f"times, beam_masked_attend {counts['beam_masked_attend']} over "
+                             f"{steps} steps of {n_layers} layers")
+    if len(out) != len(clips) or not all(isinstance(t, str) for t in out):
+        raise AssertionError(f"speech->text: {len(out)} outputs for {len(clips)} clips")
+    del pipe, enc
+    torch.cuda.empty_cache()
+
+    # The card against the CPU port in fp32 on 2 short clips (S 149 and 249:
+    # the v2 kernel on the card, its plain version on the CPU): the
+    # embeddings as in (e), then the beam search of the card's embeddings on
+    # both sides (the same memory), whose best hypotheses must agree.
+    ref = [_clip(rng, x) for x in (3.0, 5.0)]
+    prefix = tok.create_encoder(lang="eng_Latn", mode="target").prefix_indices
+    gen_cfg = BeamSearchConfig(**DECODE_KW)
+    t0 = time.perf_counter()
+    on_card = TorchSpeechEncoder(speech_encoder_from_numpy(
+        handoff["speech_params"], cfg, torch.float32, DEVICE)).encode_waveforms(ref)
+    on_cpu = TorchSpeechEncoder(speech_encoder_from_numpy(
+        handoff["speech_params"], cfg, torch.float32, "cpu"), device="cpu").encode_waveforms(ref)
+    max_abs, scale = float(np.abs(on_card - on_cpu).max()), float(np.abs(on_cpu).max())
+    cpu_dec = TorchTextDecoder(text_decoder_from_numpy(handoff["decoder_params"], dcfg,
+                                                       torch.float32, "cpu"), device="cpu")
+    card_beam = handoff["decoders"]["fp32"].generate_beam(on_card[:, None, :], prefix, gen_cfg)
+    _same_best("speech->text fp32", card_beam,
+               cpu_dec.generate_beam(on_card[:, None, :], prefix, gen_cfg))
+    ok = max_abs <= 1e-3 * scale
+    log(f"speech->text fp32 card vs CPU on 2 clips: embeddings max_abs {max_abs:.3e} (<= 1e-3 x "
+        f"scale {scale:.3g}), best hypotheses agree {'ok' if ok else 'FAIL'} "
+        f"(CPU {time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise AssertionError("speech->text fp32: the card's embeddings disagree with the CPU's")
+    return counts
+
+
+# -- (h) sampling, int8 decode and the heads ---------------------------------------------------
+
+
+class _RecordingSampler:
+    """A sampler that keeps each step's filtered log-probabilities (on the
+    host), to tell a tie from a fault where two sampled tokens differ."""
+
+    def __init__(self, sampler):
+        self.sampler = sampler
+        self.temperature = getattr(sampler, "temperature", 1.0)
+        self.filtered = []
+
+    def filter_logprobs(self, lp):
+        out = self.sampler.filter_logprobs(lp)
+        self.filtered.append(out.float().cpu())
+        return out
+
+
+def run_sampling_int8_heads(torch, card, handoff):
+    import numpy as np
+
+    from sonar_tpu_torch.assets import convert
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.sampling import TopKSampler, TopPSampler
+    from sonar_tpu_torch.inference_pipelines.mutox_speech import MutoxSpeechClassifierPipeline
+    from sonar_tpu_torch.inference_pipelines.speech import TorchSpeechEncoder
+    from sonar_tpu_torch.inference_pipelines.text import EmbeddingToTextModelPipeline
+    from sonar_tpu_torch.models import blaser, laser2_text, mutox
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+    from sonar_tpu_torch.tokenizers.laser2 import Laser2Tokenizer
+
+    tok, emb, decoders = handoff["tokenizer"], handoff["embeddings"], handoff["decoders"]
+    dcfg = sonar_text_decoder_archs.get("basic")
+    n_layers, vocab = dcfg.num_decoder_layers, dcfg.vocab_info.size
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def drive(label, dec, fn, n_items, beam=False):
+        dec.decode_steps = 0
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_launches()
+        for name in KERNELS:
+            launches[name] += counts[name]
+        steps = dec.decode_steps
+        log(f"{label}: {n_items} sentences in {dt:.3f} s = {n_items / dt:.2f} sentences/s, "
+            f"{steps} decode steps = {dt * 1e3 / steps:.3f} ms per step; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; on {card}")
+        if beam and counts["beam_masked_attend"] != n_layers * steps:
+            raise AssertionError(f"{label}: beam_masked_attend launched "
+                                 f"{counts['beam_masked_attend']} times over {steps} steps")
+        if len(out) != n_items or not all(isinstance(t, str) for t in out):
+            raise AssertionError(f"{label}: {len(out)} outputs for {n_items} inputs")
+        return out
+
+    # Sampling at full width, bf16 and fp32, through the pipeline; the
+    # device busy share of one top-p batch of 32 in each, over 16 steps
+    # (the profiler's read of a longer run costs tens of seconds).
+    for mode in ("bf16", "fp32"):
+        pipe = EmbeddingToTextModelPipeline(decoders[mode], tok)
+        for name, sampler in (("top-p 0.9", TopPSampler(0.9)), ("top-k 10", TopKSampler(10))):
+            drive(f"sampling {mode} {name} (64 embeddings, batch 32, max_gen_len 48)",
+                  decoders[mode], lambda: pipe.predict(emb, target_lang="eng_Latn", batch_size=32,
+                                                       sampler=sampler, max_gen_len=48), len(emb))
+        _busy_share(torch, card, f"sampling {mode} top-p batch of 32, max_gen_len 16",
+                    decoders[mode],
+                    lambda: pipe.predict(emb[:32], target_lang="eng_Latn", batch_size=32,
+                                         sampler=TopPSampler(0.9), max_gen_len=16), top=5)
+
+    # Sampling, the card against the CPU port in fp32 on 4 embeddings, with
+    # the same Gumbel noise drawn once on the host.
+    prefix = tok.create_encoder(lang="eng_Latn", mode="target").prefix_indices
+    gen = torch.Generator().manual_seed(0)
+    draws = [-torch.log(-torch.log(torch.rand(4, vocab, generator=gen).clamp_min(1e-38)))
+             for _ in range(48)]
+    memory = emb[:4, None, :]
+    t0 = time.perf_counter()
+    cpu_dec = TorchTextDecoder(convert.text_decoder_from_numpy(
+        handoff["decoder_params"], dcfg, torch.float32, "cpu"), device="cpu")
+    rec = _RecordingSampler(TopPSampler(0.9))
+    ct, cs, cl = decoders["fp32"].generate_sample(memory, prefix, TopPSampler(0.9), 48,
+                                                  noise=lambda step, shape: draws[step])
+    pt, ps, pl = cpu_dec.generate_sample(memory, prefix, rec, 48,
+                                         noise=lambda step, shape: draws[step])
+    for r in range(4):
+        diff = [i for i in range(ct.shape[1]) if ct[r, i] != pt[r, i]]
+        if not diff:
+            continue
+        scores = (rec.filtered[diff[0]][r] + draws[diff[0]][r]).double()
+        top2 = torch.topk(scores, 2).values
+        tie = float(top2[0] - top2[1]) <= 1e-5
+        log(f"sampling fp32 row {r}: tokens differ from step {diff[0]} (the CPU's two best "
+            f"noisy scores {float(top2[0]):.7f}, {float(top2[1]):.7f}); "
+            f"{'a tie within 1e-5: not a failure' if tie else 'FAIL'}")
+        if not tie:
+            raise AssertionError(f"sampling fp32: the card's tokens of row {r} are not the CPU's")
+    log(f"sampling fp32 card vs CPU on 4 embeddings (top-p 0.9, the same noise): tokens agree, "
+        f"lengths {cl.tolist()}, max score gap {float(np.abs(cs - ps).max()):.3e} "
+        f"(CPU {time.perf_counter() - t0:.1f} s)")
+
+    # int8 decode: every projection int8, the tied projection in floating
+    # point. The speed run in bf16 activations (beam 5, the 64 embeddings,
+    # and 2 embeddings, whose 10 beam rows take int8_matmul's float64 route
+    # below 17 rows, beside bf16 at the same batch); the checks in fp32.
+    q_bf16 = TorchTextDecoder(decoders["bf16"].model, quantize=True)
+    q_pipe = EmbeddingToTextModelPipeline(q_bf16, tok)
+    q_pipe.predict(emb[:32], target_lang="eng_Latn", batch_size=32, beam_size=5, max_gen_len=4)
+    drive("int8 decode bf16 (64 embeddings, batch 32, beam 5, max_gen_len 48)", q_bf16,
+          lambda: q_pipe.predict(emb, target_lang="eng_Latn", batch_size=32, **DECODE_KW),
+          len(emb), beam=True)
+    _busy_share(torch, card, "int8 decode bf16 batch of 32, max_gen_len 16", q_bf16,
+                lambda: q_pipe.predict(emb[:32], target_lang="eng_Latn", batch_size=32,
+                                       beam_size=5, max_gen_len=16), top=5)
+    for label, dec in (("int8 decode bf16", q_bf16), ("bf16 decode", decoders["bf16"])):
+        drive(f"{label} (2 embeddings, 10 beam rows, max_gen_len 48)", dec,
+              lambda: EmbeddingToTextModelPipeline(dec, tok).predict(
+                  emb[:2], target_lang="eng_Latn", batch_size=2, **DECODE_KW), 2, beam=True)
+    del q_pipe, q_bf16
+    q32 = TorchTextDecoder(decoders["fp32"].model, quantize=True)
+    q32_cpu = TorchTextDecoder(cpu_dec.model, quantize=True, device="cpu")
+    beam = q32.generate_beam(memory, prefix, BeamSearchConfig(**DECODE_KW))
+    lens = len(prefix) + beam[2][:, 0]
+    seqs = np.full((4, int(lens.max())), 1, np.int32)
+    for r in range(4):
+        seqs[r, :lens[r]] = list(prefix) + beam[0][r, 0, : beam[2][r, 0]].tolist()
+    valid = np.arange(seqs.shape[1])[None, :] < lens[:, None]
+    t0 = time.perf_counter()
+    got = q32.score(seqs, lens, memory)[valid]
+    vs_fp32 = _cos_rows(got, decoders["fp32"].score(seqs, lens, memory)[valid]).min()
+    vs_cpu = _cos_rows(got, q32_cpu.score(seqs, lens, memory)[valid]).min()
+    ok = vs_fp32 >= 0.99 and vs_cpu >= 0.9999
+    log(f"int8 decode fp32 teacher-forced logits on 4 embeddings: min row cos {vs_fp32:.6f} "
+        f"against the card's fp32 decoder (>= 0.99), {vs_cpu:.6f} against the CPU port in int8 "
+        f"(>= 0.9999) {'ok' if ok else 'FAIL'} (CPU {time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise AssertionError("int8 decode: the logits disagree")
+    del q32, q32_cpu, cpu_dec
+    torch.cuda.empty_cache()
+
+    def head(label, card_fn, cpu_fn, n_items, rows=None):
+        """Time ``card_fn`` (items/s), then hold its output's ``rows`` (by
+        default the first ones) against ``cpu_fn``'s: max-abs <= 1e-4 of
+        the output's scale."""
+        card_fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = card_fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = out.float().cpu().numpy()
+        want = cpu_fn().float().numpy()
+        got = got[: want.shape[0]] if rows is None else got[rows]
+        max_abs, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        ok = np.isfinite(got).all() and max_abs <= 1e-4 * scale
+        log(f"{label}: {n_items} items in {dt * 1e3:.3f} ms = {n_items / dt:.1f} items/s, output "
+            f"{tuple(out.shape)}; card vs CPU fp32 on {want.shape[0]} rows max_abs {max_abs:.3e} "
+            f"(<= 1e-4 x scale {scale:.3g}) {'ok' if ok else 'FAIL'}; on {card}")
+        if not ok:
+            raise AssertionError(f"{label}: the card disagrees with the CPU reference")
+
+    # BLASER and MuTox on the corpus embeddings of (d) (src, mt and ref are
+    # the embeddings rolled by 0, 1 and 2 rows).
+    corpus_emb = handoff["corpus_embeddings"]
+    n = len(corpus_emb)
+    src, mt, ref = (np.roll(corpus_emb, k, axis=0) for k in range(3))
+    src_d, mt_d, ref_d = (torch.tensor(a, device=DEVICE) for a in (src, mt, ref))
+    for arch in ("basic_ref", "basic_qe"):
+        cfg = blaser.blaser_archs.get(arch)
+        params = convert.init_blaser_params(cfg, seed=0)
+        on_card = convert.blaser_from_numpy(params, cfg, DEVICE)
+        on_cpu = convert.blaser_from_numpy(params, cfg, "cpu")
+        head(f"BLASER {arch} ({n} embeddings)", lambda: on_card(src_d, mt_d, ref_d),
+             lambda: on_cpu(src[:512], mt[:512], ref[:512]), n)
+    mcfg = mutox.mutox_archs.get("mutox")
+    mparams = convert.init_mutox_params(mcfg, seed=0)
+    classifier = convert.mutox_from_numpy(mparams, mcfg, DEVICE)
+    head(f"MuTox ({n} embeddings)", lambda: classifier(src_d),
+         lambda: convert.mutox_from_numpy(mparams, mcfg, "cpu")(src[:512]), n)
+    speech_enc = TorchSpeechEncoder(convert.speech_encoder_from_numpy(
+        handoff["speech_params"], sonar_speech_encoder_archs.get("english"), torch.bfloat16,
+        DEVICE))
+    rng = np.random.default_rng(2)
+    clips = [_clip(rng, x) for x in rng.uniform(2.0, 10.0, 8)]
+    mpipe = MutoxSpeechClassifierPipeline(classifier, speech_enc)
+    mpipe.predict(clips[:2], batch_size=8)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    probs = mpipe.predict(clips, batch_size=8, output_prob=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_launches()
+    for name in KERNELS:
+        launches[name] += counts[name]
+    log(f"MuTox speech pipeline bf16 encoder: 8 clips in {dt:.3f} s = {8 / dt:.2f} clips/s, "
+        f"probabilities {np.round(probs[:, 0], 4).tolist()}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; on {card}")
+    if probs.shape != (8, 1) or not ((probs >= 0) & (probs <= 1)).all():
+        raise AssertionError(f"MuTox speech pipeline: scores of shape {probs.shape}")
+    del mpipe, speech_enc, src_d, mt_d, ref_d
+    torch.cuda.empty_cache()
+
+    # LASER2 at the published width on 512 sentences of (d)'s corpus,
+    # tokenized by a Laser2Tokenizer over (d)'s synthetic SentencePiece model.
+    lcfg = laser2_text.laser2_archs.get("laser2")
+    t0 = time.perf_counter()
+    lparams = convert.init_laser2_params(lcfg, seed=0)
+    laser = convert.laser2_from_numpy(lparams, lcfg, device=DEVICE)
+    encode = Laser2Tokenizer(handoff["tokenizer_path"]).create_encoder()
+    ids = sorted((encode(t) for t in handoff["corpus"][:512]), key=len)
+    batches = []
+    for i in range(0, len(ids), 128):
+        chunk = ids[i:i + 128]
+        seqs = np.full((len(chunk), max(map(len, chunk))), lcfg.pad_idx, np.int64)
+        for r, x in enumerate(chunk):
+            seqs[r, : len(x)] = x
+        batches.append((torch.tensor(seqs, device=DEVICE),
+                        torch.tensor([len(x) for x in chunk], device=DEVICE)))
+    log(f"LASER2 weights drawn and 512 sentences tokenized in {time.perf_counter() - t0:.1f} s "
+        f"(vocab {lcfg.vocabulary_size}, embed {lcfg.model_dim}, {lcfg.num_layers} x BiLSTM "
+        f"{lcfg.hidden_size}; lengths {len(ids[0])}-{len(ids[-1])})")
+    # The CPU reference runs the 4 shortest and the 4 longest rows of every
+    # batch (the ids are sorted by length): every length range of the corpus,
+    # each row computed on the card beside rows of very different lengths.
+    cpu_laser = convert.laser2_from_numpy(lparams, lcfg, device="cpu")
+    picks = [sorted({*range(4), *range(len(l_) - 4, len(l_))}) for _, l_ in batches]
+    rows = [128 * b + r for b, pick in enumerate(picks) for r in pick]
+    head("LASER2 laser2 (512 sentences, batches of 128; checked: the 4 shortest and 4 longest "
+         "of each batch)",
+         lambda: torch.cat([laser(s_, l_) for s_, l_ in batches]),
+         lambda: torch.cat([cpu_laser(s_[pick].cpu(), l_[pick].cpu())
+                            for (s_, l_), pick in zip(batches, picks)]), len(ids), rows)
+    return launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     torch, card = setup()
-    build()
-    results = check_kernels(torch)
-    text, _, handoff = run_slice(torch, card)
-    speech = run_speech(torch, card)
-    decode = run_decode(torch, card, handoff)
-    launches = {name: text[name] + speech[name] + decode[name] for name in KERNELS}
+    clock = time.perf_counter()
+
+    def phase(label, fn, *args):
+        out = fn(*args)
+        log(f"phase {label} done at {time.perf_counter() - clock:.1f} s")
+        return out
+
+    phase("(b)", build)
+    results = phase("(c)", check_kernels, torch)
+    text, _, handoff = phase("(d)", run_slice, torch, card)
+    speech = phase("(e)", run_speech, torch, card, handoff)
+    decode = phase("(f)", run_decode, torch, card, handoff)
+    s2t = phase("(g)", run_speech_to_text, torch, card, handoff)
+    rest = phase("(h)", run_sampling_int8_heads, torch, card, handoff)
+    launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest))
+                for name in KERNELS}
     launched = [name for name in NO_PATH if launches[name] != 0]
     if launched:
         raise AssertionError(f"kernels that no path calls were launched: {launched}")

@@ -1,8 +1,7 @@
 """sonar_tpu_torch: the PyTorch + CUDA port of sonar_tpu.
 
 The JAX package ``sonar_tpu`` is the reference; this package computes the
-same functions with PyTorch tensors, and replaces each Pallas kernel on the
-text -> embedding, speech -> embedding and embedding -> text paths with a
+same functions with PyTorch tensors, and replaces each Pallas kernel with a
 CUDA C++ kernel written for Hopper (sm_90a, ``csrc/``). On CPU tensors every
 kernel wrapper runs its plain PyTorch version, so the whole path runs (and
 is tested) without a GPU.
@@ -16,8 +15,12 @@ given ``device="cpu"``.
 Public entry points mirror ``sonar_tpu``'s:
 ``TextToEmbeddingModelPipeline(encoder, tokenizer).predict(...)``,
 ``SpeechToEmbeddingModelPipeline(encoder).predict(waveforms)``,
-``EmbeddingToTextModelPipeline(decoder, tokenizer).predict(embeddings, ...)``
-and ``TextToTextModelPipeline(encoder, decoder, tokenizer).predict(...)``.
+``EmbeddingToTextModelPipeline(decoder, tokenizer).predict(embeddings, ...)``,
+``TextToTextModelPipeline(encoder, decoder, tokenizer).predict(...)``,
+``SpeechToTextModelPipeline(encoder, decoder, tokenizer).predict(...)``,
+``MutoxSpeechClassifierPipeline(classifier, encoder).predict(...)``, and the
+BLASER, MuTox and LASER2 heads (``BlaserModel``, ``MutoxClassifier``,
+``LaserLstmEncoder``).
 """
 
 __version__ = "0.1.0"
@@ -29,20 +32,30 @@ _PIPELINES = {
     "EmbeddingToTextModelPipeline": "text",
     "SpeechToEmbeddingModelPipeline": "speech",
     "SpeechToEmbeddingPipeline": "speech",
+    "SpeechToTextModelPipeline": "speech",
+    "SpeechToTextPipeline": "speech",
     "SpeechInferenceParams": "speech",
     "TorchSpeechEncoder": "speech",
+    "MutoxSpeechClassifierPipeline": "mutox_speech",
+}
+_MODULES = {  # other lazy exports: name -> module
+    "TorchTextDecoder": "generation.decoder_runtime",
+    "TopPSampler": "generation.sampling",
+    "TopKSampler": "generation.sampling",
+    "BlaserModel": "models.blaser",
+    "MutoxClassifier": "models.mutox",
+    "LaserLstmEncoder": "models.laser2_text",
+    "Laser2Tokenizer": "tokenizers.laser2",
 }
 
 
 def __getattr__(name):
     """Lazy imports keep ``import sonar_tpu_torch`` light."""
-    if name == "TorchTextDecoder":
-        from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    import importlib
 
-        return TorchTextDecoder
     if name in _PIPELINES:
-        import importlib
-
         module = importlib.import_module(f"sonar_tpu_torch.inference_pipelines.{_PIPELINES[name]}")
         return getattr(module, name)
+    if name in _MODULES:
+        return getattr(importlib.import_module(f"sonar_tpu_torch.{_MODULES[name]}"), name)
     raise AttributeError(f"module 'sonar_tpu_torch' has no attribute {name!r}")

@@ -1,4 +1,5 @@
-"""Weights for the port's text encoder, speech encoder and text decoder.
+"""Weights for the port's text encoder, speech encoder, text decoder and
+the BLASER, MuTox and LASER2 heads.
 
 All routes produce the JAX package's parameter layout (linear kernels
 [in, out], per-layer tensors stacked on a leading L axis) as numpy arrays,
@@ -15,7 +16,13 @@ then load it into ``SonarTextEncoder``, ``SonarSpeechEncoder`` or
 - ``load_text_encoder_checkpoint`` / ``load_speech_encoder_checkpoint`` /
   ``load_text_decoder_checkpoint``: a fairseq2 or fairseq1 ``.pt`` state
   dict -> the port's module, through the port's own copies of the key maps
-  (``checkpoint``, ``checkpoint_speech``).
+  (``checkpoint``, ``checkpoint_speech``);
+- ``blaser_from_numpy`` / ``mutox_from_numpy`` / ``laser2_from_numpy`` and
+  the seeded ``init_blaser_params`` / ``init_mutox_params`` /
+  ``init_laser2_params`` for the heads, whose checkpoints map through the
+  models' ``*_params_from_torch``. The heads have no runtime around them,
+  so their builders place them themselves: ``device=None`` is ``cuda``, as
+  for every entry point, and the CPU takes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 from sonar_tpu_torch.assets import checkpoint as ckpt
 from sonar_tpu_torch.assets import checkpoint_speech
+from sonar_tpu_torch.device import resolve_device
 from sonar_tpu_torch.models.sonar_speech.config import SonarSpeechEncoderConfig
 from sonar_tpu_torch.models.sonar_speech.model import SonarSpeechEncoder
 from sonar_tpu_torch.models.sonar_text.config import SonarTextDecoderConfig, SonarTextEncoderConfig
@@ -301,3 +309,76 @@ def load_text_decoder_checkpoint(
     floating-point parameters stored in ``dtype``."""
     params = ckpt.text_decoder_params(ckpt.load_torch_state_dict(path))
     return text_decoder_from_numpy(params, config, dtype, device)
+
+
+# -- heads ------------------------------------------------------------------------------
+
+
+def _init_mlp(rng: np.random.Generator, dims: list) -> Dict[str, Any]:
+    """Kaiming-uniform linears dims[0] -> dims[1] -> ..., keyed "0", "1", ..."""
+    return {str(i): _init_linear(rng, None, dims[i], dims[i + 1]) for i in range(len(dims) - 1)}
+
+
+def init_blaser_params(config: Any, seed: int = 0) -> Dict[str, Any]:
+    """Seeded random BLASER MLP of ``config``'s shape (the JAX
+    ``init_params`` distributions, drawn with numpy)."""
+    dims = ([config.feature_dim] + [h for h in config.hidden_dims if h > 0]
+            + [config.output_dim])
+    return {"mlp": _init_mlp(np.random.default_rng(seed), dims)}
+
+
+def blaser_from_numpy(params: Dict[str, Any], config: Any, device: Any = None) -> Any:
+    """The port's BLASER holding ``params`` ({"mlp": ...}, numpy), in fp32
+    on ``device`` (None: ``cuda``)."""
+    from sonar_tpu_torch.models.blaser.model import BlaserModel
+
+    return BlaserModel(config, _to_torch(params, torch.float32, resolve_device(device)))
+
+
+def init_mutox_params(config: Any, seed: int = 0) -> Dict[str, Any]:
+    """Seeded random MuTox classifier (1024 -> 512 -> 128 -> 1)."""
+    from sonar_tpu_torch.models.mutox.model import MutoxClassifier
+
+    dims = [config.input_size, *MutoxClassifier.HIDDEN, 1]
+    return {"layers": _init_mlp(np.random.default_rng(seed), dims)}
+
+
+def mutox_from_numpy(params: Dict[str, Any], config: Any, device: Any = None) -> Any:
+    """The port's MuTox classifier holding ``params`` ({"layers": ...}), in
+    fp32 on ``device`` (None: ``cuda``)."""
+    from sonar_tpu_torch.models.mutox.model import MutoxClassifier
+
+    return MutoxClassifier(config, _to_torch(params, torch.float32, resolve_device(device)))
+
+
+def init_laser2_params(config: Any, seed: int = 0) -> Dict[str, Any]:
+    """Seeded random LASER2 encoder with the JAX ``init_params``
+    distributions: embedding N(0, 0.1^2) with a zero pad row, LSTM weights
+    and biases uniform in +-1/sqrt(hidden), torch layout."""
+    rng = np.random.default_rng(seed)
+    embed = rng.standard_normal((config.vocabulary_size, config.model_dim),
+                                dtype=np.float32) * np.float32(0.1)
+    embed[config.pad_idx] = 0.0
+    h, bound = config.hidden_size, 1.0 / math.sqrt(config.hidden_size)
+    lstm: Dict[str, Any] = {}
+    in_dim = config.model_dim
+    for layer in range(config.num_layers):
+        for d in ("", "_reverse") if config.bidirectional else ("",):
+            lstm[f"l{layer}{d}"] = {
+                "weight_ih": _uniform(rng, (4 * h, in_dim), bound),
+                "weight_hh": _uniform(rng, (4 * h, h), bound),
+                "bias_ih": _uniform(rng, (4 * h,), bound),
+                "bias_hh": _uniform(rng, (4 * h,), bound),
+            }
+        in_dim = h * (2 if config.bidirectional else 1)
+    return {"embed_tokens": {"weight": embed}, "lstm": lstm}
+
+
+def laser2_from_numpy(params: Dict[str, Any], config: Any, dtype: torch.dtype = torch.float32,
+                      device: Any = None) -> Any:
+    """The port's LASER2 encoder holding ``params`` (torch-layout LSTM
+    weights, numpy), computing in ``dtype`` on ``device`` (None: ``cuda``)."""
+    from sonar_tpu_torch.models.laser2_text.model import LaserLstmEncoder
+
+    device = resolve_device(device)
+    return LaserLstmEncoder(config, _to_torch(params, dtype, "cpu"), dtype=dtype).to(device)

@@ -1,4 +1,4 @@
-"""Card name -> loaded encoder, decoder or tokenizer (``sonar_tpu.assets.hub``).
+"""Card name -> loaded encoder, decoder, head or tokenizer (``sonar_tpu.assets.hub``).
 
 Cards come from the port's copy of the asset registry
 (``sonar_tpu_torch.assets.store``), which imports PyYAML only when a card
@@ -65,12 +65,95 @@ def load_text_decoder(name: str, dtype: torch.dtype = torch.float32, device: Any
     return TorchTextDecoder(model, quantize=quantize, device=device)
 
 
-def load_tokenizer(name: str) -> Any:
-    from sonar_tpu_torch.tokenizers.nllb import NllbTokenizer
+def _head_state(name: str, family: str) -> tuple:
+    """(card, flat state dict) of a head's card."""
+    from sonar_tpu_torch.assets.checkpoint import load_torch_state_dict
 
+    card = _card(name, family, f"{family} model")
+    return card, load_torch_state_dict(cached_path(card.checkpoint))
+
+
+def load_blaser_model(name: str, device: Any = None) -> Any:
+    """-> ``BlaserModel`` on ``device`` (fp32)."""
+    from sonar_tpu_torch.assets.convert import blaser_from_numpy
+    from sonar_tpu_torch.models.blaser.model import blaser_archs, blaser_params_from_torch
+
+    device = resolve_device(device)
+    card, flat = _head_state(name, "blaser")
+    return blaser_from_numpy(blaser_params_from_torch(flat), blaser_archs.get(card.arch), device)
+
+
+def load_mutox_model(name: str, device: Any = None) -> Any:
+    """-> ``MutoxClassifier`` on ``device`` (fp32)."""
+    from sonar_tpu_torch.assets.convert import mutox_from_numpy
+    from sonar_tpu_torch.models.mutox.model import mutox_archs, mutox_params_from_torch
+
+    device = resolve_device(device)
+    card, flat = _head_state(name, "mutox")
+    return mutox_from_numpy(mutox_params_from_torch(flat), mutox_archs.get(card.arch), device)
+
+
+def load_laser2_model(name: str, dtype: torch.dtype = torch.float32, device: Any = None) -> Any:
+    """-> ``LaserLstmEncoder`` on ``device``."""
+    from sonar_tpu_torch.assets.convert import laser2_from_numpy
+    from sonar_tpu_torch.models.laser2_text.model import laser2_archs, laser2_params_from_torch
+
+    device = resolve_device(device)
+    card, flat = _head_state(name, "laser2")
+    return laser2_from_numpy(laser2_params_from_torch(flat), laser2_archs.get(card.arch), dtype,
+                             device)
+
+
+def load_tokenizer(name: str) -> Any:
     store = default_store()
     card = store.tokenizer_card(name)
-    if card.family != "nllb":
-        raise ValueError(f"unsupported tokenizer family: {card.family}")
-    return NllbTokenizer(cached_path(card.model), langs=store.text_languages,
-                         default_lang=card.default_lang)
+    if card.family == "nllb":
+        from sonar_tpu_torch.tokenizers.nllb import NllbTokenizer
+
+        return NllbTokenizer(cached_path(card.model), langs=store.text_languages,
+                             default_lang=card.default_lang)
+    if card.family in ("laser2", "lstm"):
+        from sonar_tpu_torch.tokenizers.laser2 import Laser2Tokenizer
+
+        return Laser2Tokenizer(cached_path(card.model))
+    raise ValueError(f"unsupported tokenizer family: {card.family}")
+
+
+class _Hub:
+    """Reference-style accessor: ``get_*_hub().load(name, device=..., dtype=...)``."""
+
+    def __init__(self, loader: Any):
+        self._loader = loader
+
+    def load(self, name: str, device: Any = None, dtype: Any = None, **kwargs: Any) -> Any:
+        if dtype is not None:
+            kwargs["dtype"] = dtype
+        return self._loader(name, device=device, **kwargs)
+
+
+def get_sonar_text_encoder_hub() -> _Hub:
+    return _Hub(load_text_encoder)
+
+
+def get_sonar_text_decoder_hub() -> _Hub:
+    return _Hub(load_text_decoder)
+
+
+def get_sonar_speech_encoder_hub() -> _Hub:
+    return _Hub(load_speech_encoder)
+
+
+def get_blaser_model_hub() -> _Hub:
+    return _Hub(lambda name, device=None, **kw: load_blaser_model(name, device))
+
+
+def get_mutox_model_hub() -> _Hub:
+    return _Hub(lambda name, device=None, **kw: load_mutox_model(name, device))
+
+
+def get_laser2_model_hub() -> _Hub:
+    return _Hub(load_laser2_model)
+
+
+def get_text_tokenizer_hub() -> _Hub:
+    return _Hub(lambda name, **kw: load_tokenizer(name))

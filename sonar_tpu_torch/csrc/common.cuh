@@ -52,6 +52,20 @@ __device__ __forceinline__ float block_reduce_256(float v, float* red) {
   return r;
 }
 
+// D += A B on the tensor cores: one m16n8k16 bf16 product, fp32 accumulators.
+// Thread (g = lane / 4, t = lane % 4) passes A's rows g (a0, a2) and g + 8
+// (a1, a3) at k {2t, 2t + 1} (a0, a1) and {2t + 8, 2t + 9} (a2, a3), and B's
+// column g at the same k pairs (b0, b1); it gets D rows g (d0, d1) and g + 8
+// (d2, d3) at columns {2t, 2t + 1}.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 template <typename K>
 static cudaError_t allow_dynamic_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

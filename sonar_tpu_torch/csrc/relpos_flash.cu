@@ -79,15 +79,6 @@ static size_t rp_smem_bytes(int S, int Dh, int D) {
   return bytes;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // One 32-wide k chunk as two m16n8k16 products. Thread (g = lane / 4,
 // t = lane % 4) holds the 8 consecutive values at k offset 8t of A's rows g
 // (lo) and g + 8 (hi) and of B's column g: k step s uses the values

@@ -1,20 +1,23 @@
 """The conditional text decoder bound for generation on one device.
 
 ``TorchTextDecoder`` is the counterpart of ``JitTextDecoder``
-(``sonar_tpu.generation.decoder_runtime``): teacher-forced ``score`` and
-beam-search ``generate_beam``. PyTorch runs eagerly, so there is no program
-per shape and the batch is decoded as given, without the JAX package's
-power-of-two padding. Sampling, int8 decode and ``mesh`` are not ported.
+(``sonar_tpu.generation.decoder_runtime``): teacher-forced ``score``,
+beam-search ``generate_beam`` and top-p / top-k ``generate_sample``, in
+floating point or, with ``quantize=True``, with int8 weights. PyTorch runs
+eagerly, so there is no program per shape and the batch is decoded as
+given, without the JAX package's power-of-two padding. ``mesh`` (scale-out)
+is not ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 from sonar_tpu_torch.device import resolve_device
 from sonar_tpu_torch.generation.beam_search import BeamSearchConfig, beam_search_lax
+from sonar_tpu_torch.generation.sampling import sample_lax
 from sonar_tpu_torch.nn.conditional_decoder import ConditionalTransformerDecoder
 from sonar_tpu_torch.ops.precision import matmul_precision_for
 import torch
@@ -23,18 +26,28 @@ import torch
 class TorchTextDecoder:
     """A ``ConditionalTransformerDecoder`` on one device (``device=None``
     means the GPU). ``decode_steps`` counts the decoder steps run (prefix
-    steps included), each of which goes through every layer once."""
+    steps included), each of which goes through every layer once.
+
+    ``quantize`` stores every projection of the decoder layers as int8 with
+    per-output-channel scales (a runtime copy; ``nn.core.linear`` then runs
+    them with dynamic per-row activation scales); the tied output
+    projection stays in floating point. It is off by default, as in the JAX
+    package, where int8 decode waits for validation on the published
+    checkpoints (``INT8_DECODE_VALIDATED``).
+    """
 
     def __init__(self, model: ConditionalTransformerDecoder, quantize: bool = False,
                  device: Any = None):
-        if quantize:
-            raise NotImplementedError(
-                "int8 decode is not ported (ROADMAP queue 1: int8 decode, opt-in and "
-                "off in the JAX package)"
-            )
         self.device = resolve_device(device)
+        params = model.params.tree()
+        if quantize:
+            # The JAX runtime quantizes the checkpoint layout as it is (the
+            # decoder fuses no projections), and so does the port.
+            from sonar_tpu_torch.ops.quantization import quantize_params_int8
+
+            params = quantize_params_int8(params)
         self.model = ConditionalTransformerDecoder(
-            model.config, model.params.tree(), dtype=model.dtype
+            model.config, params, dtype=model.dtype
         ).to(self.device)
         self.decode_steps = 0
 
@@ -119,5 +132,45 @@ class TorchTextDecoder:
                 pad_idx=vocab.pad_idx or 0,
                 unk_idx=vocab.unk_idx if config.unk_penalty else None,
                 cache_len=cache_len,
+            )
+        return tokens.cpu().numpy(), scores.cpu().numpy(), lens.cpu().numpy()
+
+    # -- sampling ---------------------------------------------------------------
+
+    def generate_sample(self, memory: Any, prefix_ids: Sequence[int], sampler: Any,
+                        max_gen_len: int, min_gen_len: int = 1, seed: int = 0,
+                        noise: Optional[Callable] = None
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """memory: [B, 1, D] (numpy or a tensor); returns (tokens [B, T],
+        scores [B], lens [B]) of one sampled hypothesis per row.
+
+        The Gumbel noise comes from a ``torch.Generator`` on the decoder's
+        device seeded with ``seed``, or from ``noise(step, (B, V))`` when it
+        is given (``generation.sampling``)."""
+        # Same prompt-aware cap as the beam path.
+        max_gen_len = min(max_gen_len, self.max_target_len - len(prefix_ids))
+        if max_gen_len < 1:
+            raise ValueError(
+                f"prefix of {len(prefix_ids)} tokens leaves no room to generate "
+                f"(usable target length {self.max_target_len})"
+            )
+        mem = self._tensor(memory, torch.float32)
+        prefix = torch.tensor(list(prefix_ids), dtype=torch.long, device=self.device)
+        prefix = prefix[None, :].expand(mem.shape[0], -1)
+        vocab = self.vocab_info
+        generator = None
+        if noise is None:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        def step_fn(tokens, cache):
+            self.decode_steps += 1
+            logits, cache = self.model.step(tokens, cache)
+            return torch.log_softmax(logits.float(), dim=-1), cache
+
+        with torch.inference_mode(), matmul_precision_for(self.dtype):
+            cache = self.model.init_cache(mem, len(prefix_ids) + max_gen_len + 1)
+            tokens, scores, lens = sample_lax(
+                step_fn, cache, prefix, vocab.eos_idx, vocab.size, sampler, generator,
+                max_gen_len, min_gen_len, pad_idx=vocab.pad_idx or 0, noise=noise,
             )
         return tokens.cpu().numpy(), scores.cpu().numpy(), lens.cpu().numpy()

@@ -4,8 +4,9 @@
 The NLLB decoder prompt is ``[</s>, <target_lang>]`` (the tokenizer's
 target-mode prefix); the best hypothesis of each row is cut at its length
 and SentencePiece-decoded with control tokens filtered. The port decodes
-each batch in one call: its beam loop syncs with the host every step, so
-the JAX package's dispatch-ahead pipelining has nothing to overlap.
+each batch in one call: its beam and sampling loops sync with the host
+every step, so the JAX package's dispatch-ahead pipelining has nothing to
+overlap.
 """
 
 from __future__ import annotations
@@ -25,14 +26,17 @@ def _decode_hypotheses(tokenizer: Any, tokens: np.ndarray, lens: np.ndarray) -> 
 
 
 class EmbeddingToTextConverter:
+    """Embeddings -> texts with beam search, or with ``sampler`` (a
+    ``TopPSampler`` / ``TopKSampler``) one sampled hypothesis per row, its
+    noise drawn from ``seed`` for every batch."""
+
     def __init__(self, decoder: Any, tokenizer: Any, target_lang: str,
-                 gen_config: BeamSearchConfig, sampler: Any = None):
-        if sampler is not None:
-            raise NotImplementedError(
-                "sampling is not ported (ROADMAP queue 1); use beam search")
+                 gen_config: BeamSearchConfig, sampler: Any = None, seed: int = 0):
         self.decoder = decoder
         self.tokenizer = tokenizer
         self.gen_config = gen_config
+        self.sampler = sampler
+        self.seed = seed
         target_encoder = tokenizer.create_encoder(lang=target_lang, mode="target")
         self.prefix_ids: List[int] = list(target_encoder.prefix_indices)
 
@@ -43,6 +47,11 @@ class EmbeddingToTextConverter:
             memory = embeddings.float()[:, None, :]
         else:
             memory = np.asarray(embeddings, np.float32)[:, None, :]
+        if self.sampler is not None:
+            tokens, _, lens = self.decoder.generate_sample(
+                memory, self.prefix_ids, self.sampler, max_gen_len=self.gen_config.max_gen_len,
+                min_gen_len=self.gen_config.min_gen_len, seed=self.seed)
+            return _decode_hypotheses(self.tokenizer, tokens, lens)
         tokens, _, lens = self.decoder.generate_beam(memory, self.prefix_ids, self.gen_config)
         return _decode_hypotheses(self.tokenizer, tokens[:, 0], lens[:, 0])
 

@@ -1,4 +1,4 @@
-"""Speech -> embedding pipelines of the port (``sonar_tpu.inference_pipelines.speech``).
+"""Speech pipelines of the port (``sonar_tpu.inference_pipelines.speech``).
 
 ``TorchSpeechEncoder`` is the counterpart of ``JitSpeechEncoder``: it binds
 a ``SonarSpeechEncoder`` (with int8 weights if asked) on one device. A batch of waveforms
@@ -11,8 +11,10 @@ on that device. PyTorch runs eagerly: there is no per-bucket compile, and
 (wav paths or in-memory [T] / [C, T] 16 kHz arrays; in-memory clips batched
 length-sorted and returned in input order) on the port's copy of the host
 pipeline (``sonar_tpu_torch.data``); ``SpeechToEmbeddingPipeline`` is the
-TSV-driven form. Every entry point runs on the GPU unless it is given
-``device="cpu"``.
+TSV-driven form. ``SpeechToTextModelPipeline`` and ``SpeechToTextPipeline``
+decode the embeddings to text with the ``TorchTextDecoder``'s beam search,
+the embeddings staying on the device. Every entry point runs on the GPU
+unless it is given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -20,14 +22,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from fractions import Fraction
 from pathlib import Path
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 from sonar_tpu_torch.data.audio import AudioDecoder, FileMapper
 from sonar_tpu_torch.data.collate import round_up_pow2
 from sonar_tpu_torch.data.pipeline import DataPipelineBuilder, read_sequence, read_text
 from sonar_tpu_torch.device import resolve_device
-from sonar_tpu_torch.inference_pipelines.text import add_progress_bar
+from sonar_tpu_torch.inference_pipelines.utils import add_progress_bar
 from sonar_tpu_torch.models.sonar_speech.model import SonarSpeechEncoder
 from sonar_tpu_torch.ops.fbank import FbankConfig, batched_fbank, num_frames
 from sonar_tpu_torch.ops.precision import matmul_precision_for
@@ -224,6 +226,60 @@ class SpeechToEmbeddingModelPipeline(SpeechModelPipelineInterface):
         return out
 
 
+class SpeechToTextModelPipeline(SpeechModelPipelineInterface):
+    """Waveforms or wav paths -> texts through the embedding bottleneck."""
+
+    def __init__(self, encoder: Union[str, TorchSpeechEncoder, SonarSpeechEncoder],
+                 decoder: Any, tokenizer: Any, device: Any = None,
+                 fbank_dtype: Any = None) -> None:
+        super().__init__()
+        from sonar_tpu_torch.inference_pipelines.text import _resolve_decoder, _resolve_tokenizer
+
+        self.model = _resolve_speech_encoder(encoder, fbank_dtype=fbank_dtype, device=device)
+        self.decoder = _resolve_decoder(decoder, device=device)
+        self.tokenizer = _resolve_tokenizer(tokenizer)
+
+    def predict(
+        self,
+        input: Sequence,
+        target_lang: str,
+        batch_size: int = 3,
+        n_parallel: int = 1,
+        pad_idx: int = 0,
+        n_prefetched_batches: int = 2,
+        progress_bar: bool = False,
+        **generator_kwargs: Any,
+    ) -> List[str]:
+        """Clips in arrival order, ``batch_size`` at a time: each batch is
+        encoded and its embeddings go, still on the device, into the beam
+        search. The batches are decoded one after the other: the beam loop
+        syncs with the host every step, so the JAX package's window of
+        batches in flight has nothing to overlap."""
+        from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+        from sonar_tpu_torch.generation.text_converter import EmbeddingToTextConverter
+
+        gen_config = BeamSearchConfig.from_kwargs(self.decoder.max_target_len,
+                                                  **generator_kwargs)
+        converter = EmbeddingToTextConverter(self.decoder, self.tokenizer, target_lang,
+                                             gen_config)
+
+        def translate(waves: List[np.ndarray]) -> List[str]:
+            return converter.batch_convert(self.model.encode_waveforms(waves, materialize=False))
+
+        pipeline = (
+            read_sequence(list(input))
+            .map(self._decode_audio, num_parallel_calls=n_parallel)
+            .bucket(batch_size)
+            .prefetch(n_prefetched_batches)
+            .map(translate)
+            .and_return()
+        )
+        iterable = pipeline
+        if progress_bar:
+            iterable = add_progress_bar(pipeline, inputs=input, batch_size=batch_size)
+        return [x for y in iterable for x in y]
+
+
 # -- TSV-driven builders --------------------------------------------------------------
 
 
@@ -277,6 +333,48 @@ class SpeechToEmbeddingPipeline:
 
     def prebuild_pipeline(self, context: SpeechInferenceParams) -> DataPipelineBuilder:
         return self._audio_builder.prebuild_pipeline(context).map(self.model.encode_waveforms)
+
+    def build_pipeline(self, context: SpeechInferenceParams) -> Any:
+        return self.prebuild_pipeline(context).and_return()
+
+
+class SpeechToTextPipeline:
+    """TSV of audio paths -> texts: the speech encoder and the text decoder
+    (a ``(encoder, decoder)`` pair) with the beam search's defaults."""
+
+    def __init__(self, model: Tuple[Any, Any], tokenizer: Any, device: Any = None) -> None:
+        from sonar_tpu_torch.inference_pipelines.text import _resolve_decoder, _resolve_tokenizer
+
+        encoder, decoder = model
+        self.encoder = _resolve_speech_encoder(encoder, device=device)
+        self.decoder = _resolve_decoder(decoder, device=device)
+        self.tokenizer = _resolve_tokenizer(tokenizer)
+        self._audio_builder = AudioToFbankDataPipelineBuilder()
+
+    @classmethod
+    def load_model_from_name(cls, encoder_name: str, decoder_name: str,
+                             device: Any = None) -> "SpeechToTextPipeline":
+        from sonar_tpu_torch.assets.hub import load_tokenizer
+        from sonar_tpu_torch.assets.store import default_store
+
+        card = default_store().model_card(decoder_name)
+        return cls((encoder_name, decoder_name), load_tokenizer(card.tokenizer or decoder_name),
+                   device=device)
+
+    def prebuild_pipeline(self, context: SpeechInferenceParams) -> DataPipelineBuilder:
+        from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+        from sonar_tpu_torch.generation.text_converter import EmbeddingToTextConverter
+
+        if context.target_lang is None:
+            raise ValueError("SpeechToTextPipeline needs context.target_lang")
+        converter = EmbeddingToTextConverter(
+            self.decoder, self.tokenizer, context.target_lang,
+            BeamSearchConfig.from_kwargs(self.decoder.max_target_len))
+
+        def generate(waves: List[np.ndarray]) -> List[str]:
+            return converter.batch_convert(self.encoder.encode_waveforms(waves, materialize=False))
+
+        return self._audio_builder.prebuild_pipeline(context).map(generate)
 
     def build_pipeline(self, context: SpeechInferenceParams) -> Any:
         return self.prebuild_pipeline(context).and_return()

@@ -12,8 +12,9 @@ restoration) and the static-shape batching of the JAX package, on the
 port's copy of the host pipeline (``sonar_tpu_torch.data``).
 
 ``TextToTextModelPipeline`` (texts -> embeddings -> texts) and
-``EmbeddingToTextModelPipeline`` decode with beam search through
-``TorchTextDecoder``; sampling is not ported.
+``EmbeddingToTextModelPipeline`` decode through ``TorchTextDecoder``, with
+beam search or (``EmbeddingToTextModelPipeline.predict(sampler=...)``) top-p
+/ top-k sampling; ``quantize=True`` decodes with int8 weights.
 
 Every entry point runs on the GPU unless it is given ``device="cpu"``
 (``sonar_tpu_torch.device``).
@@ -22,10 +23,9 @@ Every entry point runs on the GPU unless it is given ``device="cpu"``
 from __future__ import annotations
 
 from collections import deque
-import math
 from pathlib import Path
 import threading
-from typing import Any, Iterable, List, Optional, Sequence, Sized, Union
+from typing import Any, Iterable, List, Optional, Sequence, Union
 import warnings
 
 import numpy as np
@@ -33,6 +33,7 @@ from sonar_tpu_torch.data.batcher import StaticShapeBatcher
 from sonar_tpu_torch.data.collate import Collater, DEFAULT_LEN_BUCKETS, SequenceBatch
 from sonar_tpu_torch.data.pipeline import read_iterator, read_sequence, read_text
 from sonar_tpu_torch.device import resolve_device
+from sonar_tpu_torch.inference_pipelines.utils import add_progress_bar
 from sonar_tpu_torch.models.sonar_text.model import SonarTextEncoder
 from sonar_tpu_torch.nn.core import Params
 from sonar_tpu_torch.ops.precision import matmul_precision_for
@@ -204,22 +205,6 @@ def _map_tokenize(builder: Any, tokenizer_encoder: Any) -> Any:
     if encode_batch is None:
         return builder.map(tokenizer_encoder)
     return builder.map_batched(encode_batch, batch_size=1024)
-
-
-def add_progress_bar(iterable: Iterable, inputs: Optional[Sized] = None,
-                     batch_size: Optional[int] = None) -> Iterable:
-    """Wrap with tqdm when it is installed."""
-    try:
-        from tqdm.auto import tqdm
-    except ImportError:
-        return iterable
-    total = None
-    if inputs is not None and batch_size:
-        try:
-            total = math.ceil(len(inputs) / batch_size)
-        except TypeError:
-            total = None
-    return tqdm(iterable, total=total)
 
 
 class TextToEmbeddingModelPipeline:
@@ -416,7 +401,7 @@ class TextToTextModelPipeline:
 
 
 class EmbeddingToTextModelPipeline:
-    """[N, model_dim] embeddings -> texts (beam search)."""
+    """[N, model_dim] embeddings -> texts (beam search or sampling)."""
 
     def __init__(self, decoder: Any, tokenizer: Any, device: Any = None, dtype: Any = None,
                  quantize: bool = False) -> None:

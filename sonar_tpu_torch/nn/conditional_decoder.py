@@ -28,27 +28,16 @@ from sonar_tpu_torch.nn.transformer import (
     init_decoder_cache,
 )
 from sonar_tpu_torch.ops.masks import additive_bias, length_mask
+from sonar_tpu_torch.ops.precision import matmul_f32_out
 import torch
 from torch import nn
 
 
 def tied_projection(h: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """[..., D] x [V, D] -> [..., V] fp32 logits: the model-dtype operands'
-    products summed in fp32 (the JAX einsum's ``preferred_element_type``).
-
-    fp32 models multiply in fp32. A bf16 product on the card asks cuBLAS
-    for an fp32 output of its fp32 accumulator; on the CPU, whose bf16
-    matmul rounds its output, the bf16 operands are widened first (their
-    products are exact in fp32, so the function is the same).
-    """
+    products summed in fp32 (the JAX einsum's ``preferred_element_type``)."""
     embed = embed.to(h.dtype)
-    flat = h.reshape(-1, h.shape[-1])
-    if h.dtype == torch.float32:
-        out = flat @ embed.t()
-    elif h.is_cuda:
-        out = torch.mm(flat, embed.t(), out_dtype=torch.float32)
-    else:
-        out = flat.float() @ embed.float().t()
+    out = matmul_f32_out(h.reshape(-1, h.shape[-1]), embed.t())
     return out.reshape(*h.shape[:-1], embed.shape[0])
 
 

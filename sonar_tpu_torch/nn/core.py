@@ -49,11 +49,15 @@ def embedding_lookup(
     return out if dtype is None else out.to(dtype)
 
 
-ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {"relu": torch.relu}
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+}
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The FFN activation; the SONAR text encoders use ReLU only."""
+    """The activation of a model's MLP: ReLU (the SONAR FFNs, MuTox) or
+    tanh (BLASER)."""
     key = name.lower()
     if key not in ACTIVATIONS:
         raise ValueError(f"unsupported activation: {name}")

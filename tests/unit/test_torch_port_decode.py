@@ -327,8 +327,17 @@ def test_negative_penalty_bound_on_a_crafted_table():
 def test_runtime_options():
     _, trun = _runtimes("toy")
     _, _, tdec = _decoders("toy")
-    with pytest.raises(NotImplementedError, match="int8 decode"):
-        TorchTextDecoder(tdec, quantize=True, device="cpu")
+    # quantize=True: every projection of the layers int8 (stored column-major
+    # with per-output-channel scales), the tied embedding in floating point.
+    qdec = TorchTextDecoder(tdec, quantize=True, device="cpu").model.params.tree()
+    layers = qdec["decoder"]["layers"]
+    for blk, names in (("self_attn", ("q_proj", "k_proj", "v_proj", "output_proj")),
+                       ("encoder_decoder_attn", ("q_proj", "k_proj", "v_proj", "output_proj")),
+                       ("ffn", ("inner_proj", "output_proj"))):
+        for n in names:
+            assert layers[blk][n]["kernel_q"].dtype == torch.int8 and "kernel" not in layers[blk][n]
+    assert qdec["decoder_frontend"]["embed"]["weight"].dtype == torch.float32
+    assert "kernel" in trun.model.params.tree()["decoder"]["layers"]["ffn"]["inner_proj"]
     with pytest.raises(ValueError, match="no room"):
         trun.generate_beam(np.zeros((1, 1, 32), np.float32), [3] * 600,
                            tbs.BeamSearchConfig())
@@ -342,6 +351,83 @@ def test_runtime_options():
     steps = trun.decode_steps
     assert trun.warmup(tbs.BeamSearchConfig(beam_size=2, max_gen_len=3), batch_sizes=(2,)) == 1
     assert trun.decode_steps > steps
+
+
+# -- int8 decode ----------------------------------------------------------------------
+
+
+_INT8_RUNTIMES = {}
+
+
+def _int8_runtimes(name):
+    """(JAX int8 runtime, JAX fp32 runtime, port int8 runtime on the CPU)."""
+    if name not in _INT8_RUNTIMES:
+        jdec, jparams, tdec = _decoders(name)
+        _INT8_RUNTIMES[name] = (JitTextDecoder(jdec, jparams, quantize=True), _runtimes(name)[0],
+                                TorchTextDecoder(tdec, quantize=True, device="cpu"))
+    return _INT8_RUNTIMES[name]
+
+
+@pytest.mark.parametrize("name", ["toy", "wide"])
+def test_int8_score_matches_jax(name):
+    """Teacher-forced int8 logits (every projection through ``linear``'s
+    int8 path) within 1e-3 of their scale of the JAX int8 decoder's, on a
+    length-1 memory (the ``cross_out`` collapse is not taken by ``score``)
+    and a masked-free length-3 one; and visibly apart from fp32."""
+    jq, jfp, tq = _int8_runtimes(name)
+    rng = np.random.default_rng(10)
+    d = tq.model.config.model_dim
+    seqs, lens = _seqs(rng, 3, 9, 200, [9, 5, 2])
+    for mem_len in (1, 3):
+        memory = rng.normal(size=(3, mem_len, d)).astype(np.float32)
+        got, want = tq.score(seqs, lens, memory), jq.score(seqs, lens, memory)
+        scale = np.abs(want).max()
+        assert np.abs(got - want).max() <= 1e-3 * scale
+        assert np.abs(jfp.score(seqs, lens, memory) - want).max() > 1e-3 * scale
+
+
+@pytest.mark.parametrize("name", ["toy", "wide"])
+def test_int8_beam_search_matches_jax(name):
+    """Beam search with int8 weights (the incremental step: the cache's
+    ``cross_out`` collapse, the self-attention K/V and the FFN all through
+    int8 projections): scores within 1e-3 of JAX's int8 decode, and the best
+    hypothesis token-identical wherever JAX's fp32 margin between its two
+    best clears the int8 noise floor (as ``test_quantized_pipeline.py``)."""
+    jq, jfp, tq = _int8_runtimes(name)
+    memory = np.random.default_rng(11).normal(size=(8, 1, tq.model.config.model_dim))
+    memory = memory.astype(np.float32) * 2.0
+    config, tconfig = jbs.BeamSearchConfig(beam_size=3, max_gen_len=8), tbs.BeamSearchConfig(
+        beam_size=3, max_gen_len=8)
+    jt, js, jl = jq.generate_beam(memory, [3, 7], config)
+    tt, ts, tl = tq.generate_beam(memory, [3, 7], tconfig)
+    _, fs, _ = jfp.generate_beam(memory, [3, 7], config)
+    np.testing.assert_allclose(ts[:, 0], js[:, 0], atol=1e-3)
+    gated = [r for r in range(8) if fs[r, 0] - fs[r, 1] > 0.02]
+    assert gated
+    for r in gated:
+        assert tl[r, 0] == jl[r, 0]
+        assert tt[r, 0, : tl[r, 0]].tolist() == jt[r, 0, : jl[r, 0]].tolist()
+
+
+def test_int8_sampling_matches_jax():
+    """Sampling with int8 weights, JAX's noise through the hook: the same
+    tokens as the JAX int8 decoder."""
+    from sonar_tpu.generation.sampling import TopKSampler as JaxTopK
+    from sonar_tpu_torch.generation.sampling import TopKSampler
+
+    jq, _, tq = _int8_runtimes("wide")
+    memory = np.random.default_rng(12).normal(size=(3, 1, 128)).astype(np.float32) * 2.0
+    key = jax.random.PRNGKey(2)
+
+    def noise(step, shape):
+        g = jax.random.gumbel(jax.random.fold_in(key, step), (4, shape[1]), jnp.float32)
+        return torch.tensor(np.asarray(g)[: shape[0]])
+
+    jt, js, jl = jq.generate_sample(memory, [3, 7], JaxTopK(20), max_gen_len=6, seed=2)
+    tt, ts, tl = tq.generate_sample(memory, [3, 7], TopKSampler(20), max_gen_len=6, noise=noise)
+    np.testing.assert_array_equal(tt, jt)
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_allclose(ts, js, atol=1e-3)
 
 
 # -- pipelines ------------------------------------------------------------------------
@@ -379,9 +465,20 @@ def test_embedding_to_text_pipeline_matches_jax(tmp_path):
     want = JaxPipe(jdec, build_toy_nllb(tmp_path), quantize=False).predict(emb, **kw)
     assert len(got) == 7 and got == want
     assert any(got)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        EmbeddingToTextConverter(TorchTextDecoder(tdec, device="cpu"), tok, "eng_Latn",
-                                 tbs.BeamSearchConfig(), sampler=object())
+    # A converter given a sampler samples: top-1 sampling is greedy decoding,
+    # the same in both packages whatever their noise.
+    from sonar_tpu.generation.sampling import TopKSampler as JaxTopK
+    from sonar_tpu.generation.text_converter import EmbeddingToTextConverter as JaxConverter
+    from sonar_tpu_torch.generation.sampling import TopKSampler
+
+    cfg = dict(beam_size=1, max_gen_len=10)
+    got = EmbeddingToTextConverter(TorchTextDecoder(tdec, device="cpu"), tok, "fra_Latn",
+                                   tbs.BeamSearchConfig(**cfg), sampler=TopKSampler(1),
+                                   seed=3).batch_convert(emb)
+    want = JaxConverter(JitTextDecoder(*jdec, quantize=False), build_toy_nllb(tmp_path),
+                        "fra_Latn", jbs.BeamSearchConfig(**cfg), sampler=JaxTopK(1),
+                        seed=5).batch_convert(emb)
+    assert got == want
 
 
 def test_text_to_text_pipeline_matches_jax(tmp_path):

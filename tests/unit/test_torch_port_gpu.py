@@ -125,6 +125,26 @@ def test_ffn_kernel_keeps_per_split_scales(dev, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d,f,n_splits", [(300, 128, 512, 1), (300, 128, 512, 2),
+                                            (300, 128, 512, 4), (3992, 1024, 4096, 2)])
+def test_bf16_ffn_kernel(dev, dtype, m, d, f, n_splits):
+    """The Conformer half-FFN at the JAX test's shape (a ragged M) and at
+    the full-width ``english`` encoder's; fp32 also to max-abs 2e-4."""
+    x = _rand(dev, m, d, dtype=dtype)
+    args = (x, _rand(dev, d, scale=0.1) + 1, _rand(dev, d, scale=0.1, seed=1),
+            _rand(dev, d, f, scale=d ** -0.5, seed=2), _rand(dev, f, scale=0.1, seed=3),
+            _rand(dev, f, d, scale=f ** -0.5, seed=4), _rand(dev, d, scale=0.1, seed=5))
+    got = _launched(ffn, lambda: ffn.fused_bf16_ffn_ln_residual(*args, n_splits=n_splits),
+                    counter="BF16_LAUNCHES")
+    want = ffn.fused_bf16_ffn_ln_residual_plain(*args, n_splits=n_splits)
+    assert got.dtype == dtype and got.shape == (m, d)
+    _assert_close(got, want)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_attn_block_kernel(dev, dtype):
     x = _rand(dev, 4, 40, 128, dtype=dtype)
     bias = _key_bias(dev, [40, 17, 0, 9], 40)
@@ -264,3 +284,37 @@ def test_beam_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # head dim 48
         beam_attend.beam_diag_attend(q[..., :48].contiguous(), k[..., :48].contiguous(),
                                      v[..., :48].contiguous(), vbias)
+
+
+@pytest.mark.gpu
+def test_sampling_card_matches_cpu(dev):
+    """Top-p sampling of a small decoder on the card and on the CPU, the
+    same Gumbel noise given to both through the ``noise`` hook: the same
+    tokens and lengths, scores to 1e-4 (fp32, other summation orders)."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_decoder_params, text_decoder_from_numpy
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.sampling import TopPSampler
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+
+    toy = sonar_text_decoder_archs.get("toy")
+    cfg = dataclasses.replace(toy, model_dim=128, num_encoder_attn_heads=2,
+                              num_decoder_attn_heads=2, ffn_inner_dim=256,
+                              vocab_info=dataclasses.replace(toy.vocab_info, size=3000))
+    params = init_text_decoder_params(cfg, seed=0)
+    memory = np.random.default_rng(0).normal(size=(4, 1, 128)).astype(np.float32) * 2.0
+    gen = torch.Generator().manual_seed(0)
+    draws = [-torch.log(-torch.log(torch.rand(4, 3000, generator=gen).clamp_min(1e-38)))
+             for _ in range(12)]
+    sampler = TopPSampler(0.9, max_candidates=64)
+    out = [TorchTextDecoder(text_decoder_from_numpy(params, cfg, device=d), device=d)
+           .generate_sample(memory, [3, 7], sampler, max_gen_len=10,
+                            noise=lambda step, shape: draws[step])
+           for d in (dev, "cpu")]
+    (ct, cs, cl), (pt, ps, pl) = out
+    np.testing.assert_array_equal(ct, pt)
+    np.testing.assert_array_equal(cl, pl)
+    np.testing.assert_allclose(cs, ps, atol=1e-4)

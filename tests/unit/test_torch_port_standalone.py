@@ -1,8 +1,9 @@
 """The port stands alone and runs on the GPU unless asked for the CPU.
 
 - a fresh interpreter in which ``jax`` and ``sonar_tpu`` cannot be imported
-  imports every module of ``sonar_tpu_torch`` and runs text, speech and
-  decode ``predict`` on the CPU at toy size;
+  imports every module of ``sonar_tpu_torch`` and runs text, speech,
+  decode (beam, sampling, int8), speech -> text and MuTox ``predict`` and
+  the three heads on the CPU at toy size;
 - no file of the port, and not ``chip_smoke.py``, imports ``sonar_tpu`` or
   ``jax`` (an ``ast`` scan);
 - with no GPU, every entry point given ``device=None`` raises instead of
@@ -80,6 +81,37 @@ assert len(texts) == 2 and all(isinstance(t, str) for t in texts)
 texts = TextToTextModelPipeline(enc, dec, tok, device="cpu").predict(
     ["hello world"], source_lang="eng_Latn", target_lang="fra_Latn", max_gen_len=5)
 assert len(texts) == 1
+
+from sonar_tpu_torch.generation.sampling import TopKSampler, TopPSampler
+for sampler in (TopPSampler(0.9, max_candidates=8), TopKSampler(3)):
+    texts = EmbeddingToTextModelPipeline(dec, tok, device="cpu").predict(
+        emb, target_lang="fra_Latn", sampler=sampler, max_gen_len=5)
+    assert len(texts) == 2
+texts = EmbeddingToTextModelPipeline(dec, tok, device="cpu", quantize=True).predict(
+    emb, target_lang="fra_Latn", beam_size=2, max_gen_len=5)
+assert len(texts) == 2
+
+from sonar_tpu_torch.inference_pipelines.speech import SpeechToTextModelPipeline
+waves = [rng.standard_normal(n).astype(np.float32) * 0.1 for n in (9000, 3000)]
+texts = SpeechToTextModelPipeline(senc, dec, tok, device="cpu").predict(
+    waves, target_lang="fra_Latn", beam_size=2, max_gen_len=5)
+assert len(texts) == 2
+
+from sonar_tpu_torch.inference_pipelines.mutox_speech import MutoxSpeechClassifierPipeline
+from sonar_tpu_torch.models import blaser, laser2_text, mutox
+mcfg = mutox.MutoxConfig(32)
+classifier = convert.mutox_from_numpy(convert.init_mutox_params(mcfg), mcfg, "cpu")
+scores = MutoxSpeechClassifierPipeline(classifier, senc, device="cpu").predict(
+    waves, output_prob=True)
+assert scores.shape == (2, 1) and ((scores >= 0) & (scores <= 1)).all()
+bcfg = blaser.blaser_archs.get("basic_qe")
+x = rng.standard_normal((2, 1024)).astype(np.float32)
+bmodel = convert.blaser_from_numpy(convert.init_blaser_params(bcfg), bcfg, "cpu")
+assert bmodel(x, x).shape == (2, 1)
+lcfg = laser2_text.laser2_archs.get("toy")
+lemb = convert.laser2_from_numpy(convert.init_laser2_params(lcfg), lcfg, device="cpu")(
+    [[5, 6, 7], [8, 1, 1]], [3, 1])
+assert lemb.shape == (2, 48)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "sonar_tpu")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -131,6 +163,8 @@ def test_entry_points_default_to_the_gpu(no_gpu):
     from sonar_tpu_torch.device import resolve_device
     from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
     from sonar_tpu_torch.inference_pipelines import speech, text
+    from sonar_tpu_torch.inference_pipelines.mutox_speech import MutoxSpeechClassifierPipeline
+    from sonar_tpu_torch.models import blaser, laser2_text, mutox
     from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
     from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs, sonar_text_encoder_archs
 
@@ -140,6 +174,9 @@ def test_entry_points_default_to_the_gpu(no_gpu):
     senc = convert.speech_encoder_from_numpy(convert.init_speech_encoder_params(scfg, 0), scfg)
     dcfg = sonar_text_decoder_archs.get("toy")
     dec = convert.text_decoder_from_numpy(convert.init_text_decoder_params(dcfg, 0), dcfg)
+    bcfg = blaser.blaser_archs.get("basic_qe")
+    mcfg = mutox.MutoxConfig(32)
+    lcfg = laser2_text.laser2_archs.get("toy")
     calls = [
         lambda: text.TorchTextEncoder(tenc),
         lambda: speech.TorchSpeechEncoder(senc),
@@ -152,6 +189,15 @@ def test_entry_points_default_to_the_gpu(no_gpu):
         lambda: hub.load_text_encoder("text_sonar_basic_encoder"),
         lambda: hub.load_speech_encoder("sonar_speech_encoder_eng"),
         lambda: hub.load_text_decoder("text_sonar_basic_decoder"),
+        lambda: speech.SpeechToTextModelPipeline(senc, dec, tokenizer=None),
+        lambda: speech.SpeechToTextPipeline((senc, dec), tokenizer=None),
+        lambda: MutoxSpeechClassifierPipeline("sonar_mutox", senc),
+        lambda: hub.load_blaser_model("blaser_2_0_qe"),
+        lambda: hub.load_mutox_model("sonar_mutox"),
+        lambda: hub.load_laser2_model("laser2_text_encoder"),
+        lambda: convert.blaser_from_numpy(convert.init_blaser_params(bcfg), bcfg),
+        lambda: convert.mutox_from_numpy(convert.init_mutox_params(mcfg), mcfg),
+        lambda: convert.laser2_from_numpy(convert.init_laser2_params(lcfg), lcfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
