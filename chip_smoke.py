@@ -9,14 +9,18 @@ Phases, each printing ``#`` lines:
     prints the card's name and power limit as nvidia-smi gives them;
 (b) build: compiles the CUDA kernels from ``sonar_tpu_torch/csrc`` (nvcc,
     sm_90a) and prints the build time and the compiler's register report;
-(c) kernels: each of the ten kernels against its plain PyTorch version on
+(c) kernels: the bf16 attention core's softmax division against
+    ``__fdiv_rn``, bit for bit, on 2^36 operand pairs (``csrc/div_check.cu``);
+    each of the ten kernels against its plain PyTorch version on
     the card, at the main paths' shapes, with the tolerance stated, and
     both timed with CUDA events (plain, kernel, kernel, plain; the kernels
     line gives each kernel's first timed shape, v2 is timed in fp32 too),
     beside one PyTorch call of the same function where there is one
     (``scaled_dot_product_attention``) and the card's bound for the same
     work (bytes over 3.35 TB/s or operations over the operand type's peak,
-    computed from the inputs); the three beam-attend kernels at the JAX
+    computed from the inputs), with the achieved op/s and the share of the
+    bound; flash attention timed at S 512, 384 and 256, the short attention
+    at [64, 128], [1024, 8] and [256, 32]; the three beam-attend kernels at the JAX
     kernel tests' shapes and the decode shape of (f), in bf16 and fp32;
     the Conformer half-FFN (``fused_bf16_ffn_ln_residual``) at the
     ``english`` encoder's S 499 batch and at the JAX test's shape, bf16 and
@@ -30,7 +34,9 @@ Phases, each printing ``#`` lines:
     zeroed before and read after; the four text kernels' must be > 0.
     Embeddings of 16 sentences are held against the same pipeline on the
     CPU (the plain path): cosine >= 0.999 for int8 and bf16, max-abs <=
-    1e-3 for fp32.
+    1e-3 for fp32. Then, outside the counted run, encode only (the
+    pre-batched corpus) in int8 and bf16, and the device ms of one batch of
+    8192 padded tokens at S 128 and at S 512 in each.
 (e) the speech slice: the ``english`` SONAR speech encoder at full width
     (24 Conformer layers, D 1024, 16 heads x 64, FFN 4096, depthwise kernel
     31, 80 mel bins, 3-layer post-LN pooler) with seeded random weights,
@@ -286,6 +292,24 @@ def check_kernels(torch):
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
     failures = []
 
+    # The bf16 attention core divides P by the row sum with __fdiv_rn's fast
+    # path and the reciprocal hoisted out (csrc/attention.cuh, tc_normalise):
+    # held to __fdiv_rn bit for bit over 2^36 operand pairs of a softmax
+    # row's range (csrc/div_check.cu).
+    from sonar_tpu_torch.ops import _build
+
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    _build.check(_build.library().sonar_check_softmax_division(
+        2 ** 34, 12345, counts.data_ptr(), _build.stream_of(counts)), "softmax division check")
+    pairs, differ, differ_fast = counts.tolist()
+    ok = differ == 0 and differ_fast == 0
+    log(f"check softmax division against __fdiv_rn: {pairs} operand pairs, {differ} differ "
+        f"(tc_div alone: {differ_fast} with a numerator >= 2^-100) in "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("softmax division")
+
     def check(name, label, kernel_fn, plain_fn, rtol, min_cos, timed=False, cost=None,
               library_fn=None, pick=lambda out: out, atol=None):
         """Pass if max|kernel - plain| <= rtol * max|plain| (or <= atol when
@@ -317,15 +341,18 @@ def check_kernels(torch):
                                      bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                                      shape=label)
             lib_s = "none" if lib is None else f"{lib:.4f} ms"
+            k_ms = (k1 + k2) / 2
             log(f"time {name} {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
-                f"ms, library call {lib_s}, bound {bound_ms:.4f} ms ({bound_by})")
+                f"ms, library call {lib_s}, bound {bound_ms:.4f} ms ({bound_by}); achieved "
+                f"{sum(cost[1].values()) / k_ms / 1e9:.1f} T op/s, {bound_ms / k_ms:.1%} of the "
+                f"bound")
 
     # Tolerances: fp32 attention agrees up to summation order (1e-5 of the
     # output scale); in bf16 an output may move by a few bf16 ulps where a
     # rounding of P or of the output flips (1e-2 of the scale, row cosine
     # >= 0.9999).
     # K1: short attention on the fused QKV layout.
-    for b, s in ((64, 128), (1024, 8)):
+    for b, s in ((64, 128), (1024, 8), (256, 32)):
         bias = key_bias(b, s)
         for dt, atol, mc in ((bf16, 1e-2, 0.9999), (f32, 1e-5, 0.999999)):
             qkv = rand(b, s, 3 * 1024, scale=0.5, dtype=dt)
@@ -333,7 +360,7 @@ def check_kernels(torch):
             check("short_qkv_attention", f"[{b},{s},3072] {str(dt)[6:]}",
                   lambda: short_attn.short_qkv_attention(qkv, bias, 16),
                   lambda: short_attn.short_qkv_attention_plain(qkv, bias, 16),
-                  atol, mc, timed=(b, s, dt) == (64, 128, bf16),
+                  atol, mc, timed=dt == bf16,
                   cost=(nbytes(qkv, bias) + b * s * 1024 * qkv.element_size(),
                         {_kind(dt): 4 * b * 16 * s * s * 64}),
                   library_fn=lambda: F.scaled_dot_product_attention(
@@ -433,13 +460,13 @@ def check_kernels(torch):
     # K2: flash attention. P is normalised before its rounding to the value
     # dtype in both versions (as in the TPU kernel), so the tolerances are
     # those of K1.
-    for s in (512, 384):
+    for s in (512, 384, 256):
         q, k, v = (rand(16, 16, s, 64, dtype=bf16) for _ in range(3))
         kb = key_bias(16, s)[:, None, None, :]
         check("flash_attention", f"[16,16,{s},64] bf16 key-bias",
               lambda: flash.flash_attention(q, k, v, kb),
               lambda: flash.flash_attention_plain(q, k, v, kb),
-              1e-2, 0.9999, timed=s == 512,
+              1e-2, 0.9999, timed=True,
               cost=(2 * nbytes(q) + nbytes(k, v, kb), {"bf16": 4 * 16 * 16 * s * s * 64}),
               library_fn=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=kb.to(bf16)))
     seg = torch.arange(512, device=dev) // 128
@@ -677,24 +704,34 @@ def run_slice(torch, card):
     if missing:
         raise AssertionError(f"the main path never launched: {missing}")
 
-    # Encode-only rate: pre-batched, pre-tokenized corpus, int8 static.
+    # Encode-only rate: pre-batched, pre-tokenized corpus, static batches;
+    # then the device time of one batch of 8192 padded tokens at S 128 (int8:
+    # the block kernels; bf16: short_qkv_attention) and at S 512 (both:
+    # flash_attention), random tokens, every row full.
     from sonar_tpu_torch.data.batcher import StaticShapeBatcher
     from sonar_tpu_torch.inference_pipelines.text import _static_len_buckets_for
 
-    enc = gpu["int8"].model
     batcher = StaticShapeBatcher(pad_value=1, len_buckets=_static_len_buckets_for(
-        enc.max_source_len), tokens_per_batch=8192)
+        gpu["int8"].model.max_source_len), tokens_per_batch=8192)
     tok = tokenizer.create_encoder(lang="eng_Latn")
     batches = list(batcher.batches([list(tok(t)) for t in corpus]))
-    enc.encode_batches(batches)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    enc.encode_batches(batches)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     n_tok = sum(int(b.seq_lens.sum()) for b in batches)
-    log(f"slice int8 encode only: {len(corpus) / dt:.1f} sentences/s, {n_tok / dt:.0f} real "
-        f"tokens/s ({len(batches)} batches of 8192 padded tokens), on {card}")
+    for mode in ("int8", "bf16"):
+        enc = gpu[mode].model
+        enc.encode_batches(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_batches(batches)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"slice {mode} encode only: {len(corpus) / dt:.1f} sentences/s, {n_tok / dt:.0f} "
+            f"real tokens/s ({len(batches)} batches of 8192 padded tokens), on {card}")
+        for s in (128, 512):
+            seqs = rng.integers(4, cfg.vocab_info.size, (8192 // s, s)).astype(np.int32)
+            lens = np.full((8192 // s,), s, np.int32)
+            ms = _timed(torch, lambda: enc._encode(seqs, lens), 5)
+            log(f"slice {mode} batch [{8192 // s}, {s}]: {ms:.3f} ms of device time per batch "
+                f"(5 batches behind a GPU spin), on {card}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # The same pipelines on the CPU (plain path), on the 16 reference sentences.

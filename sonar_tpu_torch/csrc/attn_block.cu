@@ -10,7 +10,8 @@
 //   2. int8 GEMM with the QKV weights, dequantised, + bias, rounded to bf16
 //      (as the TPU kernel does, also for an fp32 model);
 //   3. per-(sequence, head) softmax attention on the bf16 QKV, P rounded
-//      to bf16, output kept in fp32 (attention.cuh);
+//      to bf16, output kept in fp32 (attention.cuh: the tensor-core core,
+//      one pass at S <= 128);
 //   4. per-row requantisation of the fp32 attention output;
 //   5. int8 GEMM with the output weights, dequantised, + bias, added to x
 //      in fp32 and rounded to x.dtype.

@@ -26,8 +26,6 @@
 // fused kernel removes.
 #include "common.cuh"
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int FB_BM = 128, FB_BN = 128, FB_BK = 32;
 constexpr int FB_LDS = FB_BK + 8;  // bf16 per shared row: conflict-free fragment loads
 constexpr int FB_THREADS = 256;    // 8 warps as 2 (M) x 4 (N), each 64 x 32

@@ -7,12 +7,18 @@
 // 128, S up to the encoder's 514 rows.
 //
 // What bounds it on the H100: the TPU kernel held one (batch, head)'s whole
-// K/V in VMEM. Here K and V at S = 512, Dh = 128 in fp32 take 512 KB, more
-// than a block's 227 KB of shared memory, so keys stream through in
-// 64-row tiles and the softmax takes two passes (attention.cuh): the
-// [S, S] logits never reach device memory, and P is rounded exactly where
-// the TPU kernel rounds it. The kernel is limited by shared-memory
-// bandwidth of its fp32 FMA loops; the tensor cores are unused so far.
+// K/V in VMEM and ran QK^T and P @ V on the MXU. Here device memory sees
+// q, k, v and the output once (the [S, S] logits never leave the chip), so
+// the limit is the work on chip: the tensor-core products and the softmax's
+// expf, true division and rounding per logit. In bf16 (attention.cuh,
+// tc_attn_two_pass) a block of 4 warps x 16 query rows runs both products
+// on mma.sync with Q in registers and P kept in the accumulators; K and V
+// stream through shared memory in 64-key tiles (cp.async, double-buffered).
+// Keys past 128 do not fit a warp's registers as fp32 logits, so the softmax
+// takes two passes and recomputes QK^T in the second, where P is
+// normalised and rounded exactly where the TPU kernel rounds it. At S <= 128
+// (a full bias from S 128) the one-pass kernel takes the call. fp32 inputs
+// keep the FMA core.
 #include "attention.cuh"
 
 extern "C" int sonar_flash_attention(const void* q, const void* k, const void* v,

@@ -41,8 +41,6 @@ constexpr int RP_SPAD = 16;       // floats of padding after a score row
 constexpr int RP_QPAD = 4;        // floats of padding after a qu / qv row
 constexpr size_t RP_MAX_SMEM = 232448;
 
-typedef __nv_bfloat16 bf16;
-
 template <typename T> struct RpPad;
 template <> struct RpPad<float> { static constexpr int w = 4; };
 template <> struct RpPad<bf16> { static constexpr int w = 32; };  // spreads 16-byte row loads over the banks
@@ -87,18 +85,6 @@ static size_t rp_smem_bytes(int S, int Dh, int D) {
 __device__ __forceinline__ void mma_k32(float (&c)[4], uint4 lo, uint4 hi, uint4 b) {
   mma_bf16(c, lo.x, hi.x, lo.y, hi.y, b.x, b.y);
   mma_bf16(c, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // 8 floats (already bf16 values) -> one 16-byte bf16 fragment.

@@ -9,11 +9,15 @@
 // What bounds it on the H100: at sentence lengths (S 8..128, Dh 64) the
 // attention FLOPs are small next to the projections around it; what the
 // TPU kernel saved was the head-split transposes and the fp32 logits in
-// device memory. This kernel does the same: each block reads its head's
-// q/k/v slices from the fused layout with strides, keeps logits and
-// probabilities in shared memory (attention.cuh) and writes merged heads,
-// so device memory sees only qkv in and the output out. Its limit is then
-// the shared-memory bandwidth of the fp32 FMA loops.
+// device memory. This kernel does the same: it reads each head's q/k/v
+// slices from the fused layout with 16-byte copies and writes merged heads,
+// so device memory sees qkv once and the output once (its bound). What
+// holds it above that bound is the softmax's arithmetic per logit, as in
+// flash (attention.cuh). In bf16 (tc_attn_one_pass) a block holds the K and
+// V of one sequence and a group of heads in shared memory; each warp owns
+// 16 query rows of one head, runs QK^T and P @ V on mma.sync and keeps all
+// of its <= 128 logits per row in registers, so the softmax takes one exact
+// pass. fp32 inputs keep the FMA core.
 #include "attention.cuh"
 
 extern "C" int sonar_short_qkv_attention(const void* qkv, const float* bias, void* out, int B,

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "sonar_beam_masked_attend": [_P] * 6 + [_I] * 7 + [_P],
     "sonar_beam_diag_attend": [_P] * 5 + [_I] * 6 + [_P],
     "sonar_beam_reorder_attend": [_P] * 11 + [_I] * 6 + [_P],
+    "sonar_check_softmax_division": [ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -87,6 +87,89 @@ def test_flash_kernel(dev, dtype, full):
     _assert_close(got, flash.flash_attention_plain(q, k, v, bias))
 
 
+# The bf16 tensor-core core (csrc/attention.cuh): the one-pass kernel at
+# every length the short attention takes, the two-pass kernel past 128 keys.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [8, 16, 40, 128])
+def test_short_attn_kernel_bf16_lengths(dev, s):
+    qkv = _rand(dev, 5, s, 3 * 1024, scale=0.5, dtype=torch.bfloat16)
+    bias = _key_bias(dev, [s, s // 2, 1, s - 3, 0], s)  # with a row of length 0
+    got = _launched(short_attn, lambda: short_attn.short_qkv_attention(qkv, bias, 16))
+    _assert_close(got, short_attn.short_qkv_attention_plain(qkv, bias, 16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,dh", [(2, 40), (3, 5), (1, 128), (4, 24)])
+def test_short_attn_kernel_bf16_head_dims(dev, heads, dh):
+    """Head dims that are not a multiple of 16 (40, 5, 24: zero-padded in the
+    kernel, odd ones without 16-byte copies), and the largest, 128."""
+    qkv = _rand(dev, 3, 33, 3 * heads * dh, scale=0.5, dtype=torch.bfloat16)
+    bias = _key_bias(dev, [33, 20, 0], 33)
+    got = _launched(short_attn, lambda: short_attn.short_qkv_attention(qkv, bias, heads))
+    assert got.shape == (3, 33, heads * dh)
+    _assert_close(got, short_attn.short_qkv_attention_plain(qkv, bias, heads))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias_lens", [None, [64, 30, 0, 1]])
+def test_short_attn_kernel_bf16_fp32_out(dev, bias_lens):
+    qkv = _rand(dev, 4, 64, 3 * 256, scale=0.5, dtype=torch.bfloat16)
+    bias = None if bias_lens is None else _key_bias(dev, bias_lens, 64)
+    got = _launched(short_attn, lambda: short_attn.short_qkv_attention(
+        qkv, bias, 4, out_dtype=torch.float32))
+    assert got.dtype == torch.float32
+    _assert_close(got, short_attn.short_qkv_attention_plain(qkv, bias, 4,
+                                                            out_dtype=torch.float32))
+
+
+@pytest.mark.gpu
+def test_softmax_division_matches_fdiv_rn(dev):
+    """The core's division (reciprocal hoisted, two residual corrections;
+    __fdiv_rn below 2^-100) against __fdiv_rn, bit for bit, on 2^26 pairs."""
+    from sonar_tpu_torch.ops import _build
+
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    _build.check(_build.library().sonar_check_softmax_division(
+        2 ** 24, 7, counts.data_ptr(), _build.stream_of(counts)), "softmax division check")
+    assert counts.tolist() == [2 ** 26, 0, 0]
+
+
+def _flash_bias(dev, kind, b, s):
+    if kind == "key":
+        return _key_bias(dev, [s, s // 3, 1][:b], s)[:, None, None, :]
+    if kind == "full":
+        seg = torch.arange(s, device=dev) // 100
+        return torch.where(seg[:, None] == seg[None, :], 0.0, F32_MIN).expand(b, 1, s, s)
+    return None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [130, 300, 512, 514])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("kind", ["key", "full", "none"])
+def test_flash_kernel_bf16(dev, s, dh, kind):
+    q, k, v = (_rand(dev, 3, 2, s, dh, dtype=torch.bfloat16, seed=i) for i in range(3))
+    bias = _flash_bias(dev, kind, 3, s)
+    got = _launched(flash, lambda: flash.flash_attention(q, k, v, bias))
+    _assert_close(got, flash.flash_attention_plain(q, k, v, bias))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,dh", [(300, 64), (514, 128), (128, 64)])
+def test_flash_kernel_bf16_strided_views(dev, s, dh):
+    """q, k, v as ``mha`` passes them: head views of one fused projection
+    [B, S, 3 D] (row stride 3 D, k and v offset by D and 2 D)."""
+    heads, b = 4, 2
+    qkv = _rand(dev, b, s, 3 * heads * dh, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(b, s, heads, dh).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    bias = _flash_bias(dev, "key" if s > 128 else "full", b, s)
+    got = _launched(flash, lambda: flash.flash_attention(q, k, v, bias))
+    _assert_close(got, flash.flash_attention_plain(q, k, v, bias))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ln", [False, True])
@@ -154,6 +237,19 @@ def test_attn_block_kernel(dev, dtype):
             _rand(dev, 384, scale=0.05), wo, so, _rand(dev, 128, scale=0.05), 2)
     got = _launched(attn_block, lambda: attn_block.fused_attn_block(*args))
     _assert_close(got, attn_block.fused_attn_block_plain(*args), rows=[0, 1, 3])
+
+
+@pytest.mark.gpu
+def test_attn_block_kernel_past_128_keys(dev):
+    """The attention step in the two-pass kernel with its fp32 output."""
+    x = _rand(dev, 2, 200, 256, dtype=torch.bfloat16)
+    bias = _key_bias(dev, [200, 77], 200)
+    wq, sq = quantize_kernel(_rand(dev, 256, 768, scale=0.05))
+    wo, so = quantize_kernel(_rand(dev, 256, 256, scale=0.05))
+    args = (x, bias, torch.ones(256, device=dev), torch.zeros(256, device=dev), wq, sq,
+            _rand(dev, 768, scale=0.05), wo, so, _rand(dev, 256, scale=0.05), 4)
+    got = _launched(attn_block, lambda: attn_block.fused_attn_block(*args))
+    _assert_close(got, attn_block.fused_attn_block_plain(*args))
 
 
 @pytest.mark.gpu
