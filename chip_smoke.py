@@ -24,7 +24,16 @@ Phases, each printing ``#`` lines:
     kernel tests' shapes and the decode shape of (f), in bf16 and fp32;
     the Conformer half-FFN (``fused_bf16_ffn_ln_residual``) at the
     ``english`` encoder's S 499 batch and at the JAX test's shape, bf16 and
-    fp32, beside the port's eager Conformer branch at the same shape;
+    fp32, beside the port's eager Conformer branch at the same shape; the
+    int8 FFN beside ``torch._int_mm`` on its two GEMMs' pre-quantised
+    operands (a yardstick, on a line of its own); rel-pos v2 timed at
+    [8, 16, 499, 64] (bf16, fp32), [8, 16, 1999, 64] and [2, 16, 2499, 64]
+    (past the gate, as a measurement), each bf16 time beside the bound's
+    operation count, the trig form's and the L2 bytes of the kernel's
+    tiling (inputs and output; the scores written and read back); rel-pos
+    v2 in bf16 called 16 times on one input at [1, 16, 2048, 64],
+    [2, 16, 1999, 64] and [8, 16, 499, 64], its workspace filled with NaN
+    before each call, every output equal to the first bit for bit;
 (d) the slice: the ``basic`` SONAR text encoder at full width (24 layers,
     D 1024, 16 heads, FFN 8192, vocabulary 256,206) with seeded random
     weights, behind ``TextToEmbeddingModelPipeline.predict`` with a
@@ -109,6 +118,7 @@ REPO = Path(__file__).resolve().parent
 DEVICE = "cuda"
 F32_MIN = -3.4028234663852886e38
 N_SENTENCES = 3000  # corpus of the slice phase
+RELPOS_REPEATS = 16  # calls of the rel-pos v2 kernel on one input, held equal bit for bit
 
 KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its launch count)
     "short_qkv_attention": ("sonar_tpu_torch/csrc/short_attn.cu",
@@ -261,6 +271,54 @@ def _errors(torch, got, want):
     return max_abs, cos, finite, w.abs().max().item()
 
 
+def relpos_bound_ops(b, h, s, dh, d) -> int:
+    """Operations of the rel-shift algorithm, the least work for v2's
+    function: ac, bd and P V over (S, S), and the positional projection of
+    the 2S - 1 relative positions for every head."""
+    return 6 * b * h * s * s * dh + 2 * h * (2 * s - 1) * d * dh
+
+
+def relpos_trig_ops(b, h, s, dh, d) -> int:
+    """Operations of the trig-factored form that v2 computes (the TPU
+    kernel's): z = (q + v_bias) Wr_h^T, bd = w . basis_j, ac and P V, each
+    score computed once."""
+    z, bd, ac = 2 * b * h * s * dh * d, 2 * b * h * s * s * d, 2 * b * h * s * s * dh
+    return z + bd + 2 * ac
+
+
+def relpos_l2_bytes(b, h, s, dh, d) -> tuple:
+    """Bytes v2 moves through L2 in a bf16 call, from its tiling
+    (``csrc/relpos_flash.cu``): a cluster of two 64-row blocks of one head
+    fetches every 128-key tile of the basis and K once (pass 1) and of V
+    once (pass 2), multicast to both; each block reads its head's Wr_h, its
+    q rows and its rows of the trig tables; the output is written once.
+    -> (those bytes, the workspace's: each block's fp32 scores written in
+    pass 1 and read back in pass 2)."""
+    clusters = b * h * -(-s // 128)
+    blocks = 2 * clusters
+    per_cluster = (s * d + 2 * s * dh) * 2
+    per_block = d * dh * 2 + 64 * (dh + d) * 2
+    io = clusters * per_cluster + blocks * per_block + b * h * s * dh * 2
+    return io, blocks * 64 * (-(-s // 128) * 128) * 4 * 2
+
+
+def log_relpos_work(b, h, s, dh, d, result) -> None:
+    """The operation counts of v2 beside its last time, and its L2 bytes."""
+    ms = result.get("last_ms")
+    if ms is None:
+        return
+    bound_ops = relpos_bound_ops(b, h, s, dh, d)
+    trig = relpos_trig_ops(b, h, s, dh, d)
+    peak = PEAK_OPS_S["bf16"]
+    parts = [f"bound (rel-shift) {bound_ops / 1e9:.1f} GFLOP, {bound_ops / ms / 1e9 / peak * 1e12:.1%}"
+             " of the bf16 peak"]
+    parts.append(f"trig form {trig / 1e9:.1f} GFLOP, {trig / ms / 1e9 / peak * 1e12:.1%}")
+    io, work = relpos_l2_bytes(b, h, s, dh, d)
+    log(f"work relpos_flash_attention_v2 [{b},{h},{s},{dh}] at {ms:.4f} ms: " + "; ".join(parts)
+        + f"; L2 traffic of the tiling {io / 1e9:.3f} GB of inputs and output"
+        f" ({io / ms / 1e9:.2f} TB/s) and {work / 1e9:.3f} GB of scores written and read back")
+
+
 def check_kernels(torch):
     from sonar_tpu_torch.nn.conformer import _trig_tables
     from sonar_tpu_torch.ops.cuda import (
@@ -342,6 +400,7 @@ def check_kernels(torch):
                                      shape=label)
             lib_s = "none" if lib is None else f"{lib:.4f} ms"
             k_ms = (k1 + k2) / 2
+            results[name]["last_ms"] = k_ms
             log(f"time {name} {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} "
                 f"ms, library call {lib_s}, bound {bound_ms:.4f} ms ({bound_by}); achieved "
                 f"{sum(cost[1].values()) / k_ms / 1e9:.1f} T op/s, {bound_ms / k_ms:.1%} of the "
@@ -413,6 +472,29 @@ def check_kernels(torch):
                       int8_tol[dt], 0.9999, timed=ln and dt == bf16,
                       cost=(2 * nbytes(x) + nbytes(w1, s1, b1, w2, s2, b2, *lnp),
                             {"int8": 2 * 2 * x.shape[0] * d * f}))
+            if not split_scales and dt == bf16:
+                # Yardstick only (the port never calls it): torch._int_mm on
+                # the two GEMMs' pre-quantised operands, x_q @ W1 and
+                # h_q @ W2, which the kernel runs on its wgmma core.
+                xq = torch.randint(-127, 128, (x.shape[0], d), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                hq = torch.randint(-127, 128, (x.shape[0], f), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                mm1 = _timed(torch, lambda: torch._int_mm(xq, w1), 20)
+                mm2 = _timed(torch, lambda: torch._int_mm(hq, w2), 20)
+                ops = 2 * x.shape[0] * d * f
+                log(f"time fused_int8_ffn yardstick torch._int_mm M={x.shape[0]}: "
+                    f"[{x.shape[0]},{d}]x[{d},{f}] {mm1:.4f} ms ({ops / mm1 / 1e9:.1f} T op/s), "
+                    f"[{x.shape[0]},{f}]x[{f},{d}] {mm2:.4f} ms ({ops / mm2 / 1e9:.1f} T op/s); "
+                    f"both GEMMs at the int8 peak {2 * ops / PEAK_OPS_S['int8'] * 1e3:.4f} ms")
+                del xq, hq
+                # The kernel's four launches with the LayerNorm, by device
+                # time (torch.profiler, 10 calls).
+                prof, _, _ = _device_profile(torch, lambda: [
+                    ffn._fused_ffn_impl(x, w1, s1, b1, w2, s2, b2, ln_w, ln_b, 2)
+                    for _ in range(10)])
+                for name, (ms, n) in sorted(prof.items(), key=lambda kv: -kv[1][0]):
+                    log(f"time fused_int8_ffn M={x.shape[0]} step {ms / n:.4f} ms x{n} {name[:70]}")
         if split_scales:  # the case must tell the two kinds of scale apart
             one, two = (ffn.fused_ffn_plain(x, w1, s1, b1, w2, s2, b2, None, None, n)
                         for n in (1, 2))
@@ -502,16 +584,39 @@ def check_kernels(torch):
 
     tol = {bf16: (1e-2, 0.9999), f32: (1e-5, 0.999999)}
     for b, h, s, dh, dt in ((8, 16, 499, 64, bf16), (8, 16, 499, 64, f32), (1, 16, 2048, 64, bf16),
-                            (2, 16, 149, 64, bf16), (2, 8, 300, 128, bf16)):
+                            (2, 16, 149, 64, bf16), (2, 8, 300, 128, bf16),
+                            (8, 16, 1999, 64, bf16), (2, 16, 2499, 64, bf16)):
         args = relpos_args(b, h, s, dh, dt)
+        timed = (b, s) in ((8, 499), (8, 1999), (2, 2499))  # S 499 in bf16, then fp32
         check("relpos_flash_attention_v2", f"[{b},{h},{s},{dh}] D 1024 {str(dt)[6:]}",
               lambda: relpos_flash.relpos_flash_attention_v2(*args),
               lambda: relpos_flash.relpos_flash_attention_v2_plain(*args),
-              *tol[dt], timed=(b, s) == (8, 499),  # bf16, then fp32
+              *tol[dt], timed=timed,
               # ac, bd and P @ V over (S, S), plus the positional projection
               # of the 2S - 1 relative positions for every head
               cost=(nbytes(*args) + nbytes(args[0]),  # inputs, and the output (q's size)
-                    {_kind(dt): 6 * b * h * s * s * dh + 2 * h * (2 * s - 1) * 1024 * dh}))
+                    {_kind(dt): relpos_bound_ops(b, h, s, dh, 1024)}))
+        if timed and dt == bf16:
+            log_relpos_work(b, h, s, dh, 1024, results["relpos_flash_attention_v2"])
+        del args
+    # The bf16 kernel keeps its scores in a workspace between its passes and
+    # shares tiles across a cluster: calls on the same inputs must give the
+    # same bits, whatever the workspace held before (NaN here).
+    for b, h, s, dh in ((1, 16, 2048, 64), (2, 16, 1999, 64), (8, 16, 499, 64)):
+        args = relpos_args(b, h, s, dh, bf16)
+        outs = []
+        for _ in range(RELPOS_REPEATS):
+            # The freed NaN block is what the wrapper's workspace gets next.
+            relpos_flash._workspace(b, h, s, 1024, bf16, dev).fill_(float("nan"))
+            outs.append(relpos_flash.relpos_flash_attention_v2(*args))
+        differ = sum(not torch.equal(o, outs[0]) for o in outs[1:])
+        ok = differ == 0 and bool(torch.isfinite(outs[0]).all())
+        log(f"check relpos_flash_attention_v2 [{b},{h},{s},{dh}] bfloat16 repeated: "
+            f"{RELPOS_REPEATS} calls, {differ} differ from the first bit for bit "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"relpos_flash_attention_v2 [{b},{h},{s},{dh}] repeated")
+        del args, outs
     for b, h, s, dh, dt in ((8, 16, 499, 64, bf16), (2, 2, 130, 64, f32)):
         q, k, v, wr, si, ci, basis, u, vb, kb = relpos_args(b, h, s, dh, dt)
         bd = relpos_flash.relpos_bd_plain(q, wr, si, ci, basis, vb).to(dt)

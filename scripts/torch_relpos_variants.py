@@ -1,0 +1,177 @@
+"""Time variants of the port's rel-pos v2 kernel on one CUDA card, or call
+them again and again to see whether they give the same bits every time.
+
+Each variant is ``name=old>>new||old>>new...``: text replacements applied to
+a copy of ``sonar_tpu_torch/csrc/relpos_flash.cu`` (``\\n`` in a spec is a
+newline; a spec cannot hold ``||`` or ``>>`` in its text); every variant is
+built into a library of its own under ``build/variants/<name>/`` and timed
+at [8, 16, 499, 64] (D 1024) in bf16 and fp32, in turns (the variants in
+order, then in reverse), beside its error against the plain version. An
+empty spec (``base=``) is the source as it is. Ablations (a variant that
+skips work) give wrong results by design: only their times mean anything.
+
+    python3 scripts/torch_relpos_variants.py 'base=' \\
+        'nobd=wgmma_bf16_m64n64k16_ss(acc, wgmma_desc_sw128(w_base>>if (false) wgmma_bf16_m64n64k16_ss(acc, wgmma_desc_sw128(w_base'
+
+A variant may also be named by itself, without ``=``: one of ``PROBES``,
+the variants kept for the repeat check below.
+
+With ``--repeats N`` each variant is instead called N times on the same
+bf16 inputs at the long shapes of ``REPEAT_SHAPES``, its workspace filled
+with NaN before every call; the script prints how many calls differ from
+the first bit for bit, how many hold a non-finite value, and the largest
+error against the plain version.
+"""
+
+from pathlib import Path
+import shutil
+import subprocess
+import sys
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import torch  # noqa: E402
+
+from sonar_tpu_torch.nn.conformer import _trig_tables  # noqa: E402
+from sonar_tpu_torch.ops import _build  # noqa: E402
+from sonar_tpu_torch.ops.cuda import relpos_flash  # noqa: E402
+
+
+# Pass 2 reading the next key tile's scores while this one's P V runs.
+_PREFETCH = (
+    r"    for (int j0 = 0; j0 < S; j0 += RT_KT) {\n      float acc[8][4];\n"
+    r"      const float4* ld = tile_at(j0);\n#pragma unroll\n"
+    r"      for (int nt = 0; nt < 8; ++nt) {\n        const float4 x = __ldcg(ld + nt * 32);"
+    ">>"
+    r"    float4 nx[8];\n#pragma unroll\n"
+    r"    for (int nt = 0; nt < 8; ++nt) nx[nt] = __ldcg(tile_at(0) + nt * 32);\n"
+    r"    for (int j0 = 0; j0 < S; j0 += RT_KT) {\n      float acc[8][4];\n      float4 cur[8];\n"
+    r"#pragma unroll\n      for (int nt = 0; nt < 8; ++nt) cur[nt] = nx[nt];\n"
+    r"      if (j0 + RT_KT < S) {\n#pragma unroll\n"
+    r"        for (int nt = 0; nt < 8; ++nt) nx[nt] = __ldcg(tile_at(j0 + RT_KT) + nt * 32);\n"
+    r"      }\n#pragma unroll\n      for (int nt = 0; nt < 8; ++nt) {\n        const float4 x = cur[nt];"
+)
+# Pass 2 freeing its V slots with a cluster-scope release.
+_CLUSTER_RELEASE = (
+    r"        release(s);\n      }\n    }\n\n    // -- the two key halves"
+    ">>"
+    r"        __syncwarp();\n        if (lane < RT_C)\n"
+    r'          asm volatile("{ .reg .b32 r; mapa.shared::cluster.u32 r, %0, %1; '
+    r'mbarrier.arrive.release.cluster.shared::cluster.b64 _, [r]; }"'
+    r' :: "r"(smem_u32(empty + s)), "r"(lane) : "memory");\n'
+    r"      }\n    }\n\n    // -- the two key halves"
+)
+# Clusters of one block: every tile loaded whole by the block that reads it.
+_NO_CLUSTER = "constexpr int RT_C = 2;>>constexpr int RT_C = 1;"
+PROBES = {
+    "prefetch": _PREFETCH,
+    "prefetch_cluster_release": _PREFETCH + "||" + _CLUSTER_RELEASE,
+    "prefetch_no_cluster": _PREFETCH + "||" + _NO_CLUSTER,
+}
+
+
+def build(name: str, spec: str):
+    """The kernel library of one variant, or None if it does not build."""
+    root = REPO / "build" / "variants" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(REPO / "sonar_tpu_torch" / "csrc", root / "csrc")
+    src = root / "csrc" / "relpos_flash.cu"
+    text = src.read_text()
+    for rep in filter(None, spec.split("||")):
+        old, new = (t.replace("\\n", "\n") for t in rep.split(">>"))
+        assert old in text, f"{name}: {old!r} not in the source"
+        text = text.replace(old, new)
+    src.write_text(text)
+    _build.CSRC, _build.BUILD_DIR, _build._lib = root / "csrc", root / "out", None
+    try:
+        return _build.library()
+    except RuntimeError as e:
+        print(name, "does not build:", str(e)[-3000:])
+        return None
+
+
+def timed(fn, iters=10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # queue the calls behind a spin, not the host
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def inputs(b, h, s, dh, dtype, d=1024, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    q, k, v = (rand(b, h, s, dh) for _ in range(3))
+    wr = rand(h, d, dh, scale=d ** -0.5)
+    u, vb = rand(h, dh, scale=0.1), rand(h, dh, scale=0.1)
+    si, ci, basis = _trig_tables(s, d, dtype, "cuda")
+    lens = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
+    lens[0] = s
+    if b > 1:
+        lens[-1] = 0  # a batch row whose every key is masked
+    kb = torch.where(torch.arange(s, device="cuda")[None, :] < lens[:, None], 0.0,
+                     torch.finfo(torch.float32).min)
+    return q, k, v, wr, si, ci, basis, u, vb, kb.float()
+
+
+REPEAT_SHAPES = ((1, 16, 2048, 64), (2, 16, 1999, 64), (8, 16, 1999, 64), (8, 16, 499, 64),
+                 (1, 8, 2048, 128))
+
+
+def repeats(libs, n: int) -> None:
+    for b, h, s, dh in REPEAT_SHAPES:
+        args = inputs(b, h, s, dh, torch.bfloat16)
+        want = relpos_flash.relpos_flash_attention_v2_plain(*args).double()
+        for name, lib in libs:
+            _build._lib = lib
+            first, differ, nonfinite, err = None, 0, 0, 0.0
+            for _ in range(n):
+                # The freed NaN block is what the wrapper's workspace gets next.
+                relpos_flash._workspace(b, h, s, 1024, torch.bfloat16, "cuda").fill_(float("nan"))
+                got = relpos_flash.relpos_flash_attention_v2(*args)
+                nonfinite += not bool(torch.isfinite(got).all())
+                if first is None:
+                    first = got
+                elif not torch.equal(got, first):
+                    differ += 1
+                err = max(err, (got.double() - want).abs().max().item())
+            print(f"[{b},{h},{s},{dh}] bf16 {name}: {n} calls, {differ} differ from the first, "
+                  f"{nonfinite} non-finite, max abs error {err:.2e} (ref max "
+                  f"{want.abs().max().item():.3g})", flush=True)
+        del args, want
+
+
+def main(argv) -> None:
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip())
+    n_repeats = 0
+    if argv[:1] == ["--repeats"]:
+        n_repeats, argv = int(argv[1]), argv[2:]
+    variants = dict(v.split("=", 1) if "=" in v else (v, PROBES[v]) for v in argv)
+    libs = {name: build(name, spec) for name, spec in variants.items()}
+    libs = [(name, lib) for name, lib in libs.items() if lib is not None]
+    if n_repeats:
+        repeats(libs, n_repeats)
+        return
+    for dtype in (torch.bfloat16, torch.float32):
+        args = inputs(8, 16, 499, 64, dtype)
+        want = relpos_flash.relpos_flash_attention_v2_plain(*args).double()
+        for name, lib in libs + libs[::-1]:
+            _build._lib = lib
+            got = relpos_flash.relpos_flash_attention_v2(*args).double()
+            err = (got - want).abs().max().item()
+            ms = timed(lambda: relpos_flash.relpos_flash_attention_v2(*args))
+            print(f"[8,16,499,64] {dtype} {name}: {ms:.4f} ms, max abs error {err:.2e}", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

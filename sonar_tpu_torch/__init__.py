@@ -20,25 +20,38 @@ Public entry points mirror ``sonar_tpu``'s:
 ``SpeechToTextModelPipeline(encoder, decoder, tokenizer).predict(...)``,
 ``MutoxSpeechClassifierPipeline(classifier, encoder).predict(...)``, and the
 BLASER, MuTox and LASER2 heads (``BlaserModel``, ``MutoxClassifier``,
-``LaserLstmEncoder``).
+``LaserLstmEncoder``), and the asset hub's loaders (``load_text_encoder``
+and the hub's other loaders). Every export is resolved on first use.
 """
 
 __version__ = "0.1.0"
 
-_PIPELINES = {
-    "TextToEmbeddingModelPipeline": "text",
-    "TorchTextEncoder": "text",
-    "TextToTextModelPipeline": "text",
-    "EmbeddingToTextModelPipeline": "text",
-    "SpeechToEmbeddingModelPipeline": "speech",
-    "SpeechToEmbeddingPipeline": "speech",
-    "SpeechToTextModelPipeline": "speech",
-    "SpeechToTextPipeline": "speech",
-    "SpeechInferenceParams": "speech",
-    "TorchSpeechEncoder": "speech",
-    "MutoxSpeechClassifierPipeline": "mutox_speech",
-}
-_MODULES = {  # other lazy exports: name -> module
+from sonar_tpu_torch._lazy import lazy_exports
+
+_HUB = "assets.hub"  # the asset hub's loaders, as ``sonar_tpu`` exports them
+_EXPORTS = {  # name -> module, relative to this package
+    "TextToEmbeddingModelPipeline": "inference_pipelines.text",
+    "TorchTextEncoder": "inference_pipelines.text",
+    "TextToTextModelPipeline": "inference_pipelines.text",
+    "EmbeddingToTextModelPipeline": "inference_pipelines.text",
+    "SpeechToEmbeddingModelPipeline": "inference_pipelines.speech",
+    "SpeechToEmbeddingPipeline": "inference_pipelines.speech",
+    "SpeechToTextModelPipeline": "inference_pipelines.speech",
+    "SpeechToTextPipeline": "inference_pipelines.speech",
+    "SpeechInferenceParams": "inference_pipelines.speech",
+    "TorchSpeechEncoder": "inference_pipelines.speech",
+    "MutoxSpeechClassifierPipeline": "inference_pipelines.mutox_speech",
+    "load_text_encoder": _HUB,
+    "load_text_decoder": _HUB,
+    "load_speech_encoder": _HUB,
+    "load_blaser_model": _HUB,
+    "load_mutox_model": _HUB,
+    "load_laser2_model": _HUB,
+    "load_tokenizer": _HUB,
+    "get_sonar_text_encoder_hub": _HUB,
+    "get_sonar_text_decoder_hub": _HUB,
+    "get_sonar_speech_encoder_hub": _HUB,
+    "get_text_tokenizer_hub": _HUB,
     "TorchTextDecoder": "generation.decoder_runtime",
     "TopPSampler": "generation.sampling",
     "TopKSampler": "generation.sampling",
@@ -47,15 +60,5 @@ _MODULES = {  # other lazy exports: name -> module
     "LaserLstmEncoder": "models.laser2_text",
     "Laser2Tokenizer": "tokenizers.laser2",
 }
-
-
-def __getattr__(name):
-    """Lazy imports keep ``import sonar_tpu_torch`` light."""
-    import importlib
-
-    if name in _PIPELINES:
-        module = importlib.import_module(f"sonar_tpu_torch.inference_pipelines.{_PIPELINES[name]}")
-        return getattr(module, name)
-    if name in _MODULES:
-        return getattr(importlib.import_module(f"sonar_tpu_torch.{_MODULES[name]}"), name)
-    raise AttributeError(f"module 'sonar_tpu_torch' has no attribute {name!r}")
+# Lazy imports keep ``import sonar_tpu_torch`` light.
+__getattr__ = lazy_exports(__name__, _EXPORTS)

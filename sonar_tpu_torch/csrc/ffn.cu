@@ -17,8 +17,12 @@
 //      dequantised, x.dtype-rounded partial, sums the partials in x.dtype
 //      and adds b2.
 // What bounds it: the two GEMMs (2 x 137 GOP at M = 8192, D = 1024,
-// F = 8192) are compute bound; the scratch round trip of h (M x F x 5
-// bytes written and read) is the memory cost a later fusion removes.
+// F = 8192) on the tensor cores, then the fp32 h: M x F x 4 bytes written
+// by step 2 and read by step 3 (with h_q, ~0.2 ms of device memory at that
+// shape). Both GEMMs run on the wgmma + TMA core of int8_gemm.cuh; h stays
+// fp32, since the second quantisation rounds fp32 h / s (storing h in bf16
+// would move values across int8 levels). Step 2's epilogue runs with two
+// blocks on an SM, so its h stores overlap the other block's products.
 #include "int8_gemm.cuh"
 
 extern "C" int sonar_fused_int8_ffn(const void* x, int x_kind, int M, int D, int F, int n_splits,

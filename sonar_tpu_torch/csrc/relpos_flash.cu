@@ -16,34 +16,55 @@
 // (65 GFLOP per layer at [8, 16, 499, 64], D 1024, against 4 for QK^T), and
 // the TPU kernel kept the whole [S, D] basis (4 MB in bf16 at S 2048) and a
 // (batch, head)'s K/V in VMEM, far past a block's 227 KB of shared memory.
-// Design: one block of 8 warps per (batch, head, 16 query rows). w for the
-// 16 rows (16 x D) stays in shared memory, and so do the 16 fp32 score rows
-// (128 KB at the gate's top, S 2048), so the softmax takes one pass over
-// the scores and bd is never recomputed. The basis and K stream from L2
-// (every block reads the same basis) straight into mma fragments. In bf16
-// the four products (z, bd, ac, P V) run on the tensor cores (mma.sync
-// m16n8k16, fp32 accumulation); the k order inside each 32-wide chunk is
-// permuted alike in both operands, so that every fragment load is 16
-// bytes. fp32 has no tensor-core path that keeps fp32: there, and for v1's
-// fp32 ac, the products are FMA loops. With 16 query rows a block reads the
-// basis once per 16 rows: the kernel is bound by L2 bandwidth on the basis
-// stream, not by the tensor cores; sharing the basis across more rows or
-// heads is later work.
+//
+// v2 in bf16, the Conformer's path (relpos_v2_rt_kernel): a block takes 64
+// query rows of one (batch, head), so that every basis tile it reads serves
+// 64 rows (16 rows a block, reading the basis from L2 straight into mma
+// fragments, moved ~5 GB through L2 a call at the speech shape). w [64, D]
+// (128 KB in bf16) stays in shared memory in the swizzled layout wgmma reads;
+// 64 fp32 score rows (512 KB at S 2048) do not fit beside it, so the scores
+// go to a workspace in device memory (32 KB a block per 128 keys, read back
+// by the thread that wrote it, mostly from L2). Pass 1 computes each score
+// once, stores it and keeps each row's running max and sum of exponentials;
+// pass 2 reads the scores back, forms P = exp(s - max) / sum, rounded to
+// bf16 in registers before P V, where the TPU kernel rounds it. The basis, K
+// and V stream through a ring of 16 KB slots that a producer warp fills by
+// TMA (mbarriers: full when a tile landed, empty when both blocks of a
+// cluster released it); the two blocks of a cluster load half of each tile
+// each, multicast into both. bd and ac run on wgmma (m64n64k16: w and the
+// tiles from shared memory, q + u from registers) into two accumulators,
+// added once as the TPU kernel adds them; z and P V on mma.sync, V through
+// ldmatrix.trans. What bounds it now: shared-memory bandwidth (each tile is
+// written by TMA and read by both warpgroups' wgmma, with w's rows: 48 KB
+// for 1 MFLOP).
+// One departure from the TPU kernel's rounding points: the row sum of
+// exp(s - max) is an online sum (each 128-key tile's share, rescaled when
+// the row's running max grows, then the two key halves' shares combined)
+// where the TPU kernel sums the whole row under its final max. The max,
+// each exponential and the division are the TPU kernel's; the sum may
+// differ from it in its last bits.
+//
+// v2 in fp32 has no tensor-core path that keeps fp32: three launches,
+// relpos_w_kernel (w [S, D] per head into the workspace), sgemm_nt_kernel
+// (bd = w basis^T on 128 x 128 tiles of FMAs, each basis value fetched once
+// per 128 query rows where a 16-row block fetched it once per 16) and the
+// v1 kernel on that bd.
+//
+// v1 (relpos_kernel): one block of 8 warps per (batch, head, 16 query
+// rows), the 16 fp32 score rows in shared memory (128 KB at S 2048), one
+// pass over the keys.
 #include <type_traits>
 
-#include "common.cuh"
+#include "attention.cuh"
+#include "hopper.cuh"
 
 constexpr int RP_BQ = 16;         // query rows per block: one m16 tile
 constexpr int RP_WARPS = 8;
 constexpr int RP_THREADS = 32 * RP_WARPS;
-constexpr int RP_KT = 32 * RP_WARPS;  // keys per score tile: 32 per warp
+constexpr int RP_KT = 32 * RP_WARPS;  // a score row's length is a multiple of this
 constexpr int RP_SPAD = 16;       // floats of padding after a score row
 constexpr int RP_QPAD = 4;        // floats of padding after a qu / qv row
 constexpr size_t RP_MAX_SMEM = 232448;
-
-template <typename T> struct RpPad;
-template <> struct RpPad<float> { static constexpr int w = 4; };
-template <> struct RpPad<bf16> { static constexpr int w = 32; };  // spreads 16-byte row loads over the banks
 
 struct RelposArgs {
   const void* q;
@@ -61,7 +82,9 @@ struct RelposArgs {
   const void* vb;     // v2: [H, Dh] v_bias
   const float* key_bias;  // [B, S] additive, or null
   void* out;          // [B, H, S, Dh] contiguous
+  float* work;        // v2: the workspace of one launch (bf16: scores; fp32: w, then bd)
   int H, S, D;
+  int b0;             // the launch's first batch row: blockIdx.z + b0 is the batch
   float scale;
 };
 
@@ -69,12 +92,8 @@ __host__ __device__ inline int rp_score_ld(int S) {
   return ((S + RP_KT - 1) / RP_KT) * RP_KT + RP_SPAD;
 }
 
-template <typename T, bool V2>
-static size_t rp_smem_bytes(int S, int Dh, int D) {
-  size_t bytes = sizeof(float) * RP_BQ * (size_t)rp_score_ld(S);  // scores, then P
-  bytes += sizeof(float) * 2 * RP_BQ * (size_t)(Dh + RP_QPAD);   // qu, qv
-  if (V2) bytes += sizeof(T) * RP_BQ * (size_t)(D + RpPad<T>::w);  // w
-  return bytes;
+static size_t rp_smem_bytes(int S, int Dh) {
+  return sizeof(float) * RP_BQ * ((size_t)rp_score_ld(S) + Dh + RP_QPAD);  // scores, q + u
 }
 
 // One 32-wide k chunk as two m16n8k16 products. Thread (g = lane / 4,
@@ -85,12 +104,6 @@ static size_t rp_smem_bytes(int S, int Dh, int D) {
 __device__ __forceinline__ void mma_k32(float (&c)[4], uint4 lo, uint4 hi, uint4 b) {
   mma_bf16(c, lo.x, hi.x, lo.y, hi.y, b.x, b.y);
   mma_bf16(c, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
-}
-
-// 8 floats (already bf16 values) -> one 16-byte bf16 fragment.
-__device__ __forceinline__ uint4 pack8(const float* p) {
-  return make_uint4(bf16x2_bits(p[0], p[1]), bf16x2_bits(p[2], p[3]), bf16x2_bits(p[4], p[5]),
-                    bf16x2_bits(p[6], p[7]));
 }
 
 __device__ __forceinline__ uint4 ldg16(const bf16* p) {
@@ -149,19 +162,18 @@ __device__ __forceinline__ float score_of(float ac, float bd, float scale, float
   return __fadd_rn(__fmul_rn(__fadd_rn(ac, bd), scale), kb);
 }
 
-template <typename T, bool V2, int DH>
-__global__ void __launch_bounds__(RP_THREADS) relpos_kernel(RelposArgs a) {
+// v1, and the last launch of v2 in fp32 (bd from its workspace). Two blocks
+// an SM (at most 128 registers a thread): at one, v1 ran 1.5x slower.
+template <typename T, int DH>
+__global__ void __launch_bounds__(RP_THREADS, 2) relpos_kernel(RelposArgs a) {
   constexpr bool BF = std::is_same<T, bf16>::value;
   constexpr int LDQ = DH + RP_QPAD;
   extern __shared__ __align__(16) unsigned char rp_smem[];
-  const int S = a.S, D = a.D, half = D / 2, lds = rp_score_ld(S);
-  const int ldw = D + RpPad<T>::w;
+  const int S = a.S, lds = rp_score_ld(S);
   float* Ss = reinterpret_cast<float*>(rp_smem);  // [16][lds] scores, then P in place
   float* QU = Ss + RP_BQ * lds;                    // [16][LDQ] q + u
-  float* QV = QU + RP_BQ * LDQ;                    // [16][LDQ] q + v_bias (v2)
-  T* Ws = reinterpret_cast<T*>(QV + RP_BQ * LDQ);  // [16][ldw] w (v2)
 
-  const int q0 = blockIdx.x * RP_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * RP_BQ, h = blockIdx.y, b = blockIdx.z + a.b0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const T* qb = reinterpret_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -169,153 +181,30 @@ __global__ void __launch_bounds__(RP_THREADS) relpos_kernel(RelposArgs a) {
   const T* vbase = reinterpret_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
   const float* kbias = a.key_bias ? a.key_bias + (long long)b * S : nullptr;
 
-  // Query rows plus the biases, in fp32; v2 rounds both to T as the TPU
-  // kernel does, v1 keeps q + u in fp32. Rows past S read as 0.
+  // Query rows plus u, in fp32 (rows past S read as 0).
   for (int e = tid; e < RP_BQ * DH; e += RP_THREADS) {
     const int r = e / DH, d = e - r * DH, i = q0 + r;
     const float qx = i < S ? to_float(qb[i * a.q_ss + d]) : 0.f;
-    const float qu = __fadd_rn(qx, to_float(reinterpret_cast<const T*>(a.u)[h * DH + d]));
-    QU[r * LDQ + d] = V2 ? round_to<T>(qu) : qu;
-    if (V2) {
-      const float qv = __fadd_rn(qx, to_float(reinterpret_cast<const T*>(a.vb)[h * DH + d]));
-      QV[r * LDQ + d] = round_to<T>(qv);
-    }
+    QU[r * LDQ + d] = __fadd_rn(qx, to_float(reinterpret_cast<const T*>(a.u)[h * DH + d]));
   }
   __syncthreads();
 
-  // -- w = rotate(qv Wr_h^T), [16, D], into shared memory (v2) -------------
-  if constexpr (V2) {
-    const T* wr = reinterpret_cast<const T*>(a.wr) + (long long)h * D * DH;
-    const T* si = reinterpret_cast<const T*>(a.si);
-    const T* ci = reinterpret_cast<const T*>(a.ci);
-    if constexpr (BF) {
-      uint4 alo[DH / 32], ahi[DH / 32];
+  // -- scores of the 16 rows against every key, into shared memory: bd read
+  // from the given [B, H, S, S] tensor (of this launch's batch rows), ac =
+  // (q + u) . k in fp32 -------------------------------------------------------
+  const T* bdb = reinterpret_cast<const T*>(a.bd) + ((long long)blockIdx.z * a.H + h) * S * S;
+  for (int j = tid; j < S; j += RP_THREADS) {
+    float bd[RP_BQ], ac[RP_BQ];
 #pragma unroll
-      for (int c = 0; c < DH / 32; ++c) {
-        alo[c] = pack8(QV + g * LDQ + 32 * c + 8 * t4);
-        ahi[c] = pack8(QV + (g + 8) * LDQ + 32 * c + 8 * t4);
-      }
-      // Warp tiles of 8 columns, paired with the tile half a row further so
-      // that z_s and z_c of one column meet in one thread's accumulators.
-      for (int p = warp; p < half / 8; p += RP_WARPS) {
-        float zs[4] = {0.f, 0.f, 0.f, 0.f}, zc[4] = {0.f, 0.f, 0.f, 0.f};
-        const T* w1 = wr + (long long)(p * 8 + g) * DH + 8 * t4;
-        const T* w2 = w1 + (long long)half * DH;
-#pragma unroll
-        for (int c = 0; c < DH / 32; ++c) {
-          mma_k32(zs, alo[c], ahi[c], ldg16(w1 + 32 * c));
-          mma_k32(zc, alo[c], ahi[c], ldg16(w2 + 32 * c));
-        }
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int row = g + 8 * rr, i = q0 + row, col = p * 8 + 2 * t4;
-          float s0 = 0.f, s1 = 0.f, c0 = 0.f, c1 = 0.f;
-          if (i < S) {
-            s0 = to_float(si[(long long)i * half + col]);
-            s1 = to_float(si[(long long)i * half + col + 1]);
-            c0 = to_float(ci[(long long)i * half + col]);
-            c1 = to_float(ci[(long long)i * half + col + 1]);
-          }
-          const int e = 2 * rr;
-          *reinterpret_cast<uint32_t*>(Ws + row * ldw + col) = bf16x2_bits(
-              rot_first(zs[e], zc[e], s0, c0), rot_first(zs[e + 1], zc[e + 1], s1, c1));
-          *reinterpret_cast<uint32_t*>(Ws + row * ldw + col + half) = bf16x2_bits(
-              rot_second(zs[e], zc[e], s0, c0), rot_second(zs[e + 1], zc[e + 1], s1, c1));
-        }
-      }
-    } else {
-      for (int dp = tid; dp < half; dp += RP_THREADS) {
-        float zs[RP_BQ], zc[RP_BQ];
-#pragma unroll
-        for (int r = 0; r < RP_BQ; ++r) zs[r] = zc[r] = 0.f;
-        fma_rows(zs, QV, LDQ, wr + (long long)dp * DH, DH);
-        fma_rows(zc, QV, LDQ, wr + (long long)(dp + half) * DH, DH);
-#pragma unroll
-        for (int r = 0; r < RP_BQ; ++r) {
-          const int i = q0 + r;
-          const float s = i < S ? to_float(si[(long long)i * half + dp]) : 0.f;
-          const float c = i < S ? to_float(ci[(long long)i * half + dp]) : 0.f;
-          Ws[r * ldw + dp] = rot_first(zs[r], zc[r], s, c);
-          Ws[r * ldw + dp + half] = rot_second(zs[r], zc[r], s, c);
-        }
-      }
+    for (int r = 0; r < RP_BQ; ++r) {
+      const int i = q0 + r;
+      bd[r] = i < S ? to_float(bdb[(long long)i * S + j]) : 0.f;
+      ac[r] = 0.f;
     }
-    __syncthreads();
-  }
-
-  // -- scores of the 16 rows against every key, into shared memory -----------
-  if constexpr (V2 && BF) {
-    const T* basis = reinterpret_cast<const T*>(a.basis);
-    uint4 ulo[DH / 32], uhi[DH / 32];
+    fma_rows(ac, QU, LDQ, kb + j * a.k_ss, DH);
+    const float kbj = kbias ? kbias[j] : 0.f;
 #pragma unroll
-    for (int c = 0; c < DH / 32; ++c) {
-      ulo[c] = pack8(QU + g * LDQ + 32 * c + 8 * t4);
-      uhi[c] = pack8(QU + (g + 8) * LDQ + 32 * c + 8 * t4);
-    }
-    const T* wlo = Ws + g * ldw + 8 * t4;
-    const T* whi = Ws + (g + 8) * ldw + 8 * t4;
-    for (int j0 = 0; j0 < S; j0 += RP_KT) {
-      const int jw = j0 + warp * 32;
-      if (jw >= S) continue;  // warp-uniform
-      float bd[4][4], ac[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) bd[nt][e] = ac[nt][e] = 0.f;
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll 2
-      for (int kc = 0; kc < D; kc += 32) {
-        const uint4 lo = *reinterpret_cast<const uint4*>(wlo + kc);
-        const uint4 hi = *reinterpret_cast<const uint4*>(whi + kc);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int j = jw + nt * 8 + g;
-          const uint4 bv = j < S ? ldg16(basis + (long long)j * D + kc + 8 * t4) : zero;
-          mma_k32(bd[nt], lo, hi, bv);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int j = jw + nt * 8 + g;
-#pragma unroll
-        for (int c = 0; c < DH / 32; ++c) {
-          const uint4 bv = j < S ? ldg16(kb + j * a.k_ss + 32 * c + 8 * t4) : zero;
-          mma_k32(ac[nt], ulo[c], uhi[c], bv);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = g + 8 * (e >> 1), j = jw + nt * 8 + 2 * t4 + (e & 1);
-          if (j < S) Ss[row * lds + j] = score_of(ac[nt][e], bd[nt][e], a.scale,
-                                                  kbias ? kbias[j] : 0.f);
-        }
-    }
-  } else {
-    // One key per thread, all 16 rows: bd from the w . basis FMA loop (v2,
-    // fp32) or read from the given tensor (v1); ac from (q + u) . k in fp32.
-    const T* bdb = V2 ? nullptr
-                      : reinterpret_cast<const T*>(a.bd) + ((long long)b * a.H + h) * S * S;
-    for (int j = tid; j < S; j += RP_THREADS) {
-      float bd[RP_BQ], ac[RP_BQ];
-#pragma unroll
-      for (int r = 0; r < RP_BQ; ++r) bd[r] = ac[r] = 0.f;
-      if constexpr (V2) {
-        fma_rows(bd, reinterpret_cast<const float*>(Ws), ldw,
-                 reinterpret_cast<const T*>(a.basis) + (long long)j * D, D);
-      } else {
-#pragma unroll
-        for (int r = 0; r < RP_BQ; ++r) {
-          const int i = q0 + r;
-          bd[r] = i < S ? to_float(bdb[(long long)i * S + j]) : 0.f;
-        }
-      }
-      fma_rows(ac, QU, LDQ, kb + j * a.k_ss, DH);
-      const float kbj = kbias ? kbias[j] : 0.f;
-#pragma unroll
-      for (int r = 0; r < RP_BQ; ++r) Ss[r * lds + j] = score_of(ac[r], bd[r], a.scale, kbj);
-    }
+    for (int r = 0; r < RP_BQ; ++r) Ss[r * lds + j] = score_of(ac[r], bd[r], a.scale, kbj);
   }
   __syncthreads();
 
@@ -404,29 +293,569 @@ __global__ void __launch_bounds__(RP_THREADS) relpos_kernel(RelposArgs a) {
   }
 }
 
-template <typename T, bool V2, int DH>
-static cudaError_t launch_relpos(const RelposArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = rp_smem_bytes<T, V2>(a.S, DH, a.D);
-  if (smem > RP_MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = allow_dynamic_smem(relpos_kernel<T, V2, DH>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.S + RP_BQ - 1) / RP_BQ, a.H, B);
-  relpos_kernel<T, V2, DH><<<grid, RP_THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
+// -- v2 in fp32: w, then bd = w basis^T, then the v1 kernel --------------------------
+
+// w = rotate((q + v_bias) Wr_h^T) of 16 query rows, in fp32, into the
+// workspace as [batch row of the launch, H, S, D].
+template <int DH>
+__global__ void __launch_bounds__(RP_THREADS) relpos_w_kernel(RelposArgs a) {
+  constexpr int LDQ = DH + RP_QPAD;
+  __shared__ __align__(16) float QV[RP_BQ * LDQ];
+  const int S = a.S, D = a.D, half = D / 2;
+  const int q0 = blockIdx.x * RP_BQ, h = blockIdx.y, b = blockIdx.z + a.b0;
+  const float* qb = reinterpret_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* vb = reinterpret_cast<const float*>(a.vb) + h * DH;
+  for (int e = threadIdx.x; e < RP_BQ * DH; e += RP_THREADS) {
+    const int r = e / DH, d = e - r * DH, i = q0 + r;
+    QV[r * LDQ + d] = i < S ? __fadd_rn(qb[i * a.q_ss + d], vb[d]) : 0.f;
+  }
+  __syncthreads();
+  const float* wr = reinterpret_cast<const float*>(a.wr) + (long long)h * D * DH;
+  const float* si = reinterpret_cast<const float*>(a.si);
+  const float* ci = reinterpret_cast<const float*>(a.ci);
+  float* w = a.work + ((long long)blockIdx.z * a.H + h) * S * D;
+  for (int dp = threadIdx.x; dp < half; dp += RP_THREADS) {
+    float zs[RP_BQ], zc[RP_BQ];
+#pragma unroll
+    for (int r = 0; r < RP_BQ; ++r) zs[r] = zc[r] = 0.f;
+    fma_rows(zs, QV, LDQ, wr + (long long)dp * DH, DH);
+    fma_rows(zc, QV, LDQ, wr + (long long)(dp + half) * DH, DH);
+#pragma unroll
+    for (int r = 0; r < RP_BQ; ++r) {
+      const int i = q0 + r;
+      if (i < S) {
+        const float s = si[(long long)i * half + dp], c = ci[(long long)i * half + dp];
+        w[(long long)i * D + dp] = rot_first(zs[r], zc[r], s, c);
+        w[(long long)i * D + dp + half] = rot_second(zs[r], zc[r], s, c);
+      }
+    }
+  }
 }
 
-template <bool V2>
-static cudaError_t dispatch_relpos(const RelposArgs& a, int B, int Dh, int kind,
-                                   cudaStream_t st) {
-  if (a.S < 1 || (V2 && (a.D < 64 || a.D % 64 != 0))) return cudaErrorInvalidValue;
-  if (kind == KIND_BF16) {
-    if (Dh == 64) return launch_relpos<bf16, V2, 64>(a, B, st);
-    if (Dh == 128) return launch_relpos<bf16, V2, 128>(a, B, st);
-  } else {
-    if (Dh == 64) return launch_relpos<float, V2, 64>(a, B, st);
-    if (Dh == 128) return launch_relpos<float, V2, 128>(a, B, st);
+constexpr int SG_BM = 128;  // C tile: 128 x 128, 8 x 8 a thread
+constexpr int SG_BK = 8;
+constexpr int SG_THREADS = 256;
+
+// C [M, N] = A [M, K] B [N, K]^T in fp32, each C value one fma chain over k
+// in order (as the FMA loop it replaces). Batched over blockIdx.z: A and C
+// advance by a_batch and c_batch elements, B is shared. K % 8 == 0. Tiles
+// of A and B go through registers into shared memory transposed ([k][row]),
+// double-buffered; thread (ty, tx) takes rows {4 ty, 64 + 4 ty} + 0..3 and
+// columns {4 tx, 64 + 4 tx} + 0..3.
+__global__ void __launch_bounds__(SG_THREADS) sgemm_nt_kernel(const float* A, const float* B,
+                                                              float* C, int M, int N, int K,
+                                                              long long a_batch,
+                                                              long long c_batch) {
+  __shared__ __align__(16) float As[2][SG_BK][SG_BM];
+  __shared__ __align__(16) float Bs[2][SG_BK][SG_BM];
+  A += blockIdx.z * a_batch;
+  C += blockIdx.z * c_batch;
+  const int m0 = blockIdx.y * SG_BM, n0 = blockIdx.x * SG_BM, tid = threadIdx.x;
+  const int lr = tid >> 1, lk = (tid & 1) * 4;  // the float4 this thread loads
+  const bool a_in = m0 + lr < M, b_in = n0 + lr < N;
+  const float* ap = A + (long long)(a_in ? m0 + lr : 0) * K + lk;
+  const float* bp = B + (long long)(b_in ? n0 + lr : 0) * K + lk;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto stage = [&](int buf, float4 x, float4 y) {
+    As[buf][lk][lr] = x.x; As[buf][lk + 1][lr] = x.y; As[buf][lk + 2][lr] = x.z; As[buf][lk + 3][lr] = x.w;
+    Bs[buf][lk][lr] = y.x; Bs[buf][lk + 1][lr] = y.y; Bs[buf][lk + 2][lr] = y.z; Bs[buf][lk + 3][lr] = y.w;
+  };
+  float4 ra = a_in ? __ldg(reinterpret_cast<const float4*>(ap)) : zero;
+  float4 rb = b_in ? __ldg(reinterpret_cast<const float4*>(bp)) : zero;
+  stage(0, ra, rb);
+  __syncthreads();
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += SG_BK) {
+    const int cur = (k0 / SG_BK) & 1;
+    const bool more = k0 + SG_BK < K;
+    if (more) {
+      ra = a_in ? __ldg(reinterpret_cast<const float4*>(ap + k0 + SG_BK)) : zero;
+      rb = b_in ? __ldg(reinterpret_cast<const float4*>(bp + k0 + SG_BK)) : zero;
+    }
+#pragma unroll
+    for (int kk = 0; kk < SG_BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][4 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + 4 * tx]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) stage(cur ^ 1, ra, rb);
+    __syncthreads();
   }
-  return cudaErrorInvalidValue;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+      if (n < N) C[(long long)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+// -- v2 in bf16: the tensor-core kernel ---------------------------------------------
+
+constexpr int RT_BQ = 64;                 // query rows of a block: 4 row groups of 16
+constexpr int RT_C = 2;                   // blocks of a cluster: consecutive row blocks of a head
+constexpr int RT_KT = 128;                // keys of a tile
+constexpr int RT_ITEM = RT_KT * 128;      // one ring slot: 128 keys x 128 bytes (64 bf16)
+constexpr int RT_SLICE = RT_ITEM / RT_C;  // the part of a slot each block of the cluster loads
+constexpr int RT_ST = 4;                  // ring slots
+constexpr int RT_THREADS = RP_THREADS + 32;  // 8 consumer warps + the producer warp
+
+__host__ __device__ inline int rt_keys(int S) { return (S + RT_KT - 1) / RT_KT * RT_KT; }
+
+static size_t rt_smem(int S, int D) {
+  return (size_t)RT_ST * RT_ITEM + sizeof(bf16) * RT_BQ * (size_t)D +
+         sizeof(float2) * 2 * RT_BQ + sizeof(float) * rt_keys(S) + 2 * RT_ST * sizeof(uint64_t) +
+         1024;
+}
+
+// Row `row` (0..127), 16-byte chunk `chunk` (0..7) of a ring slot, where
+// TMA's 128-byte swizzle put it.
+__device__ __forceinline__ const void* rt_at(const unsigned char* slot, int row, int chunk) {
+  return slot + row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// Element (row, col) of w [64, D] in shared memory, laid out for wgmma's A
+// operand as TMA lays out a K-major tile: column blocks of 64 (64 rows x
+// 128 bytes, 8 KB apart), the 16-byte chunks of a row swizzled by row % 8.
+__device__ __forceinline__ bf16* rt_w_at(bf16* Ws, int row, int col) {
+  return Ws + (col >> 6) * (RT_BQ * 64) + row * 64 + ((((col >> 3) & 7) ^ (row & 7)) << 3) +
+         (col & 7);
+}
+
+__device__ __forceinline__ void consumer_sync() {  // the 8 consumer warps only
+  asm volatile("bar.sync 1, %0;\n" :: "n"(RP_THREADS) : "memory");
+}
+
+// exp(m - n) for a running maximum m that may still be -inf.
+__device__ __forceinline__ float rescale(float m, float n) {
+  return m == -INFINITY ? 0.f : expf(m - n);
+}
+
+// One block of 8 consumer warps and a producer warp per (batch, head, 64
+// query rows); warp (rg, kh) takes rows 16 rg .. 16 rg + 15 and keys
+// 64 kh .. 64 kh + 63 of every 128-key tile. Pass 1 computes the scores,
+// stores them in the workspace (a.work, 32 KB a block per 128 keys) and
+// keeps each row's max and sum of exponentials; pass 2 reads them back,
+// forms P = exp(s - max) / sum rounded to bf16 in registers (the A fragments
+// of P V) and multiplies V. The basis, K and V stream through a ring of 16 KB slots (128 keys x 64
+// columns, TMA with the 128-byte swizzle, read with ldmatrix); each block of
+// a cluster loads its share of a tile, multicast into both blocks' slots. A
+// slot is refilled when all 16 consumer warps of the cluster released it.
+template <int DH>
+__global__ void __cluster_dims__(RT_C, 1, 1) __launch_bounds__(RT_THREADS, 1)
+    relpos_v2_rt_kernel(const __grid_constant__ CUtensorMap map_basis,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v, RelposArgs a) {
+  extern __shared__ unsigned char rt_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(rt_raw) + 1023) & ~(uintptr_t)1023);
+  const int S = a.S, D = a.D, half = D / 2;
+  bf16* Ws = reinterpret_cast<bf16*>(ring + RT_ST * RT_ITEM);  // w, [64, D] (rt_w_at)
+  float2* stats = reinterpret_cast<float2*>(Ws + RT_BQ * D);   // [2 key halves][64] (max, sum)
+  float* kbs = reinterpret_cast<float*>(stats + 2 * RT_BQ);      // key bias; -inf past S
+  uint64_t* full = reinterpret_cast<uint64_t*>(kbs + rt_keys(S));
+  uint64_t* empty = full + RT_ST;
+
+  const int q0 = blockIdx.x * RT_BQ, h = blockIdx.y, b = blockIdx.z + a.b0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    for (int s = 0; s < RT_ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, RP_WARPS * RT_C);
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();  // every block's barriers are set before any multicast lands
+
+  if (warp == RP_WARPS) {
+    // The producer: the tiles in the order the consumers take them. Pass 1,
+    // per 128 keys: D / 64 basis tiles and DH / 64 K tiles; pass 2: DH / 64
+    // V tiles. Keys past S are TMA's zero fill.
+    if (lane == 0) {
+      const int rank = (int)cluster_rank();
+      int item = 0;
+      auto issue = [&](const CUtensorMap* map, int col, int key0, int c2, int c3) {
+        const int s = item % RT_ST;
+        if (item >= RT_ST) mbar_wait(empty + s, (item / RT_ST - 1) & 1);
+        mbar_expect_tx(full + s, RT_ITEM);
+        tma_load_4d_multicast(ring + s * RT_ITEM + rank * RT_SLICE, map, full + s, col,
+                              key0 + rank * (RT_KT / RT_C), c2, c3, (1 << RT_C) - 1);
+        ++item;
+      };
+      for (int j0 = 0; j0 < S; j0 += RT_KT) {
+        for (int c = 0; c < D; c += 64) issue(&map_basis, c, j0, 0, 0);
+        for (int e = 0; e < DH; e += 64) issue(&map_k, e, j0, h, b);
+      }
+      for (int j0 = 0; j0 < S; j0 += RT_KT)
+        for (int e = 0; e < DH; e += 64) issue(&map_v, e, j0, h, b);
+    }
+  } else {
+    const int g = lane >> 2, t4 = lane & 3, mat = lane >> 3;
+    const int rg = warp & 3, kh = warp >> 2;
+    const int r_lo = q0 + 16 * rg + g, r_hi = r_lo + 8;  // this thread's query rows
+    const bf16* qb = reinterpret_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const bf16* ub = reinterpret_cast<const bf16*>(a.u) + h * DH;
+    const bf16* vbb = reinterpret_cast<const bf16*>(a.vb) + h * DH;
+    const float* kbias = a.key_bias ? a.key_bias + (long long)b * S : nullptr;
+    int item = 0;
+    auto take = [&](int& s) {  // wait for the next tile; its slot index in s
+      s = item % RT_ST;
+      mbar_wait(full + s, (item / RT_ST) & 1);
+      ++item;
+      return ring + s * RT_ITEM;
+    };
+    auto release = [&](int s) {  // lane r tells block r of the cluster
+      __syncwarp();
+      if (lane < RT_C) mbar_arrive_cluster(empty + s, lane);
+    };
+    // Columns d, d + 1 of (q + bias) in row i, rounded to bf16 as the TPU
+    // kernel rounds them (rows past S read as 0), as one bf16x2 register.
+    auto qpair = [&](int i, int d, const bf16* bias) {
+      const float x0 = i < S ? to_float(qb[(long long)i * a.q_ss + d]) : 0.f;
+      const float x1 = i < S ? to_float(qb[(long long)i * a.q_ss + d + 1]) : 0.f;
+      return bf16x2_bits(__fadd_rn(x0, to_float(bias[d])), __fadd_rn(x1, to_float(bias[d + 1])));
+    };
+
+    for (int j = tid; j < rt_keys(S); j += RP_THREADS)
+      kbs[j] = j >= S ? -INFINITY : kbias ? kbias[j] : 0.f;
+
+    // -- w = rotate(qv Wr_h^T), [64, D], into shared memory ------------------
+    {
+      const bf16* wr = reinterpret_cast<const bf16*>(a.wr) + (long long)h * D * DH;
+      const bf16* si = reinterpret_cast<const bf16*>(a.si);
+      const bf16* ci = reinterpret_cast<const bf16*>(a.ci);
+      uint4 alo[DH / 32], ahi[DH / 32];
+#pragma unroll
+      for (int c = 0; c < DH / 32; ++c) {
+        const int d = 32 * c + 8 * t4;
+        alo[c] = make_uint4(qpair(r_lo, d, vbb), qpair(r_lo, d + 2, vbb), qpair(r_lo, d + 4, vbb),
+                            qpair(r_lo, d + 6, vbb));
+        ahi[c] = make_uint4(qpair(r_hi, d, vbb), qpair(r_hi, d + 2, vbb), qpair(r_hi, d + 4, vbb),
+                            qpair(r_hi, d + 6, vbb));
+      }
+      // Tiles of 8 columns, paired with the tile half a row further so that
+      // z_s and z_c of one column meet in one thread's accumulators.
+#pragma unroll 4
+      for (int p = kh; p < half / 8; p += 2) {
+        float zs[4] = {0.f, 0.f, 0.f, 0.f}, zc[4] = {0.f, 0.f, 0.f, 0.f};
+        const bf16* w1 = wr + (long long)(p * 8 + g) * DH + 8 * t4;
+        const bf16* w2 = w1 + (long long)half * DH;
+#pragma unroll
+        for (int c = 0; c < DH / 32; ++c) {
+          mma_k32(zs, alo[c], ahi[c], ldg16(w1 + 32 * c));
+          mma_k32(zc, alo[c], ahi[c], ldg16(w2 + 32 * c));
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int row = 16 * rg + g + 8 * rr, i = q0 + row, col = p * 8 + 2 * t4;
+          float s0 = 0.f, s1 = 0.f, c0 = 0.f, c1 = 0.f;
+          if (i < S) {
+            s0 = to_float(si[(long long)i * half + col]);
+            s1 = to_float(si[(long long)i * half + col + 1]);
+            c0 = to_float(ci[(long long)i * half + col]);
+            c1 = to_float(ci[(long long)i * half + col + 1]);
+          }
+          const int e = 2 * rr;
+          *reinterpret_cast<uint32_t*>(rt_w_at(Ws, row, col)) = bf16x2_bits(
+              rot_first(zs[e], zc[e], s0, c0), rot_first(zs[e + 1], zc[e + 1], s1, c1));
+          *reinterpret_cast<uint32_t*>(rt_w_at(Ws, row, col + half)) = bf16x2_bits(
+              rot_second(zs[e], zc[e], s0, c0), rot_second(zs[e + 1], zc[e + 1], s1, c1));
+        }
+      }
+      fence_proxy_async();  // w is read by wgmma
+    }
+    // (q + u) as the A fragments of ac, k = head dim.
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int d = 16 * kk + 2 * t4;
+      qa[kk][0] = qpair(r_lo, d, ub);
+      qa[kk][1] = qpair(r_hi, d, ub);
+      qa[kk][2] = qpair(r_lo, d + 8, ub);
+      qa[kk][3] = qpair(r_hi, d + 8, ub);
+    }
+    consumer_sync();
+
+    // -- the scores of one key tile, on wgmma: warpgroup kh multiplies all 64
+    // rows by its 64 keys. bd = w . basis_j (both from shared memory) and
+    // ac = (q + u) . k_j (q + u from registers), each in its own fp32
+    // accumulator, then (ac + bd) * scale + key bias (-inf past S).
+    // acc[nt][e]: row 16 rg + g + 8 (e / 2), key j0 + 64 kh + 8 nt + 2 t4 + e % 2.
+    const uint32_t w_base = smem_u32(Ws);
+    auto scores = [&](int j0, float (&acc)[8][4]) {
+      int prev = -1;
+      auto consume = [&](int s) {  // this tile's products issued: free the one before
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (prev >= 0) release(prev);
+        prev = s;
+      };
+      for (int c = 0; c < D; c += 64) {
+        int s;
+        const unsigned char* slot = take(s);
+        const uint32_t b_base = smem_u32(slot) + kh * 64 * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16_m64n64k16_ss(acc, wgmma_desc_sw128(w_base + c * RT_BQ * 2 + kk * 32),
+                                  wgmma_desc_sw128(b_base + kk * 32), c > 0 || kk > 0);
+        consume(s);
+      }
+      float ac[8][4];
+#pragma unroll
+      for (int e = 0; e < DH / 64; ++e) {
+        int s;
+        const unsigned char* slot = take(s);
+        const uint32_t b_base = smem_u32(slot) + kh * 64 * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_bf16_m64n64k16_rs(ac, qa[4 * e + kk], wgmma_desc_sw128(b_base + kk * 32),
+                                  e > 0 || kk > 0);
+        consume(s);
+      }
+      wgmma_wait<0>();
+      release(prev);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 kb = *reinterpret_cast<const float2*>(kbs + j0 + 64 * kh + 8 * nt + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[nt][e] = score_of(ac[nt][e], acc[nt][e], a.scale, e & 1 ? kb.y : kb.x);
+      }
+    };
+
+    // This thread's scores in the workspace: per 128-key tile, float4 nt of
+    // lane `lane` of warp `warp` (its acc[nt]), written and read by it alone.
+    const long long blk = ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    float4* mine = reinterpret_cast<float4*>(a.work) +
+                   (blk * (rt_keys(S) / RT_KT) * RP_WARPS + warp) * 8 * 32 + lane;
+    auto tile_at = [&](int j0) { return mine + (j0 / RT_KT) * RP_WARPS * 8 * 32; };
+
+    // -- pass 1: the scores, stored; each row's max and sum of exp(s - max),
+    // online ------------------------------------------------------------------
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
+    for (int j0 = 0; j0 < S; j0 += RT_KT) {
+      float acc[8][4];
+      scores(j0, acc);
+      float4* st = tile_at(j0);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        __stcg(st + nt * 32, make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]));
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float n = m[rr];
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) n = fmaxf(n, fmaxf(acc[nt][2 * rr], acc[nt][2 * rr + 1]));
+        float sum = l[rr] * rescale(m[rr], n);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          sum += expf(acc[nt][2 * rr] - n) + expf(acc[nt][2 * rr + 1] - n);
+        m[rr] = n;
+        l[rr] = sum;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {  // the quad's four lanes hold other keys of the row
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[rr], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[rr], o);
+        const float n = fmaxf(m[rr], mo);
+        l[rr] = l[rr] * rescale(m[rr], n) + lo * rescale(mo, n);
+        m[rr] = n;
+      }
+      if (t4 == 0) stats[kh * RT_BQ + 16 * rg + g + 8 * rr] = make_float2(m[rr], l[rr]);
+    }
+    consumer_sync();
+    float rl[2];  // 1 / sum, correctly rounded (tc_normalise divides with it)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {  // both key halves: the row's max and sum
+      const float2 s0 = stats[16 * rg + g + 8 * rr], s1 = stats[RT_BQ + 16 * rg + g + 8 * rr];
+      m[rr] = fmaxf(s0.x, s1.x);
+      l[rr] = s0.y * rescale(s0.x, m[rr]) + s1.y * rescale(s1.x, m[rr]);
+      rl[rr] = __frcp_rn(l[rr]);
+    }
+
+    // -- pass 2: the scores read back; P = exp(s - max) / sum, true division,
+    // rounded to bf16; P V in fp32 over this warp's keys. The scores are read
+    // at the top of the iteration (reading the next tile's ahead, while this
+    // one's P V runs, gains no speed). ------------------------------------------
+    float o[DH / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+    for (int j0 = 0; j0 < S; j0 += RT_KT) {
+      float acc[8][4];
+      const float4* ld = tile_at(j0);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float4 x = __ldcg(ld + nt * 32);
+        acc[nt][0] = x.x; acc[nt][1] = x.y; acc[nt][2] = x.z; acc[nt][3] = x.w;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = expf(acc[nt][e] - m[e >> 1]);
+      tc_normalise(acc, l, rl);  // as __fdiv_rn rounds, bit for bit
+      uint32_t pa[4][4];  // k16 step kk: keys 16 kk .. of this warp's 64
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int hl = 0; hl < 2; ++hl)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const float* c = acc[2 * kk + hl] + 2 * rr;
+            pa[kk][2 * hl + rr] = bf16x2_bits(c[0], c[1]);
+          }
+#pragma unroll
+      for (int e = 0; e < DH / 64; ++e) {
+        int s;
+        const unsigned char* slot = take(s);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {  // V's B fragments: keys along k, ldmatrix.trans
+            uint32_t vf[4];
+            ldmatrix_x4_trans(vf, rt_at(slot, 64 * kh + 16 * kk + (mat & 1) * 8 + (lane & 7),
+                                        2 * np + (mat >> 1)));
+            mma_bf16(o[8 * e + 2 * np], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3], vf[0], vf[1]);
+            mma_bf16(o[8 * e + 2 * np + 1], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3], vf[2],
+                     vf[3]);
+          }
+        release(s);
+      }
+    }
+
+    // -- the two key halves' sums, then the output rounded to bf16 -------------
+    consumer_sync();  // every tile has landed and been read: the ring is free
+    float* part = reinterpret_cast<float*>(ring);  // [64 rows][DH], key half 1
+    const int row_lo = 16 * rg + g;
+    if (kh == 1) {
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          part[(row_lo + 8 * (e >> 1)) * DH + 8 * nt + 2 * t4 + (e & 1)] = o[nt][e];
+    }
+    consumer_sync();
+    if (kh == 0) {
+      bf16* ob = reinterpret_cast<bf16*>(a.out) + ((long long)b * a.H + h) * S * DH;
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int row = row_lo + 8 * rr, i = q0 + row, col = 8 * nt + 2 * t4;
+          if (i < S)
+            *reinterpret_cast<uint32_t*>(ob + (long long)i * DH + col) =
+                bf16x2_bits(__fadd_rn(o[nt][2 * rr], part[row * DH + col]),
+                            __fadd_rn(o[nt][2 * rr + 1], part[row * DH + col + 1]));
+        }
+    }
+  }
+  cluster_sync();  // no block leaves while its peer may still write to it
+}
+
+// The tile maps of the basis [S, D] and of K, V [B, H, S, Dh] (any strides
+// that are multiples of 8), boxes of 64 columns x RT_KT / RT_C rows.
+static bool rt_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                   uint64_t heads, uint64_t batch, long long ss, long long sh, long long sb) {
+  const uint64_t dims[4] = {cols, rows, heads, batch};
+  const uint64_t strides[3] = {(uint64_t)ss * 2, (uint64_t)sh * 2, (uint64_t)sb * 2};
+  const uint32_t box[4] = {64, RT_KT / RT_C, 1, 1};
+  return tma_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, dims, strides, box);
+}
+
+// Workspace bytes of one batch row of a v2 launch: in bf16 the scores of
+// its blocks, in fp32 w [H, S, D] and bd [H, S, S].
+static long long v2_work_per_batch(int H, int S, int D, int kind) {
+  if (kind == KIND_BF16) {
+    const long long blocks_x = ((S + RT_BQ - 1) / RT_BQ + RT_C - 1) / RT_C * RT_C;
+    return blocks_x * H * (rt_keys(S) / RT_KT) * (long long)(RP_WARPS * 8 * 32 * sizeof(float4));
+  }
+  return (long long)H * S * (D + S) * (long long)sizeof(float);
+}
+
+// The batch in chunks whose workspace fits in work_bytes: launch(a, rows)
+// for each, a.b0 its first batch row.
+template <typename F>
+static cudaError_t by_chunks(RelposArgs a, int B, long long work_bytes, int kind, F launch) {
+  const long long fit = work_bytes / v2_work_per_batch(a.H, a.S, a.D, kind);
+  if (fit < 1) return cudaErrorInvalidValue;
+  const int chunk = (int)(fit < B ? fit : B);
+  for (a.b0 = 0; a.b0 < B; a.b0 += chunk) {
+    const cudaError_t err = launch(a, chunk < B - a.b0 ? chunk : B - a.b0);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int DH>
+static cudaError_t launch_relpos_v2_rt(const RelposArgs& args, int B, long long work_bytes,
+                                       cudaStream_t stream) {
+  const size_t smem = rt_smem(args.S, args.D);
+  if (smem > RP_MAX_SMEM) return cudaErrorInvalidValue;
+  const long long plane = (long long)args.S * args.D;
+  CUtensorMap mb, mk, mv;
+  if (!rt_map(&mb, args.basis, args.D, args.S, 1, 1, args.D, plane, plane) ||
+      !rt_map(&mk, args.k, DH, args.S, args.H, B, args.k_ss, args.k_sh, args.k_sb) ||
+      !rt_map(&mv, args.v, DH, args.S, args.H, B, args.v_ss, args.v_sh, args.v_sb))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_dynamic_smem(relpos_v2_rt_kernel<DH>, smem);
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (args.S + RT_BQ - 1) / RT_BQ;
+  return by_chunks(args, B, work_bytes, KIND_BF16, [&](const RelposArgs& a, int rows) {
+    dim3 grid((row_blocks + RT_C - 1) / RT_C * RT_C, a.H, rows);
+    relpos_v2_rt_kernel<DH><<<grid, RT_THREADS, smem, stream>>>(mb, mk, mv, a);
+    return cudaGetLastError();
+  });
+}
+
+template <int DH>
+static cudaError_t launch_relpos_v2_f32(const RelposArgs& args, int B, long long work_bytes,
+                                        cudaStream_t stream) {
+  const size_t smem = rp_smem_bytes(args.S, DH);
+  if (smem > RP_MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = allow_dynamic_smem(relpos_kernel<float, DH>, smem);
+  if (err != cudaSuccess) return err;
+  return by_chunks(args, B, work_bytes, KIND_F32, [&](RelposArgs a, int rows) {
+    const int S = a.S, row_blocks = (S + RP_BQ - 1) / RP_BQ, tiles = (S + SG_BM - 1) / SG_BM;
+    float* bd = a.work + (long long)rows * a.H * S * a.D;
+    relpos_w_kernel<DH><<<dim3(row_blocks, a.H, rows), RP_THREADS, 0, stream>>>(a);
+    sgemm_nt_kernel<<<dim3(tiles, tiles, rows * a.H), SG_THREADS, 0, stream>>>(
+        a.work, reinterpret_cast<const float*>(a.basis), bd, S, S, a.D, (long long)S * a.D,
+        (long long)S * S);
+    a.bd = bd;
+    relpos_kernel<float, DH><<<dim3(row_blocks, a.H, rows), RP_THREADS, smem, stream>>>(a);
+    return cudaGetLastError();
+  });
+}
+
+template <typename T, int DH>
+static cudaError_t launch_relpos(const RelposArgs& a, int B, cudaStream_t stream) {
+  const size_t smem = rp_smem_bytes(a.S, DH);
+  if (smem > RP_MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = allow_dynamic_smem(relpos_kernel<T, DH>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.S + RP_BQ - 1) / RP_BQ, a.H, B);
+  relpos_kernel<T, DH><<<grid, RP_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 static RelposArgs relpos_args(const void* q, const void* k, const void* v, const void* u,
@@ -448,19 +877,36 @@ static RelposArgs relpos_args(const void* q, const void* k, const void* v, const
   return a;
 }
 
+extern "C" int sonar_relpos_v2_workspace(int H, int S, int D, int kind, long long* per_batch) {
+  if (H < 1 || S < 1 || D < 64) return cudaErrorInvalidValue;
+  *per_batch = v2_work_per_batch(H, S, D, kind);
+  return cudaSuccess;
+}
+
 extern "C" int sonar_relpos_flash_v2(const void* q, const void* k, const void* v,
                                      const void* wr, const void* si, const void* ci,
                                      const void* basis, const void* u, const void* vb,
-                                     const float* key_bias, void* out, int B, int H, int S,
-                                     int Dh, int D, long long q_sb, long long q_sh,
-                                     long long q_ss, long long k_sb, long long k_sh,
-                                     long long k_ss, long long v_sb, long long v_sh,
-                                     long long v_ss, int kind, void* stream) {
+                                     const float* key_bias, void* out, float* work,
+                                     long long work_bytes, int B, int H, int S, int Dh, int D,
+                                     long long q_sb, long long q_sh, long long q_ss,
+                                     long long k_sb, long long k_sh, long long k_ss,
+                                     long long v_sb, long long v_sh, long long v_ss, int kind,
+                                     void* stream) {
   RelposArgs a = relpos_args(q, k, v, u, key_bias, out, H, S, Dh, q_sb, q_sh, q_ss, k_sb, k_sh,
                              k_ss, v_sb, v_sh, v_ss);
   a.wr = wr; a.si = si; a.ci = ci; a.basis = basis; a.vb = vb;
   a.D = D;
-  return dispatch_relpos<true>(a, B, Dh, kind, (cudaStream_t)stream);
+  a.work = work;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (S < 1 || D < 64 || D % 64 != 0 || work == nullptr) return cudaErrorInvalidValue;
+  if (kind == KIND_BF16) {
+    if (Dh == 64) return launch_relpos_v2_rt<64>(a, B, work_bytes, st);
+    if (Dh == 128) return launch_relpos_v2_rt<128>(a, B, work_bytes, st);
+  } else {
+    if (Dh == 64) return launch_relpos_v2_f32<64>(a, B, work_bytes, st);
+    if (Dh == 128) return launch_relpos_v2_f32<128>(a, B, work_bytes, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int sonar_relpos_flash_v1(const void* q, const void* k, const void* v,
@@ -472,6 +918,14 @@ extern "C" int sonar_relpos_flash_v1(const void* q, const void* k, const void* v
   RelposArgs a = relpos_args(q, k, v, u, key_bias, out, H, S, Dh, q_sb, q_sh, q_ss, k_sb, k_sh,
                              k_ss, v_sb, v_sh, v_ss);
   a.bd = bd;
-  a.D = 0;
-  return dispatch_relpos<false>(a, B, Dh, kind, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (S < 1) return cudaErrorInvalidValue;
+  if (kind == KIND_BF16) {
+    if (Dh == 64) return launch_relpos<bf16, 64>(a, B, st);
+    if (Dh == 128) return launch_relpos<bf16, 128>(a, B, st);
+  } else {
+    if (Dh == 64) return launch_relpos<float, 64>(a, B, st);
+    if (Dh == 128) return launch_relpos<float, 128>(a, B, st);
+  }
+  return cudaErrorInvalidValue;
 }

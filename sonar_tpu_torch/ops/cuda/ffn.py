@@ -84,8 +84,9 @@ def _fused_ffn_impl(x, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
     m, d = x.shape
     f = w1_q.shape[-1]
     require(d % 128 == 0 and f % 128 == 0, f"D={d} and F={f} must be multiples of 128")
-    require(f % n_splits == 0 and (f // n_splits) % 64 == 0,
-            f"F={f} must split into {n_splits} multiples of 64")
+    # The GEMMs step through K 128 bytes at a time; a split ends on a step.
+    require(f % n_splits == 0 and (f // n_splits) % 128 == 0,
+            f"F={f} must split into {n_splits} multiples of 128")
     dev = x.device
     check_cuda("x", x, dev)
     check_cuda("w1_q", w1_q, dev, torch.int8, (d, f), col_major=True)

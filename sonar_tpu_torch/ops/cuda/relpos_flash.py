@@ -21,6 +21,7 @@ masked rows average over the padded length; such rows are discarded.)
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 from sonar_tpu_torch.ops import _build
@@ -31,6 +32,9 @@ import torch
 LAUNCHES = 0      # relpos_flash_attention_v2 kernel launches
 V1_LAUNCHES = 0   # relpos_flash_attention kernel launches
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
+# v2's workspace (bf16: the scores; fp32: w and bd) is at most this large,
+# or one batch row's: a larger batch is launched in chunks that fit.
+WORKSPACE_BYTES = 512 << 20
 
 
 def _tail(ac: torch.Tensor, bd: torch.Tensor, v: torch.Tensor,
@@ -113,6 +117,18 @@ def _strides(*ts: torch.Tensor) -> list:
     return [st for t in ts for st in t.stride()[:3]]
 
 
+def _workspace(b: int, h: int, s: int, d: int, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """v2's workspace (bf16: the scores; fp32: w and bd; float32 elements):
+    as many batch rows as fit in WORKSPACE_BYTES (one at least), each of
+    the size the kernel asks for."""
+    per_batch = ctypes.c_longlong()
+    _build.check(_build.library().sonar_relpos_v2_workspace(
+        h, s, d, _KIND[dtype], ctypes.byref(per_batch)), "relpos_flash_attention_v2")
+    rows = max(1, min(b, WORKSPACE_BYTES // per_batch.value))
+    return torch.empty(rows * per_batch.value // 4, dtype=torch.float32, device=device)
+
+
 def relpos_flash_attention_v2(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     wr_heads: torch.Tensor, si: torch.Tensor, ci: torch.Tensor, basis: torch.Tensor,
@@ -136,11 +152,13 @@ def relpos_flash_attention_v2(
         check_cuda(name, t, q.device, dtype=q.dtype, shape=shape)
     key_bias = _key_bias(key_bias, b, s, q.device)
     out = torch.empty((b, h, s, dh), dtype=q.dtype, device=q.device)
+    work = _workspace(b, h, s, d, q.dtype, q.device)
     _build.check(
         _build.library().sonar_relpos_flash_v2(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), wr_heads.data_ptr(), si.data_ptr(),
             ci.data_ptr(), basis.data_ptr(), u_bias.data_ptr(), v_bias.data_ptr(),
-            _build.ptr(key_bias), out.data_ptr(), b, h, s, dh, d,
+            _build.ptr(key_bias), out.data_ptr(), work.data_ptr(), 4 * work.numel(),
+            b, h, s, dh, d,
             *_strides(q, k, v), _KIND[q.dtype], _build.stream_of(q),
         ),
         "relpos_flash_attention_v2",

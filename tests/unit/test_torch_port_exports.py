@@ -1,0 +1,74 @@
+"""The port exports what ``sonar_tpu`` exports, and stays light to import.
+
+The lists of names are read from the JAX package (these tests may import
+both); the port itself never reads them.
+"""
+
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+import sonar_tpu  # noqa: E402
+import sonar_tpu.inference_pipelines  # noqa: E402
+import sonar_tpu_torch  # noqa: E402
+import sonar_tpu_torch.inference_pipelines  # noqa: E402
+
+
+@pytest.mark.parametrize("name", sonar_tpu._PIPELINES + sonar_tpu._HUB)
+def test_top_level_name_resolves(name):
+    assert callable(getattr(sonar_tpu_torch, name))
+
+
+def _pipeline_names():
+    mod = sonar_tpu.inference_pipelines
+    return sorted(n for n, v in vars(mod).items()
+                  if isinstance(v, type) and v.__module__.startswith(mod.__name__))
+
+
+@pytest.mark.parametrize("name", _pipeline_names())
+def test_pipeline_name_resolves(name):
+    got = getattr(sonar_tpu_torch.inference_pipelines, name)
+    assert isinstance(got, type) and got.__name__ == name
+    assert got.__module__.startswith("sonar_tpu_torch.inference_pipelines.")
+
+
+def test_pipeline_names_cover_the_reference():
+    assert len(_pipeline_names()) >= 8  # the five model pipelines, two data pipelines, MuTox
+
+
+@pytest.mark.parametrize("sub,names", [
+    ("nn", ["ConditionalTransformerDecoder", "ConformerConfig", "conformer_stack",
+            "embedding_lookup", "layer_norm", "linear", "EmbeddingFrontend", "bilstm_stack",
+            "Pooling", "static_pool", "SinusoidalPositionEncoder", "decoder_stack",
+            "encoder_stack", "fuse_qkv"]),
+    ("ops", ["dispatch_sdpa", "sdpa_xla", "FbankConfig", "batched_fbank", "additive_bias",
+             "length_mask", "quantize_params_int8"]),
+    ("models", ["ConfigRegistry", "SonarEncoderOutput", "VocabularyInfo"]),
+])
+def test_subpackage_names_resolve(sub, names):
+    import importlib
+
+    mod = importlib.import_module(f"sonar_tpu_torch.{sub}")
+    for name in names:
+        assert getattr(mod, name) is not None
+    with pytest.raises(AttributeError):
+        getattr(mod, "no_such_name")
+
+
+def test_import_stays_light():
+    """``import sonar_tpu_torch`` (and its subpackages) loads neither the
+    kernels' builder nor a model; the first use of an export does."""
+    code = (
+        "import sys\n"
+        "import sonar_tpu_torch, sonar_tpu_torch.inference_pipelines, sonar_tpu_torch.nn\n"
+        "import sonar_tpu_torch.ops, sonar_tpu_torch.models\n"
+        "heavy = [m for m in ('sonar_tpu_torch.ops._build', 'sonar_tpu_torch.ops.cuda',\n"
+        "                     'sonar_tpu_torch.inference_pipelines.text') if m in sys.modules]\n"
+        "assert not heavy, heavy\n"
+        "sonar_tpu_torch.load_text_encoder\n"
+        "assert 'sonar_tpu_torch.assets.hub' in sys.modules\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True)

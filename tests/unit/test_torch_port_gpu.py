@@ -252,6 +252,71 @@ def test_attn_block_kernel_past_128_keys(dev):
     _assert_close(got, attn_block.fused_attn_block_plain(*args))
 
 
+def _ffn_weights(dev, d, f, split_scales=False):
+    w1, w2 = _rand(dev, d, f, scale=0.03, seed=1), _rand(dev, f, d, scale=0.01, seed=2)
+    if split_scales:  # halves of h 8x apart, W2 evening out their shares
+        w1[:, : f // 2] *= 8.0
+        w2[: f // 2] /= 8.0
+    (w1, s1), (w2, s2) = quantize_kernel(w1), quantize_kernel(w2)
+    return w1, s1, _rand(dev, f, scale=0.05, seed=3), w2, s2, _rand(dev, d, scale=0.05, seed=4)
+
+
+def _assert_int8_close(got, want, dtype):
+    """The int8 tolerances of chip_smoke.py (c): 1e-2 of the output's scale
+    in bf16, 5e-3 in fp32 (a value within rounding of a quantisation step
+    may land one int8 level apart), row cosine >= 0.9999."""
+    _assert_close(got, want)
+    scale = want.float().abs().max().item()
+    tol = 1e-2 if dtype == torch.bfloat16 else 5e-3
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d,f,n_splits", [(1, 128, 256, 2), (127, 256, 512, 2),
+                                            (300, 128, 512, 1), (300, 128, 512, 4),
+                                            (8191, 1024, 8192, 2), (2048, 1024, 8192, 2),
+                                            (2048, 1024, 8192, 4), (2048, 1024, 8192, 1),
+                                            (300, 384, 640, 5)])
+def test_ffn_kernel_edges(dev, dtype, m, d, f, n_splits):
+    """The wgmma GEMMs' ragged last row tile (M 1, 127, 300, 8191), splits
+    of F ending on the 128-byte k steps, the encoder's full width, and the
+    quantisation's segments from 128 to 8192 values (D 384 and splits of
+    128: a segment that leaves some of the register chunks empty)."""
+    x = _rand(dev, m, d, dtype=dtype)
+    lnp = (_rand(dev, d, scale=0.1) + 1, _rand(dev, d, scale=0.1, seed=1))
+    w = _ffn_weights(dev, d, f)
+    got = _launched(ffn, lambda: ffn._fused_ffn_impl(x, *w, *lnp, n_splits))
+    assert got.dtype == dtype and got.shape == (m, d)
+    _assert_int8_close(got, ffn.fused_ffn_plain(x, *w, *lnp, n_splits=n_splits), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ffn_kernel_keeps_per_split_scales_full_width(dev, dtype):
+    x = _rand(dev, 2048, 1024, dtype=dtype)
+    w = _ffn_weights(dev, 1024, 8192, split_scales=True)
+    got = _launched(ffn, lambda: ffn.fused_int8_ffn(x, *w))
+    want = ffn.fused_ffn_plain(x, *w)
+    _assert_int8_close(got, want, dtype)
+    one = ffn.fused_ffn_plain(x, *w, n_splits=1)
+    assert (got.float() - want.float()).abs().max() < (one.float() - want.float()).abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attn_block_kernel_full_width(dev, dtype):
+    """The int8 block's two GEMMs on the wgmma core at [16, 128, 1024]."""
+    x = _rand(dev, 16, 128, 1024, dtype=dtype)
+    bias = _key_bias(dev, [128, 77, 1, 128] * 4, 128)
+    wq, sq = quantize_kernel(_rand(dev, 1024, 3072, scale=0.03))
+    wo, so = quantize_kernel(_rand(dev, 1024, 1024, scale=0.03))
+    args = (x, bias, _rand(dev, 1024, scale=0.1) + 1, _rand(dev, 1024, scale=0.1, seed=1), wq, sq,
+            _rand(dev, 3072, scale=0.05), wo, so, _rand(dev, 1024, scale=0.05), 16)
+    got = _launched(attn_block, lambda: attn_block.fused_attn_block(*args))
+    _assert_int8_close(got, attn_block.fused_attn_block_plain(*args), dtype)
+
+
 @pytest.mark.gpu
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
@@ -285,6 +350,66 @@ def _relpos_inputs(dev, dtype, s, dh, h=2):
 @pytest.mark.parametrize("s,dh", [(130, 64), (257, 128)])
 def test_relpos_v2_kernel(dev, dtype, s, dh):
     args = _relpos_inputs(dev, dtype, s, dh)
+    got = _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention_v2(*args))
+    _assert_close(got, relpos_flash.relpos_flash_attention_v2_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,s,dh", [(3, 2, 128, 64), (3, 2, 129, 64), (1, 2, 1999, 64),
+                                      (1, 2, 2048, 64), (1, 1, 2048, 128), (2, 3, 130, 64),
+                                      (3, 5, 700, 128)])
+def test_relpos_v2_kernel_edges(dev, dtype, b, h, s, dh):
+    """The gate's ends (S 128, 2048), a key tile of one key (S 129), the
+    speech batches' S 1999, row-block counts that are not a multiple of the
+    cluster (S 130: 3 blocks of 64 rows; S 700: 11), head dim 128, and a
+    batch row whose every key is masked (its output averages V)."""
+    d = 1024
+    q, k, v = (_rand(dev, b, h, s, dh, dtype=dtype, seed=i) for i in range(3))
+    wr = _rand(dev, h, d, dh, scale=d ** -0.5, dtype=dtype, seed=3)
+    u, vb = (_rand(dev, h, dh, scale=0.1, dtype=dtype, seed=4 + i) for i in range(2))
+    si, ci, basis = _trig_tables(s, d, dtype, dev)
+    bias = _key_bias(dev, [s, 0, s // 3][:b], s)
+    args = (q, k, v, wr, si, ci, basis, u, vb, bias)
+    got = _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention_v2(*args))
+    want = relpos_flash.relpos_flash_attention_v2_plain(*args)
+    _assert_close(got, want)
+    scale = want.float().abs().max().item()
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    if b > 1:  # the fully masked row: the mean of V, as the plain version gives it
+        mean = v[1].float().mean(dim=-2, keepdim=True).expand(h, s, dh)
+        assert (got[1].float() - mean).abs().max().item() <= 2e-2 * mean.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,dh", [(1, 16, 2048, 64), (2, 16, 1999, 64)])
+def test_relpos_v2_kernel_repeats_bit_for_bit(dev, b, h, s, dh):
+    """The bf16 kernel keeps its scores in a workspace between its passes
+    and shares tiles across a cluster: twelve calls on the same inputs give
+    the same bits, whatever the workspace held before (NaN here)."""
+    d = 1024
+    q, k, v = (_rand(dev, b, h, s, dh, dtype=torch.bfloat16, seed=i) for i in range(3))
+    wr = _rand(dev, h, d, dh, scale=d ** -0.5, dtype=torch.bfloat16, seed=3)
+    u, vb = (_rand(dev, h, dh, scale=0.1, dtype=torch.bfloat16, seed=4 + i) for i in range(2))
+    si, ci, basis = _trig_tables(s, d, torch.bfloat16, dev)
+    args = (q, k, v, wr, si, ci, basis, u, vb, _key_bias(dev, [s, s - 37][:b], s))
+    outs = []
+    for _ in range(12):
+        # The freed NaN block is what the wrapper's workspace gets next.
+        relpos_flash._workspace(b, h, s, d, torch.bfloat16, dev).fill_(float("nan"))
+        outs.append(relpos_flash.relpos_flash_attention_v2(*args))
+    assert torch.isfinite(outs[0]).all()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    _assert_close(outs[0], relpos_flash.relpos_flash_attention_v2_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_relpos_v2_kernel_in_batch_chunks(dev, dtype, monkeypatch):
+    """A workspace of one batch row: the batch goes through in three launches."""
+    monkeypatch.setattr(relpos_flash, "WORKSPACE_BYTES", 1)
+    args = _relpos_inputs(dev, dtype, 257, 64)
     got = _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention_v2(*args))
     _assert_close(got, relpos_flash.relpos_flash_attention_v2_plain(*args))
 
