@@ -3,6 +3,15 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --compare DIR [DIR ...]
+
+The second form runs none of the phases below: it times
+``beam_masked_attend``, ``fused_bf16_ffn_ln_residual`` and beam decoding
+with the full-width ``basic`` decoder (``times_of``) for each checkout DIR
+(e.g. an unpacked parent commit under the git-ignored ``build/``) and this
+one in turns, each in a process of its own, each building its kernels into
+its own ``build/``.
+
 Phases, each printing ``#`` lines:
 
 (a) setup: a CUDA device must be present (otherwise exit 2, no result);
@@ -21,10 +30,19 @@ Phases, each printing ``#`` lines:
     computed from the inputs), with the achieved op/s and the share of the
     bound; flash attention timed at S 512, 384 and 256, the short attention
     at [64, 128], [1024, 8] and [256, 32]; the three beam-attend kernels at the JAX
-    kernel tests' shapes and the decode shape of (f), in bf16 and fp32;
-    the Conformer half-FFN (``fused_bf16_ffn_ln_residual``) at the
-    ``english`` encoder's S 499 batch and at the JAX test's shape, bf16 and
-    fp32, beside the port's eager Conformer branch at the same shape; the
+    kernel tests' shapes and the decode shape of (f), in bf16 and fp32
+    (``beam_masked_attend`` timed in both); ``beam_masked_attend`` at the
+    cache of max_gen_len 256 (S 259, idx 200) with a random and a tree
+    ancestry (as beam search builds it), timed beside its distinct-row
+    bound (warm, and with a cold L2), then on caches holding NaN at every position past idx and in
+    every (row, position) pair no beam names (against the plain version on
+    the clean caches) and called 16 times on one input, every output equal
+    to the first bit for bit; the Conformer half-FFN
+    (``fused_bf16_ffn_ln_residual``) at the ``english`` encoder's S 499
+    batch and at the JAX test's shape, bf16 and fp32, beside the port's
+    eager Conformer branch at the same shape, and at S 499 in bf16 beside
+    ``torch.matmul`` on its two GEMMs' operands (a yardstick) with the
+    device ms of each of its three launches; the
     int8 FFN beside ``torch._int_mm`` on its two GEMMs' pre-quantised
     operands (a yardstick, on a line of its own); rel-pos v2 timed at
     [8, 16, 499, 64] (bf16, fp32), [8, 16, 1999, 64] and [2, 16, 2499, 64]
@@ -119,6 +137,7 @@ DEVICE = "cuda"
 F32_MIN = -3.4028234663852886e38
 N_SENTENCES = 3000  # corpus of the slice phase
 RELPOS_REPEATS = 16  # calls of the rel-pos v2 kernel on one input, held equal bit for bit
+BEAM_REPEATS = 16  # calls of beam_masked_attend at the long cache, held equal bit for bit
 
 KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its launch count)
     "short_qkv_attention": ("sonar_tpu_torch/csrc/short_attn.cu",
@@ -135,7 +154,7 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its
     "relpos_flash_attention": ("sonar_tpu_torch/csrc/relpos_flash.cu",
                                "sonar_tpu/ops/pallas/relpos_flash.py:172", "relpos_flash",
                                "V1_LAUNCHES"),
-    "beam_masked_attend": ("sonar_tpu_torch/csrc/beam_attend.cu",
+    "beam_masked_attend": ("sonar_tpu_torch/csrc/beam_masked.cu",
                            "sonar_tpu/ops/pallas/beam_attend.py:71", "beam_attend",
                            "MASKED_LAUNCHES"),
     "beam_diag_attend": ("sonar_tpu_torch/csrc/beam_attend.cu",
@@ -247,6 +266,26 @@ def _timed(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _timed_cold(torch, fn, iters: int) -> float:
+    """Device ms of one call of ``fn`` with a cold L2, the median of
+    ``iters``: before each call the GPU spins, then writes a 256 MB buffer
+    (five times the H100's 50 MB L2); events bracket the call alone."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=DEVICE)
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) for a, b in events)[iters // 2]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -269,6 +308,30 @@ def _errors(torch, got, want):
     cos = torch.nn.functional.cosine_similarity(g, w, dim=-1).min().item()
     finite = bool(torch.isfinite(g).all().item())
     return max_abs, cos, finite, w.abs().max().item()
+
+
+def tree_ancestry(torch, b, beam, s, idx, gen, dev):
+    """[B, K, S] int32 ancestry as beam search builds it (``generation/
+    beam_search.py``): the identity, then at each of the steps 0..idx every
+    beam takes a random parent's table and names its own row at the step's
+    position. Lineages merge within a few steps, so most older positions
+    name one row."""
+    rows = torch.arange(beam, device=dev, dtype=torch.int32)
+    anc = rows[None, :, None].expand(b, beam, s).contiguous()
+    for t in range(idx + 1):
+        parent = torch.randint(0, beam, (b, beam), generator=gen, device=dev)
+        anc = torch.gather(anc, 1, parent[:, :, None].expand(b, beam, s))
+        anc[:, :, t] = rows
+    return anc.contiguous()
+
+
+def distinct_rows(torch, anc, idx, beam):
+    """The distinct (cache row, position) pairs the ancestry names up to
+    the write position, summed over sentences: the rows one head must read."""
+    b, _, s = anc.shape
+    needed = torch.zeros(b, beam, s, dtype=torch.bool, device=anc.device)
+    needed.scatter_(1, anc.long(), True)
+    return int((needed & (torch.arange(s, device=anc.device) <= idx)).sum())
 
 
 def relpos_bound_ops(b, h, s, dh, d) -> int:
@@ -536,8 +599,31 @@ def check_kernels(torch):
             branch = {"inner_proj": {"kernel": w1d, "bias": b1.to(dt)},
                       "output_proj": {"kernel": w2d, "bias": b2.to(dt)}}
             eager = _timed(torch, lambda: x + 0.5 * _half_ffn(branch, layer_norm(lnp, x)), 20)
+            kernel_ms = results["fused_bf16_ffn_ln_residual"].get("last_ms")
             log(f"time fused_bf16_ffn_ln_residual M={m} D={dm} F={fm} {kind}: the port's eager "
-                f"Conformer branch (x + 0.5 * _half_ffn(LN(x))) {eager:.4f} ms")
+                f"Conformer branch (x + 0.5 * _half_ffn(LN(x))) {eager:.4f} ms, the kernel "
+                f"{kernel_ms:.4f} ms ({eager / kernel_ms:.2f}x)")
+            if m == 3992 and dt == bf16:
+                # Yardstick only (the port never calls it): torch.matmul on the
+                # two GEMMs' bf16 operands, LN(x) @ W1 and h @ W2 (all of F),
+                # which the kernel runs on its TMA + wgmma core; then the
+                # kernel's three launches by device time (torch.profiler, 10
+                # calls).
+                ln_x = layer_norm(lnp, x)
+                hid = F.silu(ln_x @ w1d)
+                mm1 = _timed(torch, lambda: torch.matmul(ln_x, w1d), 20)
+                mm2 = _timed(torch, lambda: torch.matmul(hid, w2d), 20)
+                ops = 2 * m * dm * fm
+                log(f"time fused_bf16_ffn_ln_residual yardstick torch.matmul M={m}: "
+                    f"[{m},{dm}]x[{dm},{fm}] {mm1:.4f} ms ({ops / mm1 / 1e9:.1f} TFLOP/s), "
+                    f"[{m},{fm}]x[{fm},{dm}] {mm2:.4f} ms ({ops / mm2 / 1e9:.1f} TFLOP/s); "
+                    f"both GEMMs at the bf16 peak {2 * ops / PEAK_OPS_S['bf16'] * 1e3:.4f} ms")
+                prof, _, _ = _device_profile(torch, lambda: [
+                    ffn.fused_bf16_ffn_ln_residual(*fargs, n_splits=2) for _ in range(10)])
+                for name, (ms, n) in sorted(prof.items(), key=lambda kv: -kv[1][0]):
+                    log(f"time fused_bf16_ffn_ln_residual M={m} step {ms / n:.4f} ms x{n} "
+                        f"{name[:70]}")
+                del ln_x, hid
 
     # K2: flash attention. P is normalised before its rounding to the value
     # dtype in both versions (as in the TPU kernel), so the tolerances are
@@ -658,7 +744,7 @@ def check_kernels(torch):
         check("beam_masked_attend", label,
               lambda: beam_attend.beam_masked_attend(qbh, kc, vc, anc, vbias, h),
               lambda: beam_attend.beam_masked_attend_plain(qbh, kc, vc, anc, vbias, h),
-              *tol[dt], timed=timed,
+              *tol[dt], timed=b == 32,
               cost=(2 * nbytes(qbh) + nbytes(anc, vbias) + 2 * n_rows * row,
                     {_kind(dt): 4 * b * h * beam * (idx + 1) * dh}),
               library_fn=lambda: F.scaled_dot_product_attention(
@@ -685,6 +771,69 @@ def check_kernels(torch):
               cost=(nbytes(q, kn, vn, sel, vbias, woh, q) + 2 * n_src * s * row + 2 * nbytes(k),
                     {_kind(dt): 4 * b * h * beam * s * dh}))
         del k, v, kc, vc, got, want
+
+    # K8 at the cache of max_gen_len 256 (S 259, the write position at 200),
+    # with a random ancestry and with a tree ancestry as beam search builds
+    # it (most older positions name one row), bf16, timed; bound: the
+    # distinct rows named up to the write position, read once. Then the
+    # kernel on caches holding NaN at every position past idx and in every
+    # (row, position) pair no beam names, against the plain version on the
+    # clean caches; and BEAM_REPEATS calls on one input, equal bit for bit
+    # (the long cache is split over blocks whose partials a second launch
+    # combines).
+    b, beam, h, s, dh, idx = 32, 5, 16, 259, 64, 200
+    pos = torch.arange(s, device=dev)
+    vbias = torch.where(pos <= idx, 0.0, -1e30).float()
+    for kind in ("random", "tree"):
+        q = rand(b * h, beam, dh, dtype=bf16)
+        kc, vc = rand(b * h, beam, s, dh, dtype=bf16), rand(b * h, beam, s, dh, dtype=bf16)
+        anc = (tree_ancestry(torch, b, beam, s, idx, gen, dev) if kind == "tree" else
+               torch.randint(0, beam, (b, beam, s), generator=gen, device=dev, dtype=torch.int32))
+        n_rows = distinct_rows(torch, anc, idx, beam) * h
+        mask = ((anc[:, :, None, :] == torch.arange(beam, device=dev)[None, None, :, None])
+                & (pos <= idx)).reshape(b, 1, beam, beam * s)
+        label = f"B {b} K {beam} H {h} S {s} Dh {dh} idx {idx} bfloat16 {kind} ancestry"
+        check("beam_masked_attend", label,
+              lambda: beam_attend.beam_masked_attend(q, kc, vc, anc, vbias, h),
+              lambda: beam_attend.beam_masked_attend_plain(q, kc, vc, anc, vbias, h),
+              *tol[bf16], timed=True,
+              cost=(2 * nbytes(q) + nbytes(anc, vbias) + 2 * n_rows * dh * 2,
+                    {"bf16": 4 * b * h * beam * (idx + 1) * dh}),
+              library_fn=lambda: F.scaled_dot_product_attention(
+                  q.reshape(b, h, beam, dh), kc.reshape(b, h, beam * s, dh),
+                  vc.reshape(b, h, beam * s, dh), attn_mask=mask))
+        log(f"work beam_masked_attend {label}: {n_rows // h} distinct rows a head "
+            f"({n_rows // h / b / (idx + 1):.2f} a position), "
+            f"{2 * n_rows * dh * 2 / 1e6:.1f} MB of K and V")
+        # The timing above calls the kernel back to back on one cache, whose
+        # named rows may stay in L2; on the decode path a layer's rows were
+        # last read a step earlier.
+        bound_ms = bound(2 * nbytes(q) + nbytes(anc, vbias) + 2 * n_rows * dh * 2, {})[0]
+        cold = _timed_cold(torch, lambda: beam_attend.beam_masked_attend(q, kc, vc, anc, vbias, h),
+                           20)
+        lib_cold = _timed_cold(torch, lambda: F.scaled_dot_product_attention(
+            q.reshape(b, h, beam, dh), kc.reshape(b, h, beam * s, dh),
+            vc.reshape(b, h, beam * s, dh), attn_mask=mask), 20)
+        log(f"time beam_masked_attend {label}, cold L2: kernel {cold:.4f} ms, {bound_ms / cold:.1%} "
+            f"of the bound {bound_ms:.4f} ms; library call {lib_cold:.4f} ms")
+        named = torch.zeros(b, beam, s, dtype=torch.bool, device=dev)
+        named.scatter_(1, anc.long(), True)
+        named &= pos <= idx
+        poison = (~named)[:, None, :, :, None].expand(b, h, beam, s, dh).reshape(kc.shape)
+        kp, vp = kc.masked_fill(poison, float("nan")), vc.masked_fill(poison, float("nan"))
+        check("beam_masked_attend", label + ", unnamed rows and positions past idx NaN",
+              lambda: beam_attend.beam_masked_attend(q, kp, vp, anc, vbias, h),
+              lambda: beam_attend.beam_masked_attend_plain(q, kc, vc, anc, vbias, h),
+              *tol[bf16])
+        outs = [beam_attend.beam_masked_attend(q, kc, vc, anc, vbias, h)
+                for _ in range(BEAM_REPEATS)]
+        differ = sum(not torch.equal(o, outs[0]) for o in outs[1:])
+        ok = differ == 0 and bool(torch.isfinite(outs[0]).all())
+        log(f"check beam_masked_attend {label} repeated: {BEAM_REPEATS} calls, {differ} differ "
+            f"from the first bit for bit {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"beam_masked_attend {label} repeated")
+        del q, kc, vc, kp, vp, outs
 
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
@@ -1511,9 +1660,127 @@ def run_sampling_int8_heads(torch, card, handoff):
     return launches
 
 
+# -- --compare: this checkout against others, in turns, on one card ------------------
+
+
+def times_of(torch, card, root: Path) -> dict:
+    """The port under ``root``: device ms of ``beam_masked_attend`` (bf16,
+    K 5, H 16, Dh 64) at the decode shape of (f) and (g) for batches of 32,
+    8 and 1 and at S 259, idx 200 with a random and a tree ancestry (warm,
+    and with a cold L2 there), with the host's us a call (100 calls queued
+    back to back); of ``fused_bf16_ffn_ln_residual`` at M 3992, D 1024, F
+    4096, 2 splits; and the ms a step of the full-width ``basic`` decoder
+    in bf16 (beam 5, max_gen_len 48) decoding batches of 8 (the batch of
+    (g) and of text->text in (f)) and 1 (one sentence), 3 runs each."""
+    sys.path.insert(0, str(root))
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_decoder_params, text_decoder_from_numpy
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+    from sonar_tpu_torch.ops import _build
+    from sonar_tpu_torch.ops.cuda import beam_attend, ffn
+
+    if not Path(_build.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"{_build.__file__} is not under {root}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"{root}: kernels built in {time.perf_counter() - t0:.1f} s; on {card}")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"root": str(root), "card": card}
+    beam, h, dh = 5, 16, 64
+    for b, s, idx, kind in ((32, 51, 25, "random"), (8, 51, 25, "random"), (1, 51, 25, "random"),
+                            (32, 259, 200, "random"), (32, 259, 200, "tree")):
+        q = torch.randn(b * h, beam, dh, generator=gen, device=dev).bfloat16()
+        kc, vc = (torch.randn(b * h, beam, s, dh, generator=gen, device=dev).bfloat16()
+                  for _ in range(2))
+        anc = (tree_ancestry(torch, b, beam, s, idx, gen, dev) if kind == "tree" else
+               torch.randint(0, beam, (b, beam, s), generator=gen, device=dev, dtype=torch.int32))
+        vbias = torch.where(torch.arange(s, device=dev) <= idx, 0.0, -1e30).float()
+        fn = lambda: beam_attend.beam_masked_attend(q, kc, vc, anc, vbias, h)  # noqa: E731
+        n_rows = distinct_rows(torch, anc, idx, beam) * h
+        bound_ms = bound(2 * nbytes(q) + nbytes(anc, vbias) + 2 * n_rows * dh * 2, {})[0]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host_us = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+        key = f"beam_masked_attend B {b} S {s} idx {idx} {kind}"
+        out[key] = {"ms": _timed(torch, fn, 20), "bound_ms": bound_ms, "host_us": host_us}
+        if s > 64:
+            out[key]["cold_ms"] = _timed_cold(torch, fn, 20)
+        log(f"{root.name}: {key}: {out[key]}")
+        del q, kc, vc
+    m, d, f = 3992, 1024, 4096
+    fargs = (torch.randn(m, d, generator=gen, device=dev).bfloat16(),
+             torch.ones(d, device=dev), torch.zeros(d, device=dev),
+             (torch.randn(d, f, generator=gen, device=dev) * d ** -0.5).bfloat16(),
+             torch.zeros(f, device=dev),
+             (torch.randn(f, d, generator=gen, device=dev) * f ** -0.5).bfloat16(),
+             torch.zeros(d, device=dev), 0.5)
+    key = f"fused_bf16_ffn_ln_residual M {m} D {d} F {f} splits 2"
+    out[key] = {"ms": _timed(torch, lambda: ffn.fused_bf16_ffn_ln_residual(*fargs, n_splits=2),
+                             20)}
+    log(f"{root.name}: {key}: {out[key]}")
+    del fargs
+    cfg = sonar_text_decoder_archs.get("basic")
+    dec = TorchTextDecoder(text_decoder_from_numpy(init_text_decoder_params(cfg, seed=0), cfg,
+                                                   torch.bfloat16, DEVICE), device=DEVICE)
+    gen_cfg = BeamSearchConfig(**DECODE_KW)
+    rng = np.random.default_rng(0)
+    dec.generate_beam(np.zeros((8, 1, cfg.model_dim), np.float32), [3, 5], gen_cfg)  # warm
+    for b in (8, 1):
+        memory = rng.standard_normal((b, 1, cfg.model_dim)).astype(np.float32) * 0.1
+        runs = []
+        for _ in range(3):
+            dec.decode_steps = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.generate_beam(memory, [3, 5], gen_cfg)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3 / dec.decode_steps)
+        out[f"decode bf16 batch {b} ms a step"] = runs
+        log(f"{root.name}: decode bf16 batch {b}, {dec.decode_steps} steps: ms a step {runs}")
+    return out
+
+
+def compare(roots) -> int:
+    """Run ``times_of`` for each root and this checkout in turns (roots,
+    this, this, roots reversed), each in a process of its own; print every
+    run's numbers and, last, one JSON object of them."""
+    here = REPO.resolve()
+    order = [*roots, here, here, *reversed(roots)]
+    runs = []
+    for root in order:
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--times-of",
+                               str(root)], capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            log(f"--times-of {root} failed with exit code {proc.returncode}")
+            return 1
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    print(json.dumps({"compare": runs}), flush=True)
+    return 0
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", nargs="+", type=Path, metavar="DIR",
+                    help="instead of the phases, time two kernels and beam decoding for the "
+                         "checkouts DIR (e.g. an unpacked parent commit) and this one in turns")
+    ap.add_argument("--times-of", type=Path, metavar="DIR", help=argparse.SUPPRESS)
+    args = ap.parse_args()
     torch, card = setup()
+    if args.compare:
+        return compare([d.resolve() for d in args.compare])
+    if args.times_of:
+        print(json.dumps(times_of(torch, card, args.times_of.resolve())), flush=True)
+        return 0
     clock = time.perf_counter()
 
     def phase(label, fn, *args):

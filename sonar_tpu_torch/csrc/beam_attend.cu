@@ -6,7 +6,9 @@
 //       sentence attends every cache row c and position s that its ancestry
 //       names (anc[b, q, s] == c), with an additive position bias; the
 //       compute core of the port's _beam_self_attend, launched at every
-//       layer of every beam-decode step;
+//       layer of every beam-decode step. This body serves fp32; bf16 runs
+//       on the tensor cores in csrc/beam_masked.cu, which also holds the
+//       C entry point;
 //   beam_diag_attend    (MODE_DIAG)    beam row k attends its own cache row;
 //   beam_reorder_attend (MODE_REORDER) gathers each row's winner history
 //       (sel), writes this step's K/V at the write position into new caches
@@ -213,14 +215,14 @@ int launch(BeamArgs a, int BH, int kind, cudaStream_t st) {
 
 }  // namespace
 
-extern "C" int sonar_beam_masked_attend(const void* q, const void* k, const void* v,
-                                        const int* anc, const float* vbias, void* out, int BH,
-                                        int H, int K, int C, int S, int Dh, int kind,
-                                        void* stream) {
+// The fp32 masked attend (called by sonar_beam_masked_attend, beam_masked.cu).
+int beam_masked_attend_f32(const void* q, const void* k, const void* v, const int* anc,
+                           const float* vbias, void* out, int BH, int H, int K, int C, int S,
+                           int Dh, cudaStream_t stream) {
   BeamArgs a{};
   a.q = q; a.k = k; a.v = v; a.anc = anc; a.vbias = vbias; a.out = out;
   a.H = H; a.K = K; a.C = C; a.S = S; a.Dh = Dh;
-  return launch<MODE_MASKED>(a, BH, kind, (cudaStream_t)stream);
+  return launch<MODE_MASKED>(a, BH, KIND_F32, stream);
 }
 
 extern "C" int sonar_beam_diag_attend(const void* q, const void* k, const void* v,

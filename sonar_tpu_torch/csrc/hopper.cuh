@@ -6,8 +6,9 @@
 //   runtime, so cuTensorMapEncodeTiled is looked up, not linked);
 // - mbarrier wait / arrive / expect-tx and the TMA tile load that completes
 //   on an mbarrier (optionally multicast to every block of a cluster);
-// - wgmma: the shared-memory descriptor of a K-major operand in the 128-byte
-//   swizzle that TMA writes, fence / commit / wait, and the s8 product.
+// - wgmma: the shared-memory descriptors of K-major and MN-major operands in
+//   the 128-byte swizzle that TMA writes, fence / commit / wait, and the s8
+//   and bf16 products.
 #pragma once
 
 #include <cuda.h>
@@ -233,6 +234,57 @@ __device__ __forceinline__ void wgmma_bf16_m64n64k16_rs(float (&d)[8][4], const 
         "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Descriptor of an MN-major operand tile (N contiguous, a row-major [K, N]
+// weight read as B) in the 128-byte swizzle, as TMA writes boxes of
+// [k rows][64 n] bf16: each k row 128 bytes, 8-row groups 1024 bytes apart
+// (the stride byte offset), consecutive 64-column boxes `lbo` bytes apart
+// (the leading byte offset). Stepping 16 along K adds 2048 bytes.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(uint32_t smem_addr, uint32_t lbo) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 x bf16 -> fp32, both operands
+// in shared memory: A K-major (wgmma_desc_sw128), B MN-major
+// (wgmma_desc_sw128_mn, the descriptor's transpose bit set). Thread t of the
+// warpgroup holds, for each n8 column tile i, d[4i + e] at row 16 (t / 32) +
+// (t % 32) / 4 + 8 (e / 2), column 8i + 2 (t % 4) + e % 2. scale_d 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_bf16_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Box (c0 = column, c1 = row) of `map` written from `src` (shared memory,
+// laid out as TMA loads it); elements past the array's bounds are dropped.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               :: "l"((uint64_t)map), "r"(smem_u32(src)), "r"(c0), "r"(c1) : "memory");
+}
+
+// Commits this thread's TMA stores and waits until their sources are read.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // Orders this thread's generic-proxy writes to shared memory (st.shared)

@@ -44,7 +44,8 @@ _SIGNATURES = {
     "sonar_relpos_v2_workspace": [_I, _I, _I, _I, _P],
     "sonar_relpos_flash_v2": [_P] * 12 + [_LL] + [_I] * 5 + [_LL] * 9 + [_I, _P],
     "sonar_relpos_flash_v1": [_P] * 7 + [_I] * 4 + [_LL] * 9 + [_I, _P],
-    "sonar_beam_masked_attend": [_P] * 6 + [_I] * 7 + [_P],
+    "sonar_beam_masked_tiles": [_I, _I, _P, _P],
+    "sonar_beam_masked_attend": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
     "sonar_beam_diag_attend": [_P] * 5 + [_I] * 6 + [_P],
     "sonar_beam_reorder_attend": [_P] * 11 + [_I] * 6 + [_P],
     "sonar_check_softmax_division": [ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P],

@@ -1,8 +1,9 @@
 """Beam-decode self-attention over the un-reordered KV cache.
 
 Port of ``sonar_tpu/ops/pallas/beam_attend.py``; the CUDA kernels are in
-``csrc/beam_attend.cu``. Three functions, each with its plain PyTorch
-version (taken for CPU tensors) and a launch count:
+``csrc/beam_masked.cu`` (the masked attend) and ``csrc/beam_attend.cu``
+(the other two). Three functions, each with its plain PyTorch version
+(taken for CPU tensors) and a launch count:
 
 - ``beam_masked_attend``: each of the K query beams attends every cache row
   and position its ancestry names (the core of ``_beam_self_attend``, on
@@ -22,6 +23,8 @@ fp32 P @ V, the output cast to the input dtype.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 from sonar_tpu_torch.ops import _build
@@ -94,6 +97,19 @@ def _check_common(q: torch.Tensor, caches, valid_bias: torch.Tensor) -> None:
     check_cuda("valid_bias", valid_bias, q.device, torch.float32, (caches[0][1].shape[-2],))
 
 
+@functools.lru_cache(maxsize=None)
+def masked_tiles(bh: int, s: int) -> Tuple[int, int]:
+    """(positions a block, blocks a (sentence, head)) of the bf16 masked
+    attend kernel at B*H = ``bh`` and a cache of ``s`` positions: more than
+    one block a head means fp32 partials in a workspace and a combining
+    launch."""
+    tile, nsplit = ctypes.c_int(), ctypes.c_int()
+    _build.check(_build.library().sonar_beam_masked_tiles(bh, s, ctypes.byref(tile),
+                                                           ctypes.byref(nsplit)),
+                 "beam_masked_attend tiles")
+    return tile.value, nsplit.value
+
+
 def beam_masked_attend(
     q: torch.Tensor,           # [B*H, K, Dh] unscaled, b-major
     k_cache: torch.Tensor,     # [B*H, C, S, Dh] (view of [B, H, C, S, Dh])
@@ -112,16 +128,21 @@ def beam_masked_attend(
     require(bh % num_heads == 0, f"{bh} rows are not a multiple of {num_heads} heads")
     require(beam <= 16, f"at most 16 beams, got {beam}")
     _, c, s, _ = k_cache.shape
+    require(1 <= c <= 32, f"1 to 32 cache rows a sentence, got {c}")
     _check_common(q, [("k_cache", k_cache), ("v_cache", v_cache)], valid_bias)
     require(tuple(v_cache.shape) == tuple(k_cache.shape), "v_cache must match k_cache")
     check_cuda("anc", anc, q.device, torch.int32, (bh // num_heads, beam, s))
     out = torch.empty_like(q)
-    lib = _build.library()
+    # bf16 splits a long cache over blocks whose fp32 partials a second launch
+    # combines; fp32 runs one block a (sentence, head).
+    nsplit = masked_tiles(bh, s)[1] if q.dtype == torch.bfloat16 else 1
+    part = (torch.empty((bh, nsplit, beam, dh + 2), dtype=torch.float32, device=q.device)
+            if nsplit > 1 else None)
     _build.check(
-        lib.sonar_beam_masked_attend(
+        _build.library().sonar_beam_masked_attend(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), anc.data_ptr(),
-            valid_bias.data_ptr(), out.data_ptr(), bh, num_heads, beam, c, s, dh,
-            _KIND[q.dtype], _build.stream_of(q),
+            valid_bias.data_ptr(), out.data_ptr(), _build.ptr(part), bh, num_heads, beam, c,
+            s, dh, dh ** -0.5, _KIND[q.dtype], _build.stream_of(q),
         ),
         "beam_masked_attend",
     )

@@ -15,7 +15,9 @@ The Conformer half-FFN, ``fused_bf16_ffn_ln_residual``: x + res_scale *
 ``csrc/bf16_ffn.cu``. Numerics kept from the TPU kernel: LN with fp32
 statistics rounded to x.dtype, fp32 products, SiLU in fp32 rounded to
 x.dtype, one fp32 partial per split of F summed in fp32, then b2 and the
-residual in fp32. No model path calls it (the JAX Conformer keeps its plain
+residual in fp32. The kernel reads the weights where they lie (W1 [D, F],
+W2 [F, D], row-major, in x.dtype): no copy is made per call. No model path
+calls it (the JAX Conformer keeps its plain
 branch, and so does the port's); ``BF16_LAUNCHES`` counts its launches.
 """
 
@@ -150,17 +152,18 @@ def fused_bf16_ffn_ln_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
             f"w1 must be [{d}, F] and w2 [F, {d}], got {tuple(w1.shape)}, {tuple(w2.shape)}")
     require(m >= 1 and d % 128 == 0 and f % 128 == 0,
             f"M={m} must be >= 1, D={d} and F={f} multiples of 128")
-    require(n_splits >= 1 and f % n_splits == 0 and (f // n_splits) % 32 == 0,
-            f"F={f} must split into {n_splits} multiples of 32")
+    # bf16 steps through K 64 values at a time (fp32: 32); a split ends on a step.
+    step = 64 if x.dtype == torch.bfloat16 else 32
+    require(n_splits >= 1 and f % n_splits == 0 and (f // n_splits) % step == 0,
+            f"F={f} must split into {n_splits} multiples of {step}")
     dev = x.device
     check_cuda("x", x, dev)
-    # The kernel reads B^T rows: the weights in x.dtype, transposed.
-    w1t = w1.to(x.dtype).t().contiguous()
-    w2t = w2.to(x.dtype).t().contiguous()
+    # Weights of x.dtype are read in place; others are cast, as the plain version does.
+    w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     params = [f32(t) for t in (ln_scale, ln_bias, b1, b2)]
     for name, t, n in zip(("ln_scale", "ln_bias", "b1", "b2"), params, (d, d, f, d)):
         check_cuda(name, t, dev, torch.float32, (n,))
-    for name, t in (("w1", w1t), ("w2", w2t)):
+    for name, t in (("w1", w1), ("w2", w2)):
         check_cuda(name, t, dev, x.dtype)
     ln_s, ln_b, bias1, bias2 = params
     ln = torch.empty((m, d), dtype=x.dtype, device=dev)
@@ -170,8 +173,8 @@ def fused_bf16_ffn_ln_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
     _build.check(
         lib.sonar_fused_bf16_ffn(
             x.data_ptr(), _KIND[x.dtype], m, d, f, n_splits, float(res_scale),
-            ln_s.data_ptr(), ln_b.data_ptr(), w1t.data_ptr(), bias1.data_ptr(),
-            w2t.data_ptr(), bias2.data_ptr(), ln.data_ptr(), h.data_ptr(), out.data_ptr(),
+            ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), bias1.data_ptr(),
+            w2.data_ptr(), bias2.data_ptr(), ln.data_ptr(), h.data_ptr(), out.data_ptr(),
             _build.stream_of(x),
         ),
         "fused_bf16_ffn_ln_residual",

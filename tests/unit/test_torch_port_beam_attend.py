@@ -70,6 +70,38 @@ def test_beam_masked_attend_plain_matches_pallas(shape, dtype):
     assert tba.MASKED_LAUNCHES == launches  # CPU tensors take the plain version
 
 
+def _tree_ancestry(rng, b, beam, s, idx):
+    """[B, K, S] ancestry as beam search builds it: the identity, then at
+    each step 0..idx every beam takes a random parent's table and names its
+    own row at the step's position (lineages merge within a few steps)."""
+    anc = np.broadcast_to(np.arange(beam, dtype=np.int32)[None, :, None], (b, beam, s)).copy()
+    for t in range(idx + 1):
+        parent = rng.integers(0, beam, size=(b, beam))
+        anc = np.take_along_axis(anc, parent[:, :, None], axis=1)
+        anc[:, :, t] = np.arange(beam)
+    return anc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", MASKED_SHAPES)
+def test_beam_masked_attend_plain_matches_pallas_on_a_tree_ancestry(shape, dtype):
+    """The ancestry that decoding produces (few distinct rows per position),
+    which the CUDA kernel reads row by distinct row."""
+    b, beam, heads, s, dh = shape
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(b * heads, beam, dh))
+    k = rng.normal(size=(b * heads, beam, s, dh))
+    v = rng.normal(size=(b * heads, beam, s, dh))
+    for idx in (0, s // 2, s - 1):
+        anc = _tree_ancestry(rng, b, beam, s, idx)
+        vb = _vbias(s, idx)
+        got = tba.beam_masked_attend(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                                     torch.tensor(anc), torch.tensor(vb), heads)
+        want = jba.beam_masked_attend(_j(q, dtype), _j(k, dtype), _j(v, dtype), jnp.asarray(anc),
+                                      jnp.asarray(vb), heads, interpret=True)
+        _check(got, want, dtype)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_beam_diag_attend_plain_matches_pallas(dtype):
     b, beam, heads, s, dh = DIAG_SHAPE

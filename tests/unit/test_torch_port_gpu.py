@@ -507,6 +507,225 @@ def test_beam_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                                      v[..., :48].contiguous(), vbias)
 
 
+def _tree_ancestry(gen, b, beam, s, idx):
+    """[B, K, S] int32 ancestry as beam search builds it: the identity, then
+    at each step 0..idx every beam takes a random parent's table and names
+    its own row at the step's position."""
+    rows = torch.arange(beam, dtype=torch.int32)
+    anc = rows[None, :, None].expand(b, beam, s).contiguous()
+    for t in range(idx + 1):
+        parent = torch.randint(0, beam, (b, beam), generator=gen)
+        anc = torch.gather(anc, 1, parent[:, :, None].expand(b, beam, s))
+        anc[:, :, t] = rows
+    return anc.contiguous()
+
+
+def _masked_inputs(dev, dtype, b, beam, h, s, dh, idx, kind):
+    q = _rand(dev, b * h, beam, dh, dtype=dtype, seed=1)
+    k, v = (_rand(dev, b * h, beam, s, dh, dtype=dtype, seed=2 + i) for i in range(2))
+    gen = torch.Generator().manual_seed(s + idx + beam)
+    anc = (_tree_ancestry(gen, b, beam, s, idx) if kind == "tree"
+           else torch.randint(0, beam, (b, beam, s), generator=gen, dtype=torch.int32))
+    vbias = torch.where(torch.arange(s, device=dev) <= idx, 0.0, -1e30).float()
+    return q, k, v, anc.to(dev), vbias
+
+
+# (B, K, H, S, Dh, idx, ancestry): every K of 1, 2, 5, 16, every Dh of 32, 64,
+# 128, idx 0 and S - 1, caches of 51 (one block a head) and 259 positions
+# (split over blocks, partials combined), tree and random ancestries.
+MASKED_CASES = [
+    (4, 1, 2, 51, 64, 25, "random"), (4, 2, 2, 51, 32, 0, "tree"),
+    (4, 5, 4, 51, 64, 50, "tree"), (2, 16, 2, 51, 128, 25, "random"),
+    (2, 16, 2, 259, 64, 258, "random"), (3, 5, 4, 259, 128, 0, "random"),
+    (3, 2, 2, 259, 32, 130, "random"), (8, 5, 4, 259, 64, 200, "tree"),
+    (32, 5, 16, 259, 64, 200, "tree"), (32, 5, 16, 259, 64, 200, "random"),
+    (2, 1, 2, 259, 128, 258, "tree"), (2, 16, 2, 51, 32, 50, "tree"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MASKED_CASES)
+def test_beam_masked_attend_kernel_cases(dev, dtype, case):
+    b, beam, h, s, dh, idx, kind = case
+    q, k, v, anc, vbias = _masked_inputs(dev, dtype, b, beam, h, s, dh, idx, kind)
+    got = _launched(beam_attend, lambda: beam_attend.beam_masked_attend(q, k, v, anc, vbias, h),
+                    counter="MASKED_LAUNCHES")
+    want = beam_attend.beam_masked_attend_plain(q, k, v, anc, vbias, h)
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_close(got, want)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["tree", "random"])
+@pytest.mark.parametrize("s,idx", [(51, 25), (259, 200)])
+def test_beam_masked_attend_reads_only_named_rows(dev, dtype, kind, s, idx):
+    """NaN at every position past idx and in every (row, position) pair no
+    beam names: the kernel on the poisoned cache equals the plain version on
+    the clean one."""
+    b, beam, h, dh = 8, 5, 4, 64
+    q, k, v, anc, vbias = _masked_inputs(dev, dtype, b, beam, h, s, dh, idx, kind)
+    named = torch.zeros(b, beam, s, dtype=torch.bool, device=dev)
+    named.scatter_(1, anc.long(), True)
+    named &= torch.arange(s, device=dev) <= idx
+    poison = (~named)[:, None, :, :, None].expand(b, h, beam, s, dh).reshape(k.shape)
+    kp, vp = k.masked_fill(poison, float("nan")), v.masked_fill(poison, float("nan"))
+    got = beam_attend.beam_masked_attend(q, kp, vp, anc, vbias, h)
+    _assert_close(got, beam_attend.beam_masked_attend_plain(q, k, v, anc, vbias, h))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["tree", "random"])
+def test_beam_masked_attend_repeats_bit_for_bit(dev, kind):
+    """The long cache goes through partials and a combining launch: calls on
+    the same inputs give the same bits."""
+    b, beam, h, s, dh, idx = 32, 5, 16, 259, 64, 200
+    q, k, v, anc, vbias = _masked_inputs(dev, torch.bfloat16, b, beam, h, s, dh, idx, kind)
+    outs = [beam_attend.beam_masked_attend(q, k, v, anc, vbias, h) for _ in range(8)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.isfinite(outs[0]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh", [16, 128, 512])
+def test_beam_masked_attend_keeps_a_short_cache_in_one_block(dev, bh):
+    """A cache of at most 64 positions (the decode paths' 51) is one tile at
+    any batch: one launch and no workspace; a longer one is split."""
+    for s in (1, 51, 64):
+        assert beam_attend.masked_tiles(bh, s) == (s, 1)
+    tile, nsplit = beam_attend.masked_tiles(bh, 259)
+    assert 32 <= tile <= 64 and nsplit == -(-259 // tile) > 1
+
+
+@pytest.mark.gpu
+def test_beam_masked_attend_raises_on_what_the_kernel_does_not_take(dev):
+    q, k, v, anc, vbias = _masked_inputs(dev, torch.float32, 2, 3, 2, 9, 64, 4, "random")
+    with pytest.raises(ValueError):  # 17 beams
+        beam_attend.beam_masked_attend(q.repeat(1, 6, 1)[:, :17].contiguous(),
+                                       k, v, anc.repeat(1, 6, 1)[:, :17].contiguous(), vbias, 2)
+    with pytest.raises(ValueError):  # 33 cache rows a sentence
+        kk = k.repeat(1, 11, 1, 1)
+        beam_attend.beam_masked_attend(q, kk, kk, anc, vbias, 2)
+    with pytest.raises(ValueError):  # head dim 48
+        beam_attend.beam_masked_attend(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                       v[..., :48].contiguous(), anc, vbias, 2)
+    with pytest.raises(ValueError):  # a bias of another length than the cache
+        beam_attend.beam_masked_attend(q, k, v, anc, vbias[:8].contiguous(), 2)
+    with pytest.raises(ValueError):  # B*H not a multiple of the heads
+        beam_attend.beam_masked_attend(q, k, v, anc, vbias, 3)
+    with pytest.raises(ValueError):  # a non-contiguous cache
+        beam_attend.beam_masked_attend(q, k.transpose(1, 2), v, anc, vbias, 2)
+
+
+def _ffn_args(dev, dtype, m, d, f):
+    return (_rand(dev, m, d, dtype=dtype), _rand(dev, d, scale=0.1) + 1,
+            _rand(dev, d, scale=0.1, seed=1), _rand(dev, d, f, scale=d ** -0.5, seed=2).to(dtype),
+            _rand(dev, f, scale=0.1, seed=3), _rand(dev, f, d, scale=f ** -0.5, seed=4).to(dtype),
+            _rand(dev, d, scale=0.1, seed=5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,d,f,n_splits", [(1, 128, 512, 1), (127, 1024, 4096, 2),
+                                            (300, 1024, 512, 4), (127, 128, 4096, 1),
+                                            (8192, 1024, 4096, 4), (3992, 1024, 4096, 1),
+                                            (1, 1024, 4096, 2)])
+def test_bf16_ffn_kernel_edges(dev, dtype, m, d, f, n_splits):
+    """Ragged M from 1 row to 8192, D 128 and 1024, F 512 and 4096 in 1, 2
+    and 4 splits, the weights in the model dtype: bf16 to one bf16 ulp of the
+    output scale, fp32 to max-abs 2e-4."""
+    args = _ffn_args(dev, dtype, m, d, f)
+    got = _launched(ffn, lambda: ffn.fused_bf16_ffn_ln_residual(*args, n_splits=n_splits),
+                    counter="BF16_LAUNCHES")
+    want = ffn.fused_bf16_ffn_ln_residual_plain(*args, n_splits=n_splits)
+    assert got.dtype == dtype and got.shape == (m, d)
+    _assert_close(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= (2e-4 if dtype == torch.float32 else 2.0 ** -7 * want.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bf16_ffn_kernel_reads_weights_in_place(dev, dtype):
+    """The weights of the model dtype are neither copied nor changed: the
+    call allocates far less than one weight (ln, h and the output of one
+    row), and the weights keep their storage and their bits."""
+    args = _ffn_args(dev, dtype, 1, 1024, 4096)
+    w1, w2 = args[3], args[5]
+    before = (w1.data_ptr(), w2.data_ptr(), w1.clone(), w2.clone())
+    ffn.fused_bf16_ffn_ln_residual(*args)  # build and warm up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ffn.fused_bf16_ffn_ln_residual(*args)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < w1.numel() * w1.element_size() // 8
+    assert (w1.data_ptr(), w2.data_ptr()) == before[:2]
+    assert torch.equal(w1, before[2]) and torch.equal(w2, before[3])
+
+
+@pytest.mark.gpu
+def test_bf16_ffn_kernel_raises_on_what_it_does_not_take(dev):
+    args = _ffn_args(dev, torch.bfloat16, 16, 128, 384)
+    with pytest.raises(ValueError):  # bf16 splits of 96: not a multiple of 64
+        ffn.fused_bf16_ffn_ln_residual(*args, n_splits=4)
+    args = _ffn_args(dev, torch.bfloat16, 16, 128, 512)
+    with pytest.raises(ValueError):  # a transposed (non-contiguous) weight
+        ffn.fused_bf16_ffn_ln_residual(*args[:3], args[3].t().contiguous().t(), *args[4:])
+    with pytest.raises(ValueError):  # D = 96
+        ffn.fused_bf16_ffn_ln_residual(*_ffn_args(dev, torch.bfloat16, 16, 96, 512))
+
+
+@pytest.mark.gpu
+def test_no_path_launches_the_half_ffn(dev):
+    """Neither beam decoding nor the speech encoder calls the half-FFN
+    kernel (the Conformer keeps its plain branch, as the JAX one does);
+    decoding goes through the masked attend."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import (
+        init_speech_encoder_params,
+        init_text_decoder_params,
+        speech_encoder_from_numpy,
+        text_decoder_from_numpy,
+    )
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.inference_pipelines.speech import TorchSpeechEncoder
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+    from sonar_tpu_torch.nn.conformer import ConformerConfig
+
+    toy = sonar_text_decoder_archs.get("toy")
+    cfg = dataclasses.replace(toy, model_dim=128, num_encoder_attn_heads=2,
+                              num_decoder_attn_heads=2, ffn_inner_dim=256,
+                              vocab_info=dataclasses.replace(toy.vocab_info, size=3000))
+    dec = TorchTextDecoder(text_decoder_from_numpy(init_text_decoder_params(cfg, seed=0), cfg,
+                                                   torch.bfloat16, device=dev), device=dev)
+    base = sonar_speech_encoder_archs.get("toy")
+    scfg = dataclasses.replace(
+        base, conformer=ConformerConfig(model_dim=128, num_layers=2, num_heads=2,
+                                        ffn_inner_dim=256, depthwise_kernel_size=7),
+        frontend=dataclasses.replace(base.frontend, num_fbank_channels=80, model_dim=128),
+        model_dim=128, num_decoder_attn_heads=2, ffn_inner_dim=256)
+    enc = TorchSpeechEncoder(speech_encoder_from_numpy(init_speech_encoder_params(scfg, seed=0),
+                                                       scfg, torch.bfloat16, device=dev),
+                             device=dev)
+    rng = np.random.default_rng(0)
+    half, masked = ffn.BF16_LAUNCHES, beam_attend.MASKED_LAUNCHES
+    dec.generate_beam(rng.normal(size=(2, 1, 128)).astype(np.float32), [3, 7],
+                      BeamSearchConfig(beam_size=3, max_gen_len=6))
+    enc.encode_waveforms([rng.normal(size=16000 * 3).astype(np.float32) * 0.1])
+    torch.cuda.synchronize()
+    assert ffn.BF16_LAUNCHES == half
+    assert beam_attend.MASKED_LAUNCHES > masked
+
+
 @pytest.mark.gpu
 def test_sampling_card_matches_cpu(dev):
     """Top-p sampling of a small decoder on the card and on the CPU, the
