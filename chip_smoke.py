@@ -5,12 +5,12 @@
 
     python3 chip_smoke.py --compare DIR [DIR ...]
 
-The second form runs none of the phases below: it times
-``beam_masked_attend``, ``fused_bf16_ffn_ln_residual`` and beam decoding
-with the full-width ``basic`` decoder (``times_of``) for each checkout DIR
-(e.g. an unpacked parent commit under the git-ignored ``build/``) and this
-one in turns, each in a process of its own, each building its kernels into
-its own ``build/``.
+The second form runs none of the phases below: it times the three
+beam-attend kernels, rel-pos v1 and v2, ``fused_bf16_ffn_ln_residual`` and
+beam decoding with the full-width ``basic`` decoder (``times_of``) for each
+checkout DIR (e.g. an unpacked parent commit under the git-ignored
+``build/``) and this one in turns, each in a process of its own, each
+building its kernels into its own ``build/``.
 
 Phases, each printing ``#`` lines:
 
@@ -51,7 +51,16 @@ Phases, each printing ``#`` lines:
     tiling (inputs and output; the scores written and read back); rel-pos
     v2 in bf16 called 16 times on one input at [1, 16, 2048, 64],
     [2, 16, 1999, 64] and [8, 16, 499, 64], its workspace filled with NaN
-    before each call, every output equal to the first bit for bit;
+    before each call, every output equal to the first bit for bit, and its
+    fp32 time at [8, 16, 499, 64] held to 2.9114 ms plus 10%;
+    rel-pos v1 at [8, 16, 499, 64] in bf16 (timed beside SDPA on q + u with
+    the mask bd * Dh^-0.5 + key bias) and fp32 (timed), at [2, 2, 130, 64]
+    fp32, [2, 16, 1999, 64] and [1, 8, 2048, 128] bf16, each called twice,
+    equal bit for bit; ``beam_reorder_attend`` also with sel naming one row
+    for every beam and the identity, K 1 and 16, Dh 32 and 128, idx 0 and
+    S - 1, S 259, the new caches equal to the plain version's and two calls
+    equal bit for bit each time, and timed in bf16 at the decode shape
+    (random and one-row sel) and at S 259, idx 200, warm and with a cold L2;
 (d) the slice: the ``basic`` SONAR text encoder at full width (24 layers,
     D 1024, 16 heads, FFN 8192, vocabulary 256,206) with seeded random
     weights, behind ``TextToEmbeddingModelPipeline.predict`` with a
@@ -138,6 +147,11 @@ F32_MIN = -3.4028234663852886e38
 N_SENTENCES = 3000  # corpus of the slice phase
 RELPOS_REPEATS = 16  # calls of the rel-pos v2 kernel on one input, held equal bit for bit
 BEAM_REPEATS = 16  # calls of beam_masked_attend at the long cache, held equal bit for bit
+# rel-pos v2 in fp32 at [8, 16, 499, 64] on an NVIDIA H100 80GB HBM3 at 700 W
+# before its last launch (the fp32 v1 kernel) was last edited: its time
+# there may not exceed this by more than the spread between runs and cards,
+# taken as 10%.
+RELPOS_V2_F32_MS, SPREAD = 2.9114, 0.10
 
 KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its launch count)
     "short_qkv_attention": ("sonar_tpu_torch/csrc/short_attn.cu",
@@ -160,7 +174,7 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its
     "beam_diag_attend": ("sonar_tpu_torch/csrc/beam_attend.cu",
                          "sonar_tpu/ops/pallas/beam_attend.py:141", "beam_attend",
                          "DIAG_LAUNCHES"),
-    "beam_reorder_attend": ("sonar_tpu_torch/csrc/beam_attend.cu",
+    "beam_reorder_attend": ("sonar_tpu_torch/csrc/beam_reorder.cu",
                             "sonar_tpu/ops/pallas/beam_attend.py:225", "beam_attend",
                             "REORDER_LAUNCHES"),
     "fused_bf16_ffn_ln_residual": ("sonar_tpu_torch/csrc/bf16_ffn.cu",
@@ -684,6 +698,14 @@ def check_kernels(torch):
                     {_kind(dt): relpos_bound_ops(b, h, s, dh, 1024)}))
         if timed and dt == bf16:
             log_relpos_work(b, h, s, dh, 1024, results["relpos_flash_attention_v2"])
+        if timed and dt == f32 and s == 499:
+            # fp32 v2's third launch is v1's fp32 kernel: it stays as fast.
+            ms = results["relpos_flash_attention_v2"]["last_ms"]
+            ok = ms <= RELPOS_V2_F32_MS * (1 + SPREAD)
+            log(f"check relpos_flash_attention_v2 [8,16,499,64] float32 time: {ms:.4f} ms (<= "
+                f"{RELPOS_V2_F32_MS} ms + {SPREAD:.0%}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("relpos_flash_attention_v2 fp32 slower")
         del args
     # The bf16 kernel keeps its scores in a workspace between its passes and
     # shares tiles across a cluster: calls on the same inputs must give the
@@ -703,15 +725,68 @@ def check_kernels(torch):
         if not ok:
             failures.append(f"relpos_flash_attention_v2 [{b},{h},{s},{dh}] repeated")
         del args, outs
-    for b, h, s, dh, dt in ((8, 16, 499, 64, bf16), (2, 2, 130, 64, f32)):
+    # K7 (v1): at the speech batch's shape in bf16 (timed) and fp32 (timed: the
+    # kernel of fp32 v2's third launch), and where the bf16 kernel's rows a
+    # block change (64 up to S ~700, then 32, then 16: S 1999, 2048 at Dh
+    # 128); every case called twice, equal bit for bit. Library call: SDPA on
+    # q + u with the mask bd * Dh^-0.5 + key bias in q's dtype (built outside
+    # the timed call).
+    for b, h, s, dh, dt in ((8, 16, 499, 64, bf16), (8, 16, 499, 64, f32), (2, 2, 130, 64, f32),
+                            (2, 16, 1999, 64, bf16), (1, 8, 2048, 128, bf16)):
         q, k, v, wr, si, ci, basis, u, vb, kb = relpos_args(b, h, s, dh, dt)
         bd = relpos_flash.relpos_bd_plain(q, wr, si, ci, basis, vb).to(dt)
-        check("relpos_flash_attention", f"[{b},{h},{s},{dh}] {str(dt)[6:]}",
+        timed = (b, s) == (8, 499)
+        qu = q + u[None, :, None, :] if timed else None
+        mask = (bd.float() * dh ** -0.5 + kb[:, None, None, :]).to(dt) if timed else None
+        label = f"[{b},{h},{s},{dh}] {str(dt)[6:]}"
+        check("relpos_flash_attention", label,
               lambda: relpos_flash.relpos_flash_attention(q, k, v, bd, u, kb),
               lambda: relpos_flash.relpos_flash_attention_plain(q, k, v, bd, u, kb),
-              *tol[dt], timed=(b, dt) == (8, bf16),
-              cost=(2 * nbytes(q) + nbytes(k, v, bd, u, kb), {_kind(dt): 4 * b * h * s * s * dh}))
-        del bd
+              *tol[dt], timed=timed,
+              cost=(2 * nbytes(q) + nbytes(k, v, bd, u, kb), {_kind(dt): 4 * b * h * s * s * dh}),
+              library_fn=lambda: F.scaled_dot_product_attention(qu, k, v, attn_mask=mask))
+        first = relpos_flash.relpos_flash_attention(q, k, v, bd, u, kb)
+        ok = torch.equal(relpos_flash.relpos_flash_attention(q, k, v, bd, u, kb), first)
+        log(f"check relpos_flash_attention {label} repeated: 2 calls equal bit for bit "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"relpos_flash_attention {label} repeated")
+        del bd, qu, mask, first
+
+    def reorder_args(q, k, v, sel, vbias, woh):
+        b, beam, h, dh = q.shape
+        kn, vn = rand(b, beam, h, dh, dtype=q.dtype), rand(b, beam, h, dh, dtype=q.dtype)
+        return q, kn, vn, k, v, sel, vbias, woh
+
+    def reorder_cost(rargs):
+        """K10's bound: q, this step's rows, sel, the biases and the output
+        once, each distinct source slab read once, both caches written."""
+        q, kn, vn, k, v, sel, vbias, woh = rargs
+        b, beam, h, dh = q.shape
+        n_src = sum(len(set(r)) for r in sel.tolist()) * h  # distinct slabs read
+        slab = k.shape[3] * dh * k.element_size()
+        return (nbytes(q, kn, vn, sel, vbias, woh, q) + 2 * n_src * slab + 2 * nbytes(k),
+                {_kind(q.dtype): 4 * b * h * beam * k.shape[3] * dh})
+
+    def reorder_held(label, rargs):
+        """The new caches equal the plain version's bit for bit; a second call
+        gives the same bits in all three outputs."""
+        got, want = beam_attend.beam_reorder_attend(*rargs), beam_attend.beam_reorder_attend_plain(*rargs)
+        again = beam_attend.beam_reorder_attend(*rargs)
+        caches = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        same = all(torch.equal(x, y) for x, y in zip(again, got))
+        log(f"check beam_reorder_attend {label}: caches equal to the plain version's "
+            f"{'ok' if caches else 'FAIL'}, 2 calls equal bit for bit {'ok' if same else 'FAIL'}")
+        if not (caches and same):
+            failures.append(f"beam_reorder_attend {label}: caches or repeat differ")
+
+    def sel_of(kind, b, beam):
+        if kind == "one-row":  # late in a search: every beam of a sentence names one row
+            return torch.randint(0, beam, (b, 1), generator=gen, device=dev,
+                                 dtype=torch.int32).expand(b, beam).contiguous()
+        if kind == "identity":
+            return torch.arange(beam, device=dev, dtype=torch.int32).expand(b, beam).contiguous()
+        return torch.randint(0, beam, (b, beam), generator=gen, device=dev, dtype=torch.int32)
 
     # K8-K10: the beam-attend kernels, at the JAX kernel tests' shapes and at
     # the beam-decode shape of phase (f) (B 32, K 5, H 16, S 51, Dh 64; the
@@ -758,19 +833,51 @@ def check_kernels(torch):
                     {_kind(dt): 4 * b * h * beam * (idx + 1) * dh}),
               library_fn=lambda: F.scaled_dot_product_attention(
                   q.permute(0, 2, 1, 3)[:, :, :, None], k, v, attn_mask=valid))
-        kn, vn = rand(b, beam, h, dh, dtype=dt), rand(b, beam, h, dh, dtype=dt)
-        rargs = (q, kn, vn, k, v, sel, vbias, woh)
-        got, want = beam_attend.beam_reorder_attend(*rargs), beam_attend.beam_reorder_attend_plain(*rargs)
-        if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
-            failures.append(f"beam_reorder_attend {label}: caches differ")
-        n_src = sum(len(set(r)) for r in sel.tolist()) * h  # distinct winner rows read
+        rargs = reorder_args(q, k, v, sel, vbias, woh)
         check("beam_reorder_attend", label,
               lambda: beam_attend.beam_reorder_attend(*rargs),
               lambda: beam_attend.beam_reorder_attend_plain(*rargs),
-              *tol[dt], timed=timed, pick=lambda out: out[0],
-              cost=(nbytes(q, kn, vn, sel, vbias, woh, q) + 2 * n_src * s * row + 2 * nbytes(k),
-                    {_kind(dt): 4 * b * h * beam * s * dh}))
-        del k, v, kc, vc, got, want
+              *tol[dt], timed=timed, pick=lambda out: out[0], cost=reorder_cost(rargs))
+        reorder_held(label, rargs)
+        del k, v, kc, vc, rargs
+
+    # K10 with sel naming one row for every beam (late in a search) and the
+    # identity, K 1 and 16, Dh 32 and 128, idx 0 and S - 1, and a cache of 259
+    # positions (staged in chunks), against the plain version; the caches
+    # equal bit for bit, two calls equal. Then K10 in bf16 timed at the decode
+    # shape (random and one-row sel) and at S 259, idx 200, warm and with a
+    # cold L2 (a 256 MB write before each call), beside its bound.
+    for (b, beam, h, s, dh, idx), kind, dt in (
+            ((32, 5, 16, 51, 64, 25), "one-row", bf16), ((32, 5, 16, 51, 64, 25), "identity", bf16),
+            ((4, 1, 2, 51, 64, 25), "random", bf16), ((3, 5, 4, 51, 32, 0), "random", f32),
+            ((3, 5, 4, 51, 128, 50), "one-row", bf16), ((2, 16, 2, 51, 128, 25), "random", f32),
+            ((4, 5, 4, 259, 64, 200), "random", bf16), ((4, 5, 4, 259, 64, 258), "identity", f32),
+            ((2, 3, 2, 259, 32, 0), "one-row", bf16)):
+        label = f"B {b} K {beam} H {h} S {s} Dh {dh} idx {idx} {str(dt)[6:]} {kind} sel"
+        pos = torch.arange(s, device=dev)
+        rargs = reorder_args(rand(b, beam, h, dh, dtype=dt), rand(b, h, beam, s, dh, dtype=dt),
+                             rand(b, h, beam, s, dh, dtype=dt), sel_of(kind, b, beam),
+                             torch.where(pos <= idx, 0.0, -1e30).float(), (pos == idx).float())
+        check("beam_reorder_attend", label,
+              lambda: beam_attend.beam_reorder_attend(*rargs),
+              lambda: beam_attend.beam_reorder_attend_plain(*rargs),
+              *tol[dt], pick=lambda out: out[0])
+        reorder_held(label, rargs)
+        del rargs
+    for (b, beam, h, s, dh, idx), kind in (((32, 5, 16, 51, 64, 25), "random"),
+                                           ((32, 5, 16, 51, 64, 25), "one-row"),
+                                           ((32, 5, 16, 259, 64, 200), "random")):
+        pos = torch.arange(s, device=dev)
+        rargs = reorder_args(rand(b, beam, h, dh, dtype=bf16), rand(b, h, beam, s, dh, dtype=bf16),
+                             rand(b, h, beam, s, dh, dtype=bf16), sel_of(kind, b, beam),
+                             torch.where(pos <= idx, 0.0, -1e30).float(), (pos == idx).float())
+        fn = lambda: beam_attend.beam_reorder_attend(*rargs)  # noqa: E731
+        bound_ms = bound(*reorder_cost(rargs))[0]
+        warm, cold = _timed(torch, fn, 20), _timed_cold(torch, fn, 20)
+        log(f"time beam_reorder_attend B {b} K {beam} H {h} S {s} Dh {dh} idx {idx} bfloat16 "
+            f"{kind} sel: warm {warm:.4f} ms ({bound_ms / warm:.1%} of the bound), cold L2 "
+            f"{cold:.4f} ms ({bound_ms / cold:.1%}); bound {bound_ms:.4f} ms (bytes)")
+        del rargs
 
     # K8 at the cache of max_gen_len 256 (S 259, the write position at 200),
     # with a random ancestry and with a tree ancestry as beam search builds
@@ -1668,10 +1775,14 @@ def times_of(torch, card, root: Path) -> dict:
     K 5, H 16, Dh 64) at the decode shape of (f) and (g) for batches of 32,
     8 and 1 and at S 259, idx 200 with a random and a tree ancestry (warm,
     and with a cold L2 there), with the host's us a call (100 calls queued
-    back to back); of ``fused_bf16_ffn_ln_residual`` at M 3992, D 1024, F
-    4096, 2 splits; and the ms a step of the full-width ``basic`` decoder
-    in bf16 (beam 5, max_gen_len 48) decoding batches of 8 (the batch of
-    (g) and of text->text in (f)) and 1 (one sentence), 3 runs each."""
+    back to back), and in fp32 at B 32; of ``beam_diag_attend`` (bf16) at
+    B 32; of ``beam_reorder_attend`` (bf16) at B 32, S 51 with a random and
+    a one-row sel and at S 259, idx 200, warm and cold; of rel-pos v1 at
+    [8, 16, 499, 64] in bf16 and fp32 and v2 there in fp32; of
+    ``fused_bf16_ffn_ln_residual`` at M 3992, D 1024, F 4096, 2 splits; and
+    the ms a step of the full-width ``basic`` decoder in bf16 (beam 5,
+    max_gen_len 48) decoding batches of 8 (the batch of (g) and of
+    text->text in (f)) and 1 (one sentence), 3 runs each."""
     sys.path.insert(0, str(root))
     import numpy as np
 
@@ -1679,8 +1790,9 @@ def times_of(torch, card, root: Path) -> dict:
     from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
     from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
     from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+    from sonar_tpu_torch.nn.conformer import _trig_tables
     from sonar_tpu_torch.ops import _build
-    from sonar_tpu_torch.ops.cuda import beam_attend, ffn
+    from sonar_tpu_torch.ops.cuda import beam_attend, ffn, relpos_flash
 
     if not Path(_build.__file__).resolve().is_relative_to(root):
         raise AssertionError(f"{_build.__file__} is not under {root}")
@@ -1715,6 +1827,54 @@ def times_of(torch, card, root: Path) -> dict:
             out[key]["cold_ms"] = _timed_cold(torch, fn, 20)
         log(f"{root.name}: {key}: {out[key]}")
         del q, kc, vc
+
+    def rnd(*shape, dt=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dt)
+
+    def timed(key, fn, cold=False):
+        out[key] = {"ms": _timed(torch, fn, 20)}
+        if cold:
+            out[key]["cold_ms"] = _timed_cold(torch, fn, 20)
+        log(f"{root.name}: {key}: {out[key]}")
+
+    b, s, idx = 32, 51, 25
+    pos = torch.arange(s, device=dev)
+    vbias = torch.where(pos <= idx, 0.0, -1e30).float()
+    q, k, v = rnd(b, beam, h, dh), rnd(b, h, beam, s, dh), rnd(b, h, beam, s, dh)
+    timed(f"beam_diag_attend B {b} S {s} idx {idx}",
+          lambda: beam_attend.beam_diag_attend(q, k, v, vbias))
+    q32 = rnd(b * h, beam, dh, dt=torch.float32)
+    kc, vc = (rnd(b * h, beam, s, dh, dt=torch.float32) for _ in range(2))
+    anc = torch.randint(0, beam, (b, beam, s), generator=gen, device=dev, dtype=torch.int32)
+    timed(f"beam_masked_attend fp32 B {b} S {s} idx {idx} random",
+          lambda: beam_attend.beam_masked_attend(q32, kc, vc, anc, vbias, h))
+    for s, idx, kind in ((51, 25, "random"), (51, 25, "one-row"), (259, 200, "random")):
+        pos = torch.arange(s, device=dev)
+        sel = torch.randint(0, beam, (b, beam), generator=gen, device=dev, dtype=torch.int32)
+        if kind == "one-row":
+            sel = sel[:, :1].expand(b, beam).contiguous()
+        rargs = (rnd(b, beam, h, dh), rnd(b, beam, h, dh), rnd(b, beam, h, dh),
+                 rnd(b, h, beam, s, dh), rnd(b, h, beam, s, dh), sel,
+                 torch.where(pos <= idx, 0.0, -1e30).float(), (pos == idx).float())
+        timed(f"beam_reorder_attend B {b} S {s} idx {idx} {kind}",
+              lambda: beam_attend.beam_reorder_attend(*rargs), cold=True)
+    del q, k, v, q32, kc, vc, rargs
+    b, s, d = 8, 499, 1024
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (rnd(b, h, s, dh, dt=dt) for _ in range(3))
+        wr = rnd(h, d, dh, dt=dt, scale=d ** -0.5)
+        u, vb = rnd(h, dh, dt=dt, scale=0.1), rnd(h, dh, dt=dt, scale=0.1)
+        si, ci, basis = _trig_tables(s, d, dt, dev)
+        kb = torch.zeros(b, s, device=dev)
+        bd = relpos_flash.relpos_bd_plain(q, wr, si, ci, basis, vb).to(dt)
+        name = str(dt)[6:]
+        timed(f"relpos_flash_attention [{b},{h},{s},{dh}] {name}",
+              lambda: relpos_flash.relpos_flash_attention(q, k, v, bd, u, kb))
+        if dt == torch.float32:
+            timed(f"relpos_flash_attention_v2 [{b},{h},{s},{dh}] D {d} {name}",
+                  lambda: relpos_flash.relpos_flash_attention_v2(q, k, v, wr, si, ci, basis, u,
+                                                                 vb, kb))
+        del q, k, v, wr, bd
     m, d, f = 3992, 1024, 4096
     fargs = (torch.randn(m, d, generator=gen, device=dev).bfloat16(),
              torch.ones(d, device=dev), torch.zeros(d, device=dev),

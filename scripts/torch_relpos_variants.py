@@ -2,11 +2,11 @@
 them again and again to see whether they give the same bits every time.
 
 Each variant is ``name=old>>new||old>>new...``: text replacements applied to
-a copy of ``sonar_tpu_torch/csrc/relpos_flash.cu`` (``\\n`` in a spec is a
-newline; a spec cannot hold ``||`` or ``>>`` in its text); every variant is
-built into a library of its own under ``build/variants/<name>/`` and timed
-at [8, 16, 499, 64] (D 1024) in bf16 and fp32, in turns (the variants in
-order, then in reverse), beside its error against the plain version. An
+a copy of ``sonar_tpu_torch/csrc/`` as ``torch_kernel_variants.py`` applies
+them (its ``build``); every variant is built into a library of its own
+under ``build/variants/<name>/`` and timed at [8, 16, 499, 64] (D 1024) in
+bf16 and fp32, in turns (the variants in order, then in reverse), beside
+its error against the plain version. An
 empty spec (``base=``) is the source as it is. Ablations (a variant that
 skips work) give wrong results by design: only their times mean anything.
 
@@ -24,14 +24,15 @@ error against the plain version.
 """
 
 from pathlib import Path
-import shutil
 import subprocess
 import sys
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import torch  # noqa: E402
+from torch_kernel_variants import build, timed  # noqa: E402
 
 from sonar_tpu_torch.nn.conformer import _trig_tables  # noqa: E402
 from sonar_tpu_torch.ops import _build  # noqa: E402
@@ -69,39 +70,6 @@ PROBES = {
     "prefetch_cluster_release": _PREFETCH + "||" + _CLUSTER_RELEASE,
     "prefetch_no_cluster": _PREFETCH + "||" + _NO_CLUSTER,
 }
-
-
-def build(name: str, spec: str):
-    """The kernel library of one variant, or None if it does not build."""
-    root = REPO / "build" / "variants" / name
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(REPO / "sonar_tpu_torch" / "csrc", root / "csrc")
-    src = root / "csrc" / "relpos_flash.cu"
-    text = src.read_text()
-    for rep in filter(None, spec.split("||")):
-        old, new = (t.replace("\\n", "\n") for t in rep.split(">>"))
-        assert old in text, f"{name}: {old!r} not in the source"
-        text = text.replace(old, new)
-    src.write_text(text)
-    _build.CSRC, _build.BUILD_DIR, _build._lib = root / "csrc", root / "out", None
-    try:
-        return _build.library()
-    except RuntimeError as e:
-        print(name, "does not build:", str(e)[-3000:])
-        return None
-
-
-def timed(fn, iters=10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)  # queue the calls behind a spin, not the host
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
 
 
 def inputs(b, h, s, dh, dtype, d=1024, seed=0):

@@ -1,4 +1,4 @@
-// Beam-decode self-attention over the un-reordered KV cache: three kernels.
+// Beam-decode self-attention over the un-reordered KV cache: two kernels.
 //
 // Replace the TPU kernels of sonar_tpu/ops/pallas/beam_attend.py:
 //
@@ -9,10 +9,8 @@
 //       layer of every beam-decode step. This body serves fp32; bf16 runs
 //       on the tensor cores in csrc/beam_masked.cu, which also holds the
 //       C entry point;
-//   beam_diag_attend    (MODE_DIAG)    beam row k attends its own cache row;
-//   beam_reorder_attend (MODE_REORDER) gathers each row's winner history
-//       (sel), writes this step's K/V at the write position into new caches
-//       and attends the row's own (reordered) history.
+//   beam_diag_attend    (MODE_DIAG)    beam row k attends its own cache row.
+// The third kernel of that file, beam_reorder_attend, is csrc/beam_reorder.cu.
 //
 // The cache is [B, H, C, S, Dh] (C cache rows per sentence, C == K), seen
 // here as [B*H, C, S, Dh]. Numerics follow the TPU kernels: q scaled in
@@ -26,8 +24,7 @@
 // references, or whose bias is <= -1e29, is never read. Such a position's
 // term in the reference is exp(-1e29 - m) == 0 in fp32 exactly (a valid
 // position always exists on the decode path: position 0), so skipping it is
-// the same function. MODE_REORDER rewrites both caches whole, so it moves
-// read (the rows sel names) plus write (two full caches).
+// the same function.
 //
 // Design: one block per (sentence, head), one warp per query beam (at most
 // 16). A warp walks the positions 32 at a time: each lane finds the row its
@@ -41,22 +38,16 @@
 
 namespace {
 
-enum BeamMode { MODE_MASKED = 0, MODE_DIAG = 1, MODE_REORDER = 2 };
+enum BeamMode { MODE_MASKED = 0, MODE_DIAG = 1 };
 
 constexpr float kMasked = -1e29f;  // a bias at or below this contributes exactly 0
 
 struct BeamArgs {
-  const void* q;      // MASKED: [B*H, K, Dh]; DIAG, REORDER: [B, K, H, Dh]
+  const void* q;      // MASKED: [B*H, K, Dh]; DIAG: [B, K, H, Dh]
   const void* k;      // [B*H, C, S, Dh]
   const void* v;
   const int* anc;     // MASKED: [B, K, S] cache row per (query beam, position)
-  const int* sel;     // REORDER: [B, K] winner row each beam inherits from
-  const void* k_new;  // REORDER: [B, K, H, Dh] this step's keys
-  const void* v_new;
   const float* vbias; // [S] additive position bias
-  const float* wpos;  // REORDER: [S], != 0 at the write position
-  void* k_out;        // REORDER: [B*H, K, S, Dh]
-  void* v_out;
   void* out;          // laid out like q
   int H, K, C, S, Dh;
   float scale;
@@ -83,12 +74,15 @@ __device__ __forceinline__ size_t q_offset(const BeamArgs& a, int mode, int bh, 
   return row * a.Dh;
 }
 
+// At most 64 registers a thread (two blocks of 512 threads an SM): left to
+// itself the compiler took 36 and kept fewer row loads in flight, and the
+// fp32 masked attend ran 7% slower.
 template <typename T, int DPL, int MODE>
-__global__ void __launch_bounds__(512) beam_attend_kernel(BeamArgs a) {
+__global__ void __launch_bounds__(512, 2) beam_attend_kernel(BeamArgs a) {
   extern __shared__ float qs[];  // [K, Dh] scaled queries
   constexpr int DH = 32 * DPL;
   constexpr int PER = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int NONE = -1, FRESH = -2;  // no row; REORDER: this step's k_new / v_new row
+  constexpr int NONE = -1;              // no row
   constexpr int UNROLL = 8;             // positions of P @ V whose loads are in flight together
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
   const int kq = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -104,25 +98,14 @@ __global__ void __launch_bounds__(512) beam_attend_kernel(BeamArgs a) {
   const T* kc = static_cast<const T*>(a.k) + (size_t)bh * a.C * S * DH;
   const T* vc = static_cast<const T*>(a.v) + (size_t)bh * a.C * S * DH;
   const int* anc = MODE == MODE_MASKED ? a.anc + ((size_t)b * a.K + kq) * S : nullptr;
-  const int src = MODE == MODE_REORDER ? a.sel[b * a.K + kq] : kq;
-  const size_t new_row = ((size_t)b * a.K + kq) * a.H + h;  // REORDER: row of k_new/v_new
-  T* ko = MODE == MODE_REORDER ? static_cast<T*>(a.k_out) + ((size_t)bh * a.K + kq) * S * DH
-                               : nullptr;
-  T* vo = MODE == MODE_REORDER ? static_cast<T*>(a.v_out) + ((size_t)bh * a.K + kq) * S * DH
-                               : nullptr;
 
-  // The row position s of this query reads: a cache row (>= 0), FRESH or NONE.
+  // The row position s of this query reads: a cache row (>= 0) or NONE.
   auto code_of = [&](int s) -> int {
-    if (MODE == MODE_REORDER) {
-      if (a.wpos[s] != 0.f) return FRESH;
-      return (src >= 0 && src < a.C) ? src : NONE;
-    }
     const int c = MODE == MODE_MASKED ? anc[s] : kq;
     return (c >= 0 && c < a.C) ? c : NONE;
   };
-  auto row_ptr = [&](const T* cache, const void* fresh, int code, int s) -> const T* {
-    return code == FRESH ? static_cast<const T*>(fresh) + new_row * DH
-                         : cache + ((size_t)code * S + s) * DH;
+  auto row_ptr = [&](const T* cache, int code, int s) -> const T* {
+    return cache + ((size_t)code * S + s) * DH;
   };
 
   float m = -INFINITY, l = 0.f, acc[DPL];
@@ -136,15 +119,13 @@ __global__ void __launch_bounds__(512) beam_attend_kernel(BeamArgs a) {
     int code = NONE;
     if (s < S) {
       const float vb = a.vbias[s];
-      if (vb > kMasked || MODE == MODE_REORDER) code = code_of(s);
+      if (vb > kMasked) code = code_of(s);
       if (code != NONE) {
-        const uint4* r = reinterpret_cast<const uint4*>(row_ptr(kc, a.k_new, code, s));
-        uint4* w = MODE == MODE_REORDER ? reinterpret_cast<uint4*>(ko + (size_t)s * DH) : nullptr;
+        const uint4* r = reinterpret_cast<const uint4*>(row_ptr(kc, code, s));
         float dot = 0.f;
 #pragma unroll
         for (int i = 0; i < DH / PER; ++i) {
           const uint4 u = r[i];
-          if (MODE == MODE_REORDER) w[i] = u;
           const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
           for (int j = 0; j < PER; ++j) dot += q[i * PER + j] * to_float(e[j]);
@@ -168,10 +149,9 @@ __global__ void __launch_bounds__(512) beam_attend_kernel(BeamArgs a) {
         const int j = j0 + u;  // < 32: j0 <= 24
         pj[u] = __shfl_sync(0xffffffffu, p, j);
         const int cj = __shfl_sync(0xffffffffu, code, j);
-        const bool take = j < n && cj != NONE && (MODE == MODE_REORDER || pj[u] != 0.f);
+        const bool take = j < n && cj != NONE && pj[u] != 0.f;
         if (take) {
-          Slice<T, DPL>::load(row_ptr(vc, a.v_new, cj, s0 + j) + lane * DPL, val[u]);
-          if (MODE == MODE_REORDER) Slice<T, DPL>::store(vo + (size_t)(s0 + j) * DH + lane * DPL, val[u]);
+          Slice<T, DPL>::load(row_ptr(vc, cj, s0 + j) + lane * DPL, val[u]);
         } else {
 #pragma unroll
           for (int i = 0; i < DPL; ++i) val[u][i] = 0.f;
@@ -232,16 +212,4 @@ extern "C" int sonar_beam_diag_attend(const void* q, const void* k, const void* 
   a.q = q; a.k = k; a.v = v; a.vbias = vbias; a.out = out;
   a.H = H; a.K = K; a.C = K; a.S = S; a.Dh = Dh;
   return launch<MODE_DIAG>(a, B * H, kind, (cudaStream_t)stream);
-}
-
-extern "C" int sonar_beam_reorder_attend(const void* q, const void* k_new, const void* v_new,
-                                         const void* k, const void* v, const int* sel,
-                                         const float* vbias, const float* wpos, void* k_out,
-                                         void* v_out, void* out, int B, int H, int K, int S,
-                                         int Dh, int kind, void* stream) {
-  BeamArgs a{};
-  a.q = q; a.k = k; a.v = v; a.sel = sel; a.k_new = k_new; a.v_new = v_new; a.vbias = vbias;
-  a.wpos = wpos; a.k_out = k_out; a.v_out = v_out; a.out = out;
-  a.H = H; a.K = K; a.C = K; a.S = S; a.Dh = Dh;
-  return launch<MODE_REORDER>(a, B * H, kind, (cudaStream_t)stream);
 }

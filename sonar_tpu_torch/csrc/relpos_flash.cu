@@ -50,11 +50,41 @@
 // per 128 query rows where a 16-row block fetched it once per 16) and the
 // v1 kernel on that bd.
 //
-// v1 (relpos_kernel): one block of 8 warps per (batch, head, 16 query
-// rows), the 16 fp32 score rows in shared memory (128 KB at S 2048), one
-// pass over the keys.
-#include <type_traits>
-
+// v1 in bf16 (relpos_v1_tc_kernel). What bounds it at [8, 16, 499, 64] in
+// principle: bytes, 96 MB, two thirds of them the given bd [B, H, S, S]
+// (0.029 ms at 3.35 TB/s), against 8 GFLOP of tensor-core work. The design:
+//   - a block takes 32 query rows of one (batch, head) (16 past S ~1400, where
+//     32 rows' scores no longer fit), so each K and V tile it stages serves
+//     all of them; K, V and bd come through one ring of 2-3 slots by 16-byte
+//     cp.async: per 64-key tile, K in 64-column items (rows padded to 144
+//     bytes, read by ldmatrix), and beside the last one the block's bd rows
+//     of those keys. bd rows start at any element (S odd), so each row's 64
+//     keys come as the 9 aligned 16-byte chunks that cover them, and the
+//     row's offset into its chunk is added on reading;
+//   - ac = (q + u) . k on mma.sync, exactly: q, u and k are bf16, so
+//     (q + u) . k = q . k + u . k with every product exact in fp32; u is
+//     given as a second A operand (its value in all 16 rows), into the same
+//     fp32 accumulator. Only the order of the fp32 sum differs from the TPU
+//     kernel's, which adds q + u in fp32 first;
+//   - score = (ac + bd) * scale + key bias into shared memory, fp32, all S
+//     of the block's rows (32 x 512 x 4 = 64 KB at S 499), so the row max is
+//     exact; each thread then replaces its own scores by exp(s - max) (one
+//     expf a logit) and the rows' sums combine across the 4 warps that share
+//     a row;
+//   - P = exp / sum, divided as __fdiv_rn divides (tc_normalise) and rounded
+//     to bf16 where the TPU kernel rounds it, is the A fragment of P V on
+//     mma.sync, V's tiles through the same ring (ldmatrix.trans); the 4
+//     warps of a row group each sum 16 keys of every tile, and their fp32
+//     partials are added in a fixed order at the end.
+// What holds it back, measured on the card (PERF.md §6): not bytes (without
+// bd it is 10% faster) and not the tensor cores, but the instructions and
+// dependent steps each 64-key item costs its warps (the copies' issue, the
+// products' chain, the epilogue), behind a block barrier an item. Designs
+// measured slower: 64-row blocks (one an SM), a producer warp issuing every
+// copy, K and V by TMA boxes, a bulk copy per bd row.
+// v1 in fp32 (relpos_kernel), also the last launch of v2 in fp32: one block
+// of 8 warps per (batch, head, 16 query rows), the 16 fp32 score rows in
+// shared memory (128 KB at S 2048), one pass over the keys, fp32 FMAs.
 #include "attention.cuh"
 #include "hopper.cuh"
 
@@ -117,21 +147,10 @@ __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
-  const uint4 r = ldg16(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __bfloat162float(h[i].x);
-    x[2 * i + 1] = __bfloat162float(h[i].y);
-  }
-}
-
 // acc[r] += sum_e A[r][e] x[e] over e < n (n a multiple of 8), A in shared
 // memory (every thread reads the same A: broadcast), x a row in device memory.
-template <typename X>
 __device__ __forceinline__ void fma_rows(float (&acc)[RP_BQ], const float* A, int lda,
-                                         const X* x, int n) {
+                                         const float* x, int n) {
   for (int e = 0; e < n; e += 8) {
     float xv[8];
     load8(x + e, xv);
@@ -162,11 +181,11 @@ __device__ __forceinline__ float score_of(float ac, float bd, float scale, float
   return __fadd_rn(__fmul_rn(__fadd_rn(ac, bd), scale), kb);
 }
 
-// v1, and the last launch of v2 in fp32 (bd from its workspace). Two blocks
-// an SM (at most 128 registers a thread): at one, v1 ran 1.5x slower.
-template <typename T, int DH>
+// v1 in fp32, and the last launch of v2 in fp32 (bd from its workspace).
+// Two blocks an SM (at most 128 registers a thread): at one, v1 ran 1.5x
+// slower.
+template <int DH>
 __global__ void __launch_bounds__(RP_THREADS, 2) relpos_kernel(RelposArgs a) {
-  constexpr bool BF = std::is_same<T, bf16>::value;
   constexpr int LDQ = DH + RP_QPAD;
   extern __shared__ __align__(16) unsigned char rp_smem[];
   const int S = a.S, lds = rp_score_ld(S);
@@ -175,30 +194,29 @@ __global__ void __launch_bounds__(RP_THREADS, 2) relpos_kernel(RelposArgs a) {
 
   const int q0 = blockIdx.x * RP_BQ, h = blockIdx.y, b = blockIdx.z + a.b0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const T* qb = reinterpret_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = reinterpret_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vbase = reinterpret_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* qb = reinterpret_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kb = reinterpret_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vbase = reinterpret_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
   const float* kbias = a.key_bias ? a.key_bias + (long long)b * S : nullptr;
 
-  // Query rows plus u, in fp32 (rows past S read as 0).
+  // Query rows plus u (rows past S read as 0).
   for (int e = tid; e < RP_BQ * DH; e += RP_THREADS) {
     const int r = e / DH, d = e - r * DH, i = q0 + r;
-    const float qx = i < S ? to_float(qb[i * a.q_ss + d]) : 0.f;
-    QU[r * LDQ + d] = __fadd_rn(qx, to_float(reinterpret_cast<const T*>(a.u)[h * DH + d]));
+    const float qx = i < S ? qb[i * a.q_ss + d] : 0.f;
+    QU[r * LDQ + d] = __fadd_rn(qx, reinterpret_cast<const float*>(a.u)[h * DH + d]);
   }
   __syncthreads();
 
   // -- scores of the 16 rows against every key, into shared memory: bd read
   // from the given [B, H, S, S] tensor (of this launch's batch rows), ac =
-  // (q + u) . k in fp32 -------------------------------------------------------
-  const T* bdb = reinterpret_cast<const T*>(a.bd) + ((long long)blockIdx.z * a.H + h) * S * S;
+  // (q + u) . k -------------------------------------------------------------
+  const float* bdb = reinterpret_cast<const float*>(a.bd) + ((long long)blockIdx.z * a.H + h) * S * S;
   for (int j = tid; j < S; j += RP_THREADS) {
     float bd[RP_BQ], ac[RP_BQ];
 #pragma unroll
     for (int r = 0; r < RP_BQ; ++r) {
       const int i = q0 + r;
-      bd[r] = i < S ? to_float(bdb[(long long)i * S + j]) : 0.f;
+      bd[r] = i < S ? bdb[(long long)i * S + j] : 0.f;
       ac[r] = 0.f;
     }
     fma_rows(ac, QU, LDQ, kb + j * a.k_ss, DH);
@@ -208,8 +226,7 @@ __global__ void __launch_bounds__(RP_THREADS, 2) relpos_kernel(RelposArgs a) {
   }
   __syncthreads();
 
-  // -- softmax of each row: fp32, true division; P rounded to T in place -----
-  const int spv = (S + 15) & ~15;  // P . V runs over k16 steps; P is 0 past S
+  // -- softmax of each row, true division, in place ---------------------------
   for (int rr = 0; rr < RP_BQ / RP_WARPS; ++rr) {
     const int r = warp * (RP_BQ / RP_WARPS) + rr;
     float* row = Ss + r * lds;
@@ -219,77 +236,338 @@ __global__ void __launch_bounds__(RP_THREADS, 2) relpos_kernel(RelposArgs a) {
     float sum = 0.f;
     for (int j = lane; j < S; j += 32) sum += expf(row[j] - m);
     sum = warp_sum(sum);
-    if constexpr (BF) {
-      // bf16 P over the row's own first half: iteration j0 writes floats
-      // [j0 / 2, j0 / 2 + 16), all read at or before this iteration.
-      bf16* prow = reinterpret_cast<bf16*>(row);
-      for (int j0 = 0; j0 < spv; j0 += 32) {
-        const int j = j0 + lane;
-        const float p = j < S ? __fdiv_rn(expf(row[j] - m), sum) : 0.f;
-        __syncwarp();
-        if (j < spv) prow[j] = __float2bfloat16_rn(p);
-        __syncwarp();
-      }
-    } else {
-      for (int j = lane; j < S; j += 32) row[j] = __fdiv_rn(expf(row[j] - m), sum);
-    }
+    for (int j = lane; j < S; j += 32) row[j] = __fdiv_rn(expf(row[j] - m), sum);
   }
   __syncthreads();
 
-  // -- out = P V, fp32 accumulation, rounded to T ------------------------------
-  T* ob = reinterpret_cast<T*>(a.out) + ((long long)b * a.H + h) * S * DH;
-  if constexpr (BF) {
-    constexpr int NT = DH / (8 * RP_WARPS);  // n8 tiles per warp
-    const int d0 = warp * (DH / RP_WARPS);
-    float o[NT][4];
+  // -- out = P V, fp32 accumulation --------------------------------------------
+  float* ob = reinterpret_cast<float*>(a.out) + ((long long)b * a.H + h) * S * DH;
+  constexpr int RPT = RP_BQ * DH / RP_THREADS;  // rows per thread
+  const int d = tid % DH, r0 = (tid / DH) * RPT;
+  float o[RPT];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+  for (int r = 0; r < RPT; ++r) o[r] = 0.f;
+  for (int j = 0; j < S; ++j) {
+    const float vv = vbase[j * a.v_ss + d];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-    const T* p_lo = reinterpret_cast<const T*>(Ss + g * lds);
-    const T* p_hi = reinterpret_cast<const T*>(Ss + (g + 8) * lds);
-    const T zero = __float2bfloat16_rn(0.f);
-    for (int k0 = 0; k0 < spv; k0 += 16) {
-      const int j = k0 + 2 * t4;
-      const uint32_t a0 = *reinterpret_cast<const uint32_t*>(p_lo + j);
-      const uint32_t a1 = *reinterpret_cast<const uint32_t*>(p_hi + j);
-      const uint32_t a2 = *reinterpret_cast<const uint32_t*>(p_lo + j + 8);
-      const uint32_t a3 = *reinterpret_cast<const uint32_t*>(p_hi + j + 8);
+    for (int r = 0; r < RPT; ++r) o[r] = fmaf(Ss[(r0 + r) * lds + j], vv, o[r]);
+  }
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const T* vc = vbase + d0 + nt * 8 + g;
-        const T v0 = j < S ? vc[j * a.v_ss] : zero;
-        const T v1 = j + 1 < S ? vc[(j + 1) * a.v_ss] : zero;
-        const T v2 = j + 8 < S ? vc[(j + 8) * a.v_ss] : zero;
-        const T v3 = j + 9 < S ? vc[(j + 9) * a.v_ss] : zero;
-        mma_bf16(o[nt], a0, a1, a2, a3, bf16x2_bits(v0, v1), bf16x2_bits(v2, v3));
+  for (int r = 0; r < RPT; ++r) {
+    const int i = q0 + r0 + r;
+    if (i < S) ob[(long long)i * DH + d] = o[r];
+  }
+}
+
+// -- v1 in bf16: the tensor-core kernel -------------------------------------------
+
+constexpr int V1_KT = 64;          // keys of a tile
+constexpr int V1_KP = 4;           // warps of a row group: each takes 16 keys of every tile
+constexpr int V1_PITCH = 144;      // bytes of a staged row: 64 bf16 + 16 (K, V) or 9 chunks (bd)
+
+__host__ __device__ inline int v1_score_ld(int S) {  // == 8 (mod 32): float2 rows meet no bank twice
+  return (S + V1_KT - 1) / V1_KT * V1_KT + 8;
+}
+
+// One ring slot: a K or V item (64 keys x 64 columns), then, with K's last
+// item of a tile, the block's bq rows of bd for those keys.
+__host__ __device__ inline int v1_slot_bytes(int bq) { return V1_PITCH * (V1_KT + bq); }
+
+static size_t v1_smem(int S, int DH, int bq, int stages) {
+  // scores and the rows' max and sum (4 warps each), the ring; later the 4
+  // warps' output partials of a row group, rows padded by 8 floats
+  const size_t main = sizeof(float) * (size_t)bq * (v1_score_ld(S) + 2 * V1_KP) +
+                      (size_t)stages * v1_slot_bytes(bq);
+  const size_t red = sizeof(float) * V1_KP * (size_t)bq * (DH + 8);
+  return main > red ? main : red;
+}
+
+__device__ __forceinline__ void cp_async_wait_upto(int n) {  // n in 0..2
+  if (n >= 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// One block of BQ / 16 row groups x 4 warps per (batch, head, BQ query
+// rows); warp (rg, kp) takes rows 16 rg .. 16 rg + 15 and keys 16 kp ..
+// 16 kp + 15 of every 64-key tile, in both products. Items through the
+// ring, in order: per tile, K's DH / 64 column blocks (bd with the last),
+// then per tile V's. Each thread's share of the copies is worked out once
+// (BQ is a template parameter, so its count is a constant), an item costs
+// one block barrier, and the loads that do not need the item are issued
+// before it.
+template <int DH, int BQ>
+__global__ void __launch_bounds__(BQ * 8, 1) relpos_v1_tc_kernel(RelposArgs a, int stages) {
+  constexpr int CB = DH / 64;  // 64-column items of a K or V tile
+  constexpr int bq = BQ, nthreads = BQ * 8;
+  extern __shared__ __align__(16) unsigned char v1_raw[];
+  const int S = a.S, lds = v1_score_ld(S), tiles = (S + V1_KT - 1) / V1_KT;
+  float* Ss = reinterpret_cast<float*>(v1_raw);  // [bq][lds] scores, then exp(s - max)
+  float* mx = Ss + bq * lds;                     // [4][bq] the warps' row maxima
+  float* sm = mx + V1_KP * bq;                   // [4][bq] and sums
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sm + V1_KP * bq);
+  const int slot_bytes = v1_slot_bytes(bq);
+  unsigned char* const ring_end = ring + stages * slot_bytes;
+
+  const int q0 = blockIdx.x * bq, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, rg = warp / V1_KP, kp = warp % V1_KP;
+  const int row0 = 16 * rg + g;  // this thread's rows: row0, row0 + 8 (of the block)
+  const bf16* kb = reinterpret_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const bf16* vb = reinterpret_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const long long bd_row = ((long long)b * a.H + h) * S + q0;  // flat row index of row 0
+  const float* kbias = a.key_bias ? a.key_bias + (long long)b * S : nullptr;
+  const int n_a = tiles * CB, n_items = 2 * n_a;
+
+  // This thread's 16-byte cp.async copies of an item, worked out once. K or
+  // V: rows kv_r0 + i kv_rstep (i < kv_n) of the 64-key tile, chunk kv_ch.
+  // bd: the (row, chunk) pairs tid and tid + nthreads of the bq x 9 grid;
+  // row r's keys j0 .. j0 + len - 1 start at flat element f = (bd_row + r)
+  // S + j0, at offset f % 8 (the same for every tile) into the aligned chunk
+  // that holds it, and chunk ch is copied when 8 ch - f % 8 < len.
+  const int kv_ch = tid & 7, kv_r0 = tid >> 3;
+  constexpr int kv_rstep = nthreads >> 3, kv_n = V1_KT * 8 / nthreads;
+  const bf16* bd_src[2];
+  int bd_dst[2], bd_lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int e = tid + i * nthreads, r = e / 9, ch = e - r * 9;
+    const long long f = (bd_row + r) * S;
+    const int off = (int)(f & 7);
+    const bool row_in = e < bq * 9 && q0 + r < S;
+    bd_src[i] = reinterpret_cast<const bf16*>(a.bd) + (row_in ? f - off + 8 * ch : 0);
+    bd_dst[i] = V1_KT * V1_PITCH + r * V1_PITCH + ch * 16;
+    bd_lim[i] = row_in ? 8 * ch - off : V1_KT;  // never copied when >= len
+  }
+  int n_issued = 0;
+  unsigned char* issue_slot = ring;
+  auto issue = [&]() {  // the next item into the next slot, if there is one
+    if (n_issued >= n_items) return;
+    const int it = n_issued++;
+    const bool is_v = it >= n_a;
+    const int k = is_v ? it - n_a : it, t = k / CB, c = k % CB, j0 = t * V1_KT;
+    unsigned char* slot = issue_slot;
+    issue_slot = issue_slot + slot_bytes == ring_end ? ring : issue_slot + slot_bytes;
+    const long long ss = is_v ? a.v_ss : a.k_ss;
+    const bf16* src = (is_v ? vb : kb) + 64 * c + j0 * ss + kv_ch * 8;
+#pragma unroll
+    for (int i = 0; i < kv_n; ++i) {  // keys past S: zeros
+      const int r = kv_r0 + i * kv_rstep;
+      const bool in = j0 + r < S;
+      cp_async16(slot + r * V1_PITCH + kv_ch * 16, in ? src + r * ss : src, in ? 16 : 0);
+    }
+    if (!is_v && c == CB - 1) {
+      const int len = min(V1_KT, S - j0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (bd_lim[i] < len) cp_async16(slot + bd_dst[i], bd_src[i] + j0, 16);
+    }
+  };
+  for (int i = 0; i < stages - 1; ++i) {
+    issue();
+    cp_async_commit();
+  }
+  const unsigned char* use_slot = ring;
+  auto next = [&]() {  // the next item's slot, landed; the ring refilled behind it
+    if (stages == 1) {
+      __syncthreads();  // every warp is done with the one slot
+      issue();
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      cp_async_wait_upto(stages - 2);
+      __syncthreads();  // the item landed for every thread; the slot before it is free
+      issue();
+      cp_async_commit();
+    }
+    const unsigned char* slot = use_slot;
+    use_slot = use_slot + slot_bytes == ring_end ? ring : use_slot + slot_bytes;
+    return slot;
+  };
+
+  int off[2];  // where each of this thread's rows starts in its staged bd chunks
+  bool live[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + 8 * rr;
+    off[rr] = (int)(((bd_row + r) * S) & 7);
+    live[rr] = q0 + r < S;
+  }
+
+  // -- pass 1: the scores, into shared memory; this thread's row maxima ------
+  float mrow[2] = {-INFINITY, -INFINITY};
+  {
+    uint32_t qa[DH / 16][4], ua[DH / 16][2];
+    tc_load_q<DH>(qa, reinterpret_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss,
+                  q0 + 16 * rg, S, DH, true, lane);
+    const bf16* ub = reinterpret_cast<const bf16*>(a.u) + h * DH;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      ua[kk][0] = *reinterpret_cast<const uint32_t*>(ub + 16 * kk + 2 * t4);
+      ua[kk][1] = *reinterpret_cast<const uint32_t*>(ub + 16 * kk + 2 * t4 + 8);
+    }
+    // ldmatrix rows: lanes 0-7 keys 0-7 at columns 0-7 of a k16 step, 8-15
+    // the same keys at 8-15, 16-31 keys 8-15: b0, b1 of two n8 tiles.
+    const int lrow = (kp * 16 + (lane & 7) + 8 * (lane >> 4)) * (V1_PITCH / 2) + 8 * ((lane >> 3) & 1);
+    for (int t = 0; t < tiles; ++t) {
+      const int j0 = t * V1_KT, jt = j0 + kp * 16 + 2 * t4;  // this thread's first key
+      float kbv[2][2];  // the key bias of its 4 keys (0 past S)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = jt + nt * 8 + e;
+          kbv[nt][e] = kbias && j < S ? __ldg(kbias + j) : 0.f;
+        }
+      float acc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {  // K's column blocks (compile-time: qa stays in registers)
+        const unsigned char* slot = next();
+        const bf16* kt = reinterpret_cast<const bf16*>(slot) + lrow;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, kt + 16 * kk);
+          const uint32_t* qf = qa[4 * c + kk];
+          const uint32_t u0 = ua[4 * c + kk][0], u1 = ua[4 * c + kk][1];
+          mma_bf16(acc[0], qf[0], qf[1], qf[2], qf[3], kf[0], kf[1]);
+          mma_bf16(acc[0], u0, u0, u1, u1, kf[0], kf[1]);
+          mma_bf16(acc[1], qf[0], qf[1], qf[2], qf[3], kf[2], kf[3]);
+          mma_bf16(acc[1], u0, u0, u1, u1, kf[2], kf[3]);
+        }
+        if (c == CB - 1) {
+          const unsigned char* rows = slot + V1_KT * V1_PITCH;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int j = jt + nt * 8, jj = j - j0;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int r = row0 + 8 * rr;
+              const bf16* bdr = reinterpret_cast<const bf16*>(rows + r * V1_PITCH) + off[rr] + jj;
+              const float bd0 = live[rr] ? __bfloat162float(bdr[0]) : 0.f;
+              const float bd1 = live[rr] ? __bfloat162float(bdr[1]) : 0.f;
+              const float s0 =
+                  j < S ? score_of(acc[nt][2 * rr], bd0, a.scale, kbv[nt][0]) : -INFINITY;
+              const float s1 =
+                  j + 1 < S ? score_of(acc[nt][2 * rr + 1], bd1, a.scale, kbv[nt][1]) : -INFINITY;
+              mrow[rr] = fmaxf(mrow[rr], fmaxf(s0, s1));
+              *reinterpret_cast<float2*>(Ss + r * lds + j) = make_float2(s0, s1);
+            }
+          }
+        }
       }
     }
+  }
+
+  // -- the row max over the 4 warps; exp(s - max) in place over this thread's
+  // own scores; the row sums -----------------------------------------------
+  float M[2], L[2], RL[2];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+  for (int rr = 0; rr < 2; ++rr) {
+    const float m = quad_max(mrow[rr]);
+    if (t4 == 0) mx[kp * bq + row0 + 8 * rr] = m;
+  }
+  __syncthreads();
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + 8 * rr;
+    M[rr] = fmaxf(fmaxf(mx[r], mx[bq + r]), fmaxf(mx[2 * bq + r], mx[3 * bq + r]));
+  }
+  float* own = Ss + row0 * lds + kp * 16 + 2 * t4;  // this thread's scores: + 8 rr lds + 64 t + 8 nt
+#pragma unroll 2
+  for (int t = 0; t < tiles; ++t)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
-        const int i = q0 + g + 8 * rr;
-        if (i < S)
-          *reinterpret_cast<uint32_t*>(ob + (long long)i * DH + d0 + nt * 8 + 2 * t4) =
-              bf16x2_bits(o[nt][2 * rr], o[nt][2 * rr + 1]);
+        float2* x = reinterpret_cast<float2*>(own + 8 * rr * lds + t * V1_KT + nt * 8);
+        float2 e = *x;
+        e.x = expf(e.x - M[rr]);
+        e.y = expf(e.y - M[rr]);
+        *x = e;
+        l[rr] += e.x + e.y;
       }
-  } else {
-    constexpr int RPT = RP_BQ * DH / RP_THREADS;  // rows per thread
-    const int d = tid % DH, r0 = (tid / DH) * RPT;
-    float o[RPT];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) o[r] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float vv = to_float(vbase[j * a.v_ss + d]);
+  for (int rr = 0; rr < 2; ++rr) {
+    const float sum = quad_sum(l[rr]);
+    if (t4 == 0) sm[kp * bq + row0 + 8 * rr] = sum;
+  }
+  __syncthreads();
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) o[r] = fmaf(Ss[(r0 + r) * lds + j], vv, o[r]);
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + 8 * rr;
+    L[rr] = ((sm[r] + sm[bq + r]) + sm[2 * bq + r]) + sm[3 * bq + r];
+    RL[rr] = __frcp_rn(L[rr]);
+  }
+
+  // -- pass 2: P = exp / sum (as __fdiv_rn rounds it), rounded to bf16, times
+  // V over this warp's 16 keys of every tile --------------------------------
+  float o[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  {
+    // ldmatrix.trans rows: lanes 0-7 keys 0-7, 8-15 keys 8-15 at columns
+    // 0-7 of a 16-column step, 16-31 the same keys at columns 8-15.
+    const int vrow = (kp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * (V1_PITCH / 2) + 8 * (lane >> 4);
+    for (int t = 0; t < tiles; ++t) {
+      float x[2][4];  // P of this warp's 16 keys: needs no V, so before the item's barrier
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float2 e =
+              *reinterpret_cast<const float2*>(own + 8 * rr * lds + t * V1_KT + nt * 8);
+          x[nt][2 * rr] = e.x;
+          x[nt][2 * rr + 1] = e.y;
+        }
+      tc_normalise<2>(x, L, RL);
+      uint32_t pa[4];
+      tc_pack_p(pa, x[0], x[1]);
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {  // V's column blocks (compile-time: o stays in registers)
+        const bf16* vt = reinterpret_cast<const bf16*>(next()) + vrow;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {  // V's B fragments: keys along k, ldmatrix.trans
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, vt + 16 * n);
+          mma_bf16(o[8 * c + 2 * n], pa[0], pa[1], pa[2], pa[3], vf[0], vf[1]);
+          mma_bf16(o[8 * c + 2 * n + 1], pa[0], pa[1], pa[2], pa[3], vf[2], vf[3]);
+        }
+      }
     }
+  }
+  __syncthreads();  // every warp is done with the ring and the scores
+
+  // -- the 4 warps' partials of a row group, added in order, rounded to bf16 --
+  constexpr int RP = DH + 8;
+  float* red = reinterpret_cast<float*>(v1_raw);  // [4][bq][RP]
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int i = q0 + r0 + r;
-      if (i < S) ob[(long long)i * DH + d] = from_float<T>(o[r]);
+  for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      *reinterpret_cast<float2*>(red + (kp * bq + row0 + 8 * rr) * RP + 8 * nt + 2 * t4) =
+          make_float2(o[nt][2 * rr], o[nt][2 * rr + 1]);
+  __syncthreads();
+  bf16* ob = reinterpret_cast<bf16*>(a.out) + (((long long)b * a.H + h) * S + q0) * DH;
+  const int rows = min(bq, S - q0);
+  for (int e = tid; e < rows * (DH / 2); e += nthreads) {
+    const int r = e / (DH / 2), col = 2 * (e - r * (DH / 2));
+    float2 sum = *reinterpret_cast<const float2*>(red + r * RP + col);
+#pragma unroll
+    for (int w = 1; w < V1_KP; ++w) {
+      const float2 p = *reinterpret_cast<const float2*>(red + (w * bq + r) * RP + col);
+      sum.x = __fadd_rn(sum.x, p.x);
+      sum.y = __fadd_rn(sum.y, p.y);
     }
+    *reinterpret_cast<uint32_t*>(ob + (long long)r * DH + col) = bf16x2_bits(sum.x, sum.y);
   }
 }
 
@@ -832,7 +1110,7 @@ static cudaError_t launch_relpos_v2_f32(const RelposArgs& args, int B, long long
                                         cudaStream_t stream) {
   const size_t smem = rp_smem_bytes(args.S, DH);
   if (smem > RP_MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = allow_dynamic_smem(relpos_kernel<float, DH>, smem);
+  cudaError_t err = allow_dynamic_smem(relpos_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   return by_chunks(args, B, work_bytes, KIND_F32, [&](RelposArgs a, int rows) {
     const int S = a.S, row_blocks = (S + RP_BQ - 1) / RP_BQ, tiles = (S + SG_BM - 1) / SG_BM;
@@ -842,20 +1120,47 @@ static cudaError_t launch_relpos_v2_f32(const RelposArgs& args, int B, long long
         a.work, reinterpret_cast<const float*>(a.basis), bd, S, S, a.D, (long long)S * a.D,
         (long long)S * S);
     a.bd = bd;
-    relpos_kernel<float, DH><<<dim3(row_blocks, a.H, rows), RP_THREADS, smem, stream>>>(a);
+    relpos_kernel<DH><<<dim3(row_blocks, a.H, rows), RP_THREADS, smem, stream>>>(a);
     return cudaGetLastError();
   });
 }
 
-template <typename T, int DH>
-static cudaError_t launch_relpos(const RelposArgs& a, int B, cudaStream_t stream) {
+template <int DH>
+static cudaError_t launch_relpos_v1_f32(const RelposArgs& a, int B, cudaStream_t stream) {
   const size_t smem = rp_smem_bytes(a.S, DH);
   if (smem > RP_MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = allow_dynamic_smem(relpos_kernel<T, DH>, smem);
+  cudaError_t err = allow_dynamic_smem(relpos_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.S + RP_BQ - 1) / RP_BQ, a.H, B);
-  relpos_kernel<T, DH><<<grid, RP_THREADS, smem, stream>>>(a);
+  relpos_kernel<DH><<<grid, RP_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// 32 query rows a block where their scores fit in shared memory beside a
+// ring of 3 slots, or 2 (S up to ~1400: two blocks an SM at S 499, which
+// measured faster than one of 64 rows and than three of 16), else 16; 16
+// rows beside 1 slot at the longest S (up to 3392).
+template <int DH, int BQ>
+static cudaError_t launch_relpos_v1_tc(const RelposArgs& a, int B, int stages,
+                                       cudaStream_t stream) {
+  const size_t smem = v1_smem(a.S, DH, BQ, stages);
+  cudaError_t err = allow_dynamic_smem(relpos_v1_tc_kernel<DH, BQ>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.S + BQ - 1) / BQ, a.H, B);
+  relpos_v1_tc_kernel<DH, BQ><<<grid, BQ * 8, smem, stream>>>(a, stages);
+  return cudaGetLastError();
+}
+
+template <int DH>
+static cudaError_t launch_relpos_v1_bf16(const RelposArgs& a, int B, cudaStream_t stream) {
+  int bq = 0, stages = 0;
+  for (int r = 32; r >= 16 && !bq; r /= 2)
+    for (int st = 3; st >= 2 && !bq; --st)
+      if (v1_smem(a.S, DH, r, st) <= RP_MAX_SMEM) bq = r, stages = st;
+  if (!bq && v1_smem(a.S, DH, 16, 1) <= RP_MAX_SMEM) bq = 16, stages = 1;
+  if (bq == 32) return launch_relpos_v1_tc<DH, 32>(a, B, stages, stream);
+  if (bq == 16) return launch_relpos_v1_tc<DH, 16>(a, B, stages, stream);
+  return cudaErrorInvalidValue;
 }
 
 static RelposArgs relpos_args(const void* q, const void* k, const void* v, const void* u,
@@ -921,11 +1226,11 @@ extern "C" int sonar_relpos_flash_v1(const void* q, const void* k, const void* v
   const cudaStream_t st = (cudaStream_t)stream;
   if (S < 1) return cudaErrorInvalidValue;
   if (kind == KIND_BF16) {
-    if (Dh == 64) return launch_relpos<bf16, 64>(a, B, st);
-    if (Dh == 128) return launch_relpos<bf16, 128>(a, B, st);
+    if (Dh == 64) return launch_relpos_v1_bf16<64>(a, B, st);
+    if (Dh == 128) return launch_relpos_v1_bf16<128>(a, B, st);
   } else {
-    if (Dh == 64) return launch_relpos<float, 64>(a, B, st);
-    if (Dh == 128) return launch_relpos<float, 128>(a, B, st);
+    if (Dh == 64) return launch_relpos_v1_f32<64>(a, B, st);
+    if (Dh == 128) return launch_relpos_v1_f32<128>(a, B, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 """Beam-decode self-attention over the un-reordered KV cache.
 
 Port of ``sonar_tpu/ops/pallas/beam_attend.py``; the CUDA kernels are in
-``csrc/beam_masked.cu`` (the masked attend) and ``csrc/beam_attend.cu``
-(the other two). Three functions, each with its plain PyTorch version
-(taken for CPU tensors) and a launch count:
+``csrc/beam_masked.cu`` (the masked attend; its fp32 body and the diagonal
+attend in ``csrc/beam_attend.cu``) and ``csrc/beam_reorder.cu`` (the
+reorder). Three functions, each with its plain PyTorch version (taken for
+CPU tensors) and a launch count:
 
 - ``beam_masked_attend``: each of the K query beams attends every cache row
   and position its ancestry names (the core of ``_beam_self_attend``, on

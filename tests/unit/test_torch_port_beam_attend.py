@@ -119,14 +119,34 @@ def test_beam_diag_attend_plain_matches_pallas(dtype):
     assert tba.DIAG_LAUNCHES == launches
 
 
-@pytest.mark.parametrize("dtype,shape", [("float32", REORDER_SHAPE),
-                                         ("bfloat16", (2, 2, 2, 7, 64))])
-def test_beam_reorder_attend_plain_matches_pallas(dtype, shape):
+# (dtype, shape, sel): a random sel (the first two cases' ids as before),
+# one row named by every beam of a sentence (late in a search, when the
+# beams share one history) and the identity (no beam changes rows), at the
+# JAX test's shape and at Dh 32.
+REORDER_CASES = [
+    pytest.param("float32", REORDER_SHAPE, "random", id="float32-shape0"),
+    pytest.param("bfloat16", (2, 2, 2, 7, 64), "random", id="bfloat16-shape1"),
+    pytest.param("bfloat16", REORDER_SHAPE, "random", id="bfloat16-random"),
+    pytest.param("float32", REORDER_SHAPE, "one-row", id="float32-one-row"),
+    pytest.param("bfloat16", REORDER_SHAPE, "one-row", id="bfloat16-one-row"),
+    pytest.param("float32", REORDER_SHAPE, "identity", id="float32-identity"),
+    pytest.param("bfloat16", REORDER_SHAPE, "identity", id="bfloat16-identity"),
+    pytest.param("float32", (3, 5, 4, 11, 32), "random", id="float32-dh32"),
+    pytest.param("bfloat16", (3, 5, 4, 11, 32), "one-row", id="bfloat16-dh32-one-row"),
+]
+
+
+@pytest.mark.parametrize("dtype,shape,sel_kind", REORDER_CASES)
+def test_beam_reorder_attend_plain_matches_pallas(dtype, shape, sel_kind):
     b, beam, heads, s, dh = shape
     rng = np.random.default_rng(0)
     q, kn, vn = (rng.normal(size=(b, beam, heads, dh)) for _ in range(3))
     k, v = (rng.normal(size=(b, heads, beam, s, dh)) for _ in range(2))
     sel = rng.integers(0, beam, size=(b, beam)).astype(np.int32)
+    if sel_kind == "one-row":
+        sel = np.repeat(sel[:, :1], beam, axis=1)
+    elif sel_kind == "identity":
+        sel = np.tile(np.arange(beam, dtype=np.int32), (b, 1))
     launches = tba.REORDER_LAUNCHES
     for idx in (0, s // 2, s - 1):
         vb = _vbias(s, idx)

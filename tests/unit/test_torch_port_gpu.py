@@ -335,13 +335,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         ffn.fused_int8_ffn(x, w1.contiguous(), s1, _rand(dev, 256), w2, s2, _rand(dev, 128))
 
 
-def _relpos_inputs(dev, dtype, s, dh, h=2):
+def _relpos_inputs(dev, dtype, s, dh, h=2, b=3):
     d = 2 * h * dh
-    q, k, v = (_rand(dev, 3, h, s, dh, dtype=dtype, seed=i) for i in range(3))
+    q, k, v = (_rand(dev, b, h, s, dh, dtype=dtype, seed=i) for i in range(3))
     wr = _rand(dev, h, d, dh, scale=d ** -0.5, dtype=dtype, seed=3)
     u, vb = (_rand(dev, h, dh, scale=0.1, dtype=dtype, seed=4 + i) for i in range(2))
     si, ci, basis = _trig_tables(s, d, dtype, dev)
-    bias = _key_bias(dev, [s, s // 3, 0], s)  # with a row of length 0
+    bias = _key_bias(dev, ([s, s // 3, 0] * b)[:b], s)  # with a row of length 0 (B >= 3)
     return q, k, v, wr, si, ci, basis, u, vb, bias
 
 
@@ -414,15 +414,28 @@ def test_relpos_v2_kernel_in_batch_chunks(dev, dtype, monkeypatch):
     _assert_close(got, relpos_flash.relpos_flash_attention_v2_plain(*args))
 
 
+# (B, H, S, Dh): v1's bf16 kernel takes 32 query rows a block up to S ~1400
+# and 16 past that (S 1999, 2048), beside a ring of one slot at S 3328 (the
+# longest S the kernel before it took).
+V1_SHAPES = [pytest.param(3, 2, 130, 64, id="130-64"), pytest.param(3, 2, 257, 128, id="257-128"),
+             pytest.param(8, 4, 499, 64, id="499-64"), pytest.param(2, 4, 1000, 64, id="1000-64"),
+             pytest.param(2, 16, 1999, 64, id="1999-64"),
+             pytest.param(1, 8, 2048, 128, id="2048-128"),
+             pytest.param(1, 2, 3328, 64, id="3328-64"), pytest.param(1, 2, 3328, 128, id="3328-128")]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("s,dh", [(130, 64), (257, 128)])
-def test_relpos_v1_kernel(dev, dtype, s, dh):
-    q, k, v, _, _, _, _, u, _, bias = _relpos_inputs(dev, dtype, s, dh)
-    bd = _rand(dev, 3, 2, s, s, dtype=dtype, seed=9)
+@pytest.mark.parametrize("b,h,s,dh", V1_SHAPES)
+def test_relpos_v1_kernel(dev, dtype, b, h, s, dh):
+    """Against the plain version; a second call on the same inputs gives the
+    same bits."""
+    q, k, v, _, _, _, _, u, _, bias = _relpos_inputs(dev, dtype, s, dh, h=h, b=b)
+    bd = _rand(dev, b, h, s, s, dtype=dtype, seed=9)
     got = _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention(q, k, v, bd, u, bias),
                     counter="V1_LAUNCHES")
     _assert_close(got, relpos_flash.relpos_flash_attention_plain(q, k, v, bd, u, bias))
+    assert torch.equal(relpos_flash.relpos_flash_attention(q, k, v, bd, u, bias), got)
 
 
 @pytest.mark.gpu
@@ -478,12 +491,31 @@ def test_beam_diag_attend_kernel(dev, dtype, shape):
     _assert_close(got, beam_attend.beam_diag_attend_plain(q, k, v, vbias))
 
 
+# (B, K, H, S, Dh, idx, sel): BEAM_SHAPES with a random sel (ids as before),
+# then sel naming one row for every beam of a sentence and the identity,
+# K 1 and 16, Dh 32 and 128, idx 0 and S - 1, and caches of 259 positions
+# (staged in several chunks; so are K 16, Dh 128 at S 51).
+REORDER_CASES = [pytest.param(shape, "random", id=f"shape{i}") for i, shape in enumerate(BEAM_SHAPES)]
+REORDER_CASES += [pytest.param(shape, sel, id=f"{'-'.join(map(str, shape))}-{sel}") for shape, sel in [
+    ((32, 5, 16, 51, 64, 25), "one-row"), ((32, 5, 16, 51, 64, 25), "identity"),
+    ((4, 1, 2, 51, 64, 25), "random"), ((3, 5, 4, 51, 32, 0), "random"),
+    ((3, 5, 4, 51, 128, 50), "one-row"), ((2, 16, 2, 51, 128, 25), "random"),
+    ((4, 5, 4, 259, 64, 200), "random"), ((2, 5, 4, 259, 64, 258), "identity"),
+    ((2, 3, 2, 259, 32, 0), "one-row")]]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", BEAM_SHAPES)
-def test_beam_reorder_attend_kernel(dev, dtype, shape):
+@pytest.mark.parametrize("shape,sel_kind", REORDER_CASES)
+def test_beam_reorder_attend_kernel(dev, dtype, shape, sel_kind):
+    """Against the plain version, the new caches equal bit for bit; a second
+    call on the same inputs gives the same bits."""
     b, beam, h, s, dh, idx = shape
     q, k, v, _, sel, vbias, woh = _beam_inputs(dev, dtype, b, beam, h, s, dh, idx)
+    if sel_kind == "one-row":
+        sel = sel[:, :1].expand(b, beam).contiguous()
+    elif sel_kind == "identity":
+        sel = torch.arange(beam, dtype=torch.int32, device=dev).expand(b, beam).contiguous()
     kn, vn = (_rand(dev, b, beam, h, dh, dtype=dtype, seed=7 + i) for i in range(2))
     args = (q, kn, vn, k, v, sel, vbias, woh)
     got = _launched(beam_attend, lambda: beam_attend.beam_reorder_attend(*args),
@@ -491,6 +523,8 @@ def test_beam_reorder_attend_kernel(dev, dtype, shape):
     want = beam_attend.beam_reorder_attend_plain(*args)
     _assert_close(got[0], want[0])
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    again = beam_attend.beam_reorder_attend(*args)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
 
 
 @pytest.mark.gpu

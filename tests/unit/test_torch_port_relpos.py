@@ -132,11 +132,23 @@ def test_v2_plain_matches_pallas_kernel(s, dh, dtype):
     _check_rows(got, np.asarray(want, np.float32), lens, s, dtype)
 
 
-@pytest.mark.parametrize("s,dh,dtype", KERNEL_CASES)
-def test_v1_plain_matches_pallas_kernel(s, dh, dtype):
+# v1's cases: those of v2 (their ids as before), S 499 (the speech batch's
+# length: not a multiple of the bf16 kernel's 64-key tile) and bd scaled by
+# 30, so that a few keys hold each row and most exponentials are tiny.
+V1_CASES = [pytest.param(s, dh, dtype, 1.0, id=f"{s}-{dh}-{dtype}")
+            for s, dh, dtype in KERNEL_CASES] + [
+    pytest.param(499, 64, "bfloat16", 1.0, id="499-64-bfloat16"),
+    pytest.param(499, 64, "float32", 1.0, id="499-64-float32"),
+    pytest.param(257, 64, "bfloat16", 30.0, id="257-64-bfloat16-bd-x30"),
+    pytest.param(130, 128, "float32", 30.0, id="130-128-float32-bd-x30"),
+]
+
+
+@pytest.mark.parametrize("s,dh,dtype,bd_scale", V1_CASES)
+def test_v1_plain_matches_pallas_kernel(s, dh, dtype, bd_scale):
     inp, lens = _kernel_inputs(s, dh, dtype, seed=1)
     rng = np.random.default_rng(2)
-    bd = rng.standard_normal((3, 2, s, s)).astype(np.float32)
+    bd = rng.standard_normal((3, 2, s, s)).astype(np.float32) * np.float32(bd_scale)
     (q, jq), (k, jk), (v, jv), (bd_t, jbd), (u, ju) = (
         _both(x, dtype) for x in (inp["q"], inp["k"], inp["v"], bd, inp["u"]))
     kb, jkb = _both(inp["key_bias"], "float32")
