@@ -259,7 +259,7 @@ static int launch_reorder(ReorderArgs a, int B, cudaStream_t st) {
   const size_t smem = reorder_smem<RB>(a.K, DH, a.chunk);
   cudaError_t err = allow_dynamic_smem(beam_reorder_kernel<T, DH>, smem);
   if (err != cudaSuccess) return (int)err;
-  // All of the SM's shared memory: three blocks at the decode shape.
+  // All of the SM's shared memory: four blocks at the decode shape.
   err = cudaFuncSetAttribute(beam_reorder_kernel<T, DH>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
