@@ -6,7 +6,8 @@
     python3 chip_smoke.py --compare DIR [DIR ...]
 
 The second form runs none of the phases below: it times the three
-beam-attend kernels, rel-pos v1 and v2, ``fused_bf16_ffn_ln_residual`` and
+beam-attend kernels (``beam_diag_attend`` at batches of 32, 8 and 1, at
+S 259 and in fp32), rel-pos v1 and v2, ``fused_bf16_ffn_ln_residual`` and
 beam decoding with the full-width ``basic`` decoder (``times_of``) for each
 checkout DIR (e.g. an unpacked parent commit under the git-ignored
 ``build/``) and this one in turns, each in a process of its own, each
@@ -56,7 +57,13 @@ Phases, each printing ``#`` lines:
     rel-pos v1 at [8, 16, 499, 64] in bf16 (timed beside SDPA on q + u with
     the mask bd * Dh^-0.5 + key bias) and fp32 (timed), at [2, 2, 130, 64]
     fp32, [2, 16, 1999, 64] and [1, 8, 2048, 128] bf16, each called twice,
-    equal bit for bit; ``beam_reorder_attend`` also with sel naming one row
+    equal bit for bit; ``beam_diag_attend`` (library call: SDPA on 4-D
+    tensors, each query [1, 1, Dh] against the valid prefix of its own row
+    [1, idx + 1, Dh], no mask) also at S 259, idx 200 (bf16 and fp32), idx 0,
+    K 1 and 16, Dh 32 and 128, each on caches holding NaN at every position
+    past idx (the same bits) and called 16 times, equal bit for bit, and
+    timed in bf16 at S 259, warm and with a cold L2, beside its bound;
+    ``beam_reorder_attend`` also with sel naming one row
     for every beam and the identity, K 1 and 16, Dh 32 and 128, idx 0 and
     S - 1, S 259, the new caches equal to the plain version's and two calls
     equal bit for bit each time, and timed in bf16 at the decode shape
@@ -123,8 +130,24 @@ Phases, each printing ``#`` lines:
     width with seeded random weights, against the CPU port in fp32 to 1e-4
     of the output's scale.
 
+(i) mining: ``sonar_tpu_torch.parallel.mining.cosine_topk`` at
+    ``scripts/bench_mining.py``'s size (65,536 x 65,536 unit rows, D 1024,
+    top 8; y a normalised noisy copy of x, cosine ~0.45 to its planted
+    partner) in fp32, bf16 and int8, exact and approx (one selector: the
+    two must agree bit for bit), with ms and query rows/s and each mode's
+    device busy time and top six device operations (torch.profiler); the planted
+    partner's rank and each mode's recall@8 against the card's fp32;
+    512 query rows against the CPU run of the same rows on the whole bank
+    (fp32 scores within 1e-5 and indices equal but in rows with a tie
+    within 1e-6; int8 equal bit for bit; bf16 scores within 1e-2, recall
+    >= 0.99); ``mine_bitexts`` (intersection, ratio) pair count and
+    planted-pair precision (>= 0.9 n pairs, precision >= 0.99); ``xsim`` and
+    ``xsim_pp`` at FLORES devtest size (1,012 rows, 10,000 distractors),
+    every margin, error rates equal to the CPU's. Mining launches no kernel
+    of the port: its products and selection are PyTorch calls.
+
 A kernel's ``launches`` in the JSON record is the sum of its counts over
-(d) to (h); the kernels that no path calls (``relpos_flash_attention``,
+(d) to (i); the kernels that no path calls (``relpos_flash_attention``,
 ``beam_diag_attend``, ``beam_reorder_attend``,
 ``fused_bf16_ffn_ln_residual``) must read 0. Prints that record on the
 line before the last, and as the last line ``{"ok": true, "device":
@@ -147,6 +170,7 @@ F32_MIN = -3.4028234663852886e38
 N_SENTENCES = 3000  # corpus of the slice phase
 RELPOS_REPEATS = 16  # calls of the rel-pos v2 kernel on one input, held equal bit for bit
 BEAM_REPEATS = 16  # calls of beam_masked_attend at the long cache, held equal bit for bit
+DIAG_REPEATS = 16  # calls of beam_diag_attend on one input, held equal bit for bit
 # rel-pos v2 in fp32 at [8, 16, 499, 64] on an NVIDIA H100 80GB HBM3 at 700 W
 # before its last launch (the fp32 v1 kernel) was last edited: its time
 # there may not exceed this by more than the spread between runs and cards,
@@ -171,7 +195,7 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its
     "beam_masked_attend": ("sonar_tpu_torch/csrc/beam_masked.cu",
                            "sonar_tpu/ops/pallas/beam_attend.py:71", "beam_attend",
                            "MASKED_LAUNCHES"),
-    "beam_diag_attend": ("sonar_tpu_torch/csrc/beam_attend.cu",
+    "beam_diag_attend": ("sonar_tpu_torch/csrc/beam_diag.cu",
                          "sonar_tpu/ops/pallas/beam_attend.py:141", "beam_attend",
                          "DIAG_LAUNCHES"),
     "beam_reorder_attend": ("sonar_tpu_torch/csrc/beam_reorder.cu",
@@ -780,6 +804,23 @@ def check_kernels(torch):
         if not (caches and same):
             failures.append(f"beam_reorder_attend {label}: caches or repeat differ")
 
+    def diag_cost(q, k, vbias, idx):
+        """K9's bound: q, the bias and the output once, and each slab's rows
+        up to the write position (the valid span) of K and V read once."""
+        b, beam, h, dh = q.shape
+        return (2 * nbytes(q) + nbytes(vbias) + 2 * b * h * beam * (idx + 1) * dh * k.element_size(),
+                {_kind(q.dtype): 4 * b * h * beam * (idx + 1) * dh})
+
+    def diag_sdpa_args(q, k, v, idx):
+        """K9's library call: SDPA on 4-D tensors its fused backends take,
+        each (sentence, head, beam)'s query [1, 1, Dh] against the valid
+        prefix of its own row [1, idx + 1, Dh], no mask."""
+        b, beam, h, dh = q.shape
+        rows = b * h * beam
+        q4 = q.permute(0, 2, 1, 3).reshape(rows, 1, 1, dh).contiguous()
+        return (q4, k.reshape(rows, 1, k.shape[3], dh)[:, :, :idx + 1],
+                v.reshape(rows, 1, k.shape[3], dh)[:, :, :idx + 1])
+
     def sel_of(kind, b, beam):
         if kind == "one-row":  # late in a search: every beam of a sentence names one row
             return torch.randint(0, beam, (b, 1), generator=gen, device=dev,
@@ -808,14 +849,13 @@ def check_kernels(torch):
         qbh = q.permute(0, 2, 1, 3).reshape(b * h, beam, dh).contiguous()
         kc, vc = k.reshape(b * h, beam, s, dh), v.reshape(b * h, beam, s, dh)
         row = dh * k.element_size()
-        valid = pos <= idx
         # Rows a query needs: the distinct (cache row, position) pairs its
         # ancestry names up to the write position, for every head.
         needed = torch.zeros(b, beam, s, dtype=torch.bool, device=dev)
         needed.scatter_(1, anc.long(), True)
-        n_rows = int((needed & valid).sum()) * h
+        n_rows = int((needed & (pos <= idx)).sum()) * h
         mask = ((anc[:, :, None, :] == torch.arange(beam, device=dev)[None, None, :, None])
-                & valid).reshape(b, 1, beam, beam * s)
+                & (pos <= idx)).reshape(b, 1, beam, beam * s)
         check("beam_masked_attend", label,
               lambda: beam_attend.beam_masked_attend(qbh, kc, vc, anc, vbias, h),
               lambda: beam_attend.beam_masked_attend_plain(qbh, kc, vc, anc, vbias, h),
@@ -825,14 +865,12 @@ def check_kernels(torch):
               library_fn=lambda: F.scaled_dot_product_attention(
                   q.permute(0, 2, 1, 3), k.reshape(b, h, beam * s, dh),
                   v.reshape(b, h, beam * s, dh), attn_mask=mask))
+        q4, k4, v4 = diag_sdpa_args(q, k, v, idx)
         check("beam_diag_attend", label,
               lambda: beam_attend.beam_diag_attend(q, k, v, vbias),
               lambda: beam_attend.beam_diag_attend_plain(q, k, v, vbias),
-              *tol[dt], timed=timed,
-              cost=(2 * nbytes(q) + nbytes(vbias) + 2 * b * h * beam * (idx + 1) * row,
-                    {_kind(dt): 4 * b * h * beam * (idx + 1) * dh}),
-              library_fn=lambda: F.scaled_dot_product_attention(
-                  q.permute(0, 2, 1, 3)[:, :, :, None], k, v, attn_mask=valid))
+              *tol[dt], timed=timed, cost=diag_cost(q, k, vbias, idx),
+              library_fn=lambda: F.scaled_dot_product_attention(q4, k4, v4))
         rargs = reorder_args(q, k, v, sel, vbias, woh)
         check("beam_reorder_attend", label,
               lambda: beam_attend.beam_reorder_attend(*rargs),
@@ -878,6 +916,51 @@ def check_kernels(torch):
             f"{kind} sel: warm {warm:.4f} ms ({bound_ms / warm:.1%} of the bound), cold L2 "
             f"{cold:.4f} ms ({bound_ms / cold:.1%}); bound {bound_ms:.4f} ms (bytes)")
         del rargs
+
+    # K9 at S 259 (a span of 201 positions, streamed in chunks), idx 0 (one
+    # valid position), K 1 and 16, Dh 32 and 128, against the plain version;
+    # each case again on caches holding NaN at every position past idx (never
+    # read: the same bits) and called DIAG_REPEATS times on one input, every
+    # output equal to the first bit for bit. Then K9 in bf16 timed at S 259,
+    # idx 200, warm and with a cold L2, beside its bound and the 4-D SDPA.
+    for (b, beam, h, s, dh, idx), dt in (
+            ((32, 5, 16, 259, 64, 200), bf16), ((32, 5, 16, 259, 64, 200), f32),
+            ((32, 5, 16, 51, 64, 0), bf16), ((32, 5, 16, 51, 64, 25), f32),
+            ((4, 1, 2, 51, 64, 25), bf16), ((2, 16, 2, 51, 128, 25), f32),
+            ((3, 5, 4, 51, 32, 50), bf16), ((2, 16, 4, 259, 128, 200), bf16),
+            ((2, 3, 2, 259, 32, 0), f32)):
+        label = f"B {b} K {beam} H {h} S {s} Dh {dh} idx {idx} {str(dt)[6:]}"
+        pos = torch.arange(s, device=dev)
+        q = rand(b, beam, h, dh, dtype=dt)
+        k, v = rand(b, h, beam, s, dh, dtype=dt), rand(b, h, beam, s, dh, dtype=dt)
+        vbias = torch.where(pos <= idx, 0.0, -1e30).float()
+        check("beam_diag_attend", label,
+              lambda: beam_attend.beam_diag_attend(q, k, v, vbias),
+              lambda: beam_attend.beam_diag_attend_plain(q, k, v, vbias), *tol[dt])
+        first = beam_attend.beam_diag_attend(q, k, v, vbias)
+        past = (pos > idx)[None, None, None, :, None]
+        poisoned = beam_attend.beam_diag_attend(q, k.masked_fill(past, float("nan")),
+                                                v.masked_fill(past, float("nan")), vbias)
+        outs = [beam_attend.beam_diag_attend(q, k, v, vbias) for _ in range(DIAG_REPEATS)]
+        differ = sum(not torch.equal(o, first) for o in outs)
+        ok = differ == 0 and torch.equal(poisoned, first) and bool(torch.isfinite(first).all())
+        log(f"check beam_diag_attend {label}: NaN past idx gives the same bits "
+            f"{torch.equal(poisoned, first)}; {DIAG_REPEATS} calls, {differ} differ from the first "
+            f"bit for bit {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"beam_diag_attend {label} NaN past idx or repeated")
+        if (b, s, dh, dt) == (32, 259, 64, bf16):
+            fn = lambda: beam_attend.beam_diag_attend(q, k, v, vbias)  # noqa: E731
+            q4, k4, v4 = diag_sdpa_args(q, k, v, idx)
+            bound_ms = bound(*diag_cost(q, k, vbias, idx))[0]
+            warm, cold = _timed(torch, fn, 20), _timed_cold(torch, fn, 20)
+            lib = _timed(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4), 20)
+            plain = _timed(torch, lambda: beam_attend.beam_diag_attend_plain(q, k, v, vbias), 20)
+            log(f"time beam_diag_attend {label}: warm {warm:.4f} ms ({bound_ms / warm:.1%} of the "
+                f"bound), cold L2 {cold:.4f} ms ({bound_ms / cold:.1%}); bound {bound_ms:.4f} ms "
+                f"(bytes); plain {plain:.4f} ms; library call (4-D SDPA) {lib:.4f} ms")
+            del q4, k4, v4
+        del q, k, v, outs, first, poisoned
 
     # K8 at the cache of max_gen_len 256 (S 259, the write position at 200),
     # with a random ancestry and with a tree ancestry as beam search builds
@@ -1767,6 +1850,138 @@ def run_sampling_int8_heads(torch, card, handoff):
     return launches
 
 
+# -- (i) mining ------------------------------------------------------------------------
+
+MINING_ROWS, MINING_DIM, MINING_K = 65536, 1024, 8  # scripts/bench_mining.py:26's size
+MINING_SAMPLE = 512  # query rows held against the CPU
+FLORES_ROWS, FLORES_DISTRACTORS = 1012, 10000  # FLORES devtest; xsim++'s distractors
+
+
+def _planted(torch, gen, n, d, noise):
+    """x: n random unit rows; y: x plus Gaussian noise of ``noise`` times a
+    unit row's norm, normalised, so that y[i] is x[i]'s true partner
+    (cosine ~ 1 / sqrt(1 + noise^2))."""
+    x = torch.randn(n, d, generator=gen, device=DEVICE)
+    x = x / x.norm(dim=1, keepdim=True)
+    y = x + noise * torch.randn(n, d, generator=gen, device=DEVICE) / d ** 0.5
+    return x, y / y.norm(dim=1, keepdim=True)
+
+
+def run_mining(torch, card):
+    """Phase (i): ``cosine_topk`` at 65,536 x 65,536, D 1024, k 8 in fp32,
+    bf16 and int8, exact and approx; 512 query rows against the CPU;
+    ``mine_bitexts`` (intersection, ratio); ``xsim`` / ``xsim_pp`` at
+    FLORES devtest size against the CPU. Returns the launch counts of the
+    driven run (mining calls no kernel of the port)."""
+    from sonar_tpu_torch.parallel import mining
+
+    n, d, k = MINING_ROWS, MINING_DIM, MINING_K
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x, y = _planted(torch, gen, n, d, 2.0)
+    modes = {"fp32": None, "bf16": torch.bfloat16, "int8": "int8"}
+    torch.cuda.synchronize()
+    out, failures = {}, []
+    zero_launches()
+    for mode, dot in modes.items():
+        for approx in (False, True):
+            fn = lambda: mining.cosine_topk(x, y, k, dot_dtype=dot, approx=approx)  # noqa: E731
+            fn()
+            runs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn()
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            out[mode, approx] = res
+            log(f"mining cosine_topk {mode} {'approx' if approx else 'exact'} [{n}, {d}] x "
+                f"[{n}, {d}] top {k}: {runs[0] * 1e3:.1f} / {runs[1] * 1e3:.1f} ms = "
+                f"{n / min(runs):.0f} query rows/s; on {card}")
+        ops, wall, _ = _device_profile(torch, lambda: mining.cosine_topk(x, y, k, dot_dtype=dot))
+        busy = sum(ms for ms, _ in ops.values())
+        log(f"mining cosine_topk {mode}: device busy {busy:.1f} ms of {wall:.1f} ms wall under the "
+            f"profiler; " + ("; ".join(f"{name[:60]} {ms:.1f} ms x{n}" for name, (ms, n) in sorted(
+                ops.items(), key=lambda kv: -kv[1][0])[:6]) if ops else "no device time seen"))
+        same = all(torch.equal(a, b) for a, b in zip(out[mode, False], out[mode, True]))
+        log(f"check mining {mode}: approx equals exact bit for bit (the exact selector) "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"mining {mode} approx")
+    t0 = time.perf_counter()
+    src, tgt, score = mining.mine_bitexts(x, y, k=4, margin="ratio", strategy="intersection")
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    precision = float((src == tgt).mean()) if len(src) else 0.0
+    log(f"mining mine_bitexts intersection ratio (fp32, k 4): {len(src)} pairs of {n} planted "
+        f"in {dt:.2f} s, planted-pair precision {precision:.4f}, scores "
+        f"{float(score.min()):.4f}-{float(score.max()):.4f}")
+    if not (len(src) >= 0.9 * n and precision >= 0.99):
+        failures.append("mine_bitexts")
+
+    # Recall of the planted partner at 1 and of the card's fp32 top k.
+    ref_i = out["fp32", False][1]
+    truth = torch.arange(n, device=DEVICE)
+    for mode in modes:
+        got_i = out[mode, False][1]
+        at1 = (got_i[:, 0] == truth).float().mean().item()
+        recall = (got_i[:, :, None] == ref_i[:, None, :]).any(dim=2).float().mean().item()
+        log(f"mining {mode}: planted partner first in {at1:.5f} of rows; recall@{k} against "
+            f"the card's fp32 {recall:.5f}")
+        if at1 < 0.99 or recall < (1.0 if mode == "fp32" else 0.9):
+            failures.append(f"mining {mode} recall")
+
+    # MINING_SAMPLE query rows against the whole bank on the CPU: fp32 indices
+    # equal but in rows with a (near) tie among the CPU's top k + 1 (1e-6),
+    # scores within 1e-5; int8 equal bit for bit (the codes and the int32 sums
+    # are the same on both); bf16 scores within 1e-2 and recall >= 0.99.
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(1))[:MINING_SAMPLE]
+    xs, yc = x[rows.to(DEVICE)].cpu(), y.cpu()
+    for mode, dot in modes.items():
+        t0 = time.perf_counter()
+        cs, ci = mining.cosine_topk(xs, yc, k + 1, dot_dtype=dot, device="cpu")
+        gs, gi = (t[rows.to(DEVICE)].cpu() for t in out[mode, False])
+        gaps = -cs.diff(dim=1)
+        cs, ci = cs[:, :k], ci[:, :k]
+        err = (gs - cs).abs().max().item()
+        if mode == "int8":
+            ok = torch.equal(gs, cs) and torch.equal(gi, ci)
+            what = "scores and indices equal bit for bit"
+        elif mode == "fp32":
+            near = (gaps <= 1e-6).any(dim=1)
+            ok = err <= 1e-5 and torch.equal(gi[~near], ci[~near])
+            what = f"indices equal in the {int((~near).sum())} rows without a tie within 1e-6"
+        else:
+            recall = (gi[:, :, None] == ci[:, None, :]).any(dim=2).float().mean().item()
+            ok = err <= 1e-2 and recall >= 0.99
+            what = f"recall@{k} {recall:.4f} (>= 0.99)"
+        log(f"check mining {mode} card vs CPU on {MINING_SAMPLE} query rows: max score error "
+            f"{err:.3e}, {what} (CPU {time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"mining {mode} card vs CPU")
+    del out, x, y, xs, yc
+    torch.cuda.empty_cache()
+
+    # xsim / xsim++ at FLORES devtest size, noisy enough that some rows
+    # misalign; the card's error rates against the CPU's.
+    fx, fy = _planted(torch, gen, FLORES_ROWS, d, 6.0)
+    distractors, _ = _planted(torch, gen, FLORES_DISTRACTORS, d, 0.0)
+    for margin in ("ratio", "distance", "absolute"):
+        card_err = (mining.xsim(fx, fy, margin=margin),
+                    mining.xsim_pp(fx, fy, distractors, margin=margin))
+        cpu_err = (mining.xsim(fx.cpu(), fy.cpu(), margin=margin, device="cpu"),
+                   mining.xsim_pp(fx.cpu(), fy.cpu(), distractors.cpu(), margin=margin,
+                                  device="cpu"))
+        ok = card_err == cpu_err
+        log(f"check mining xsim / xsim++ {margin} ({FLORES_ROWS} rows, {FLORES_DISTRACTORS} "
+            f"distractors): card {card_err[0]:.4f} / {card_err[1]:.4f} %, CPU {cpu_err[0]:.4f} / "
+            f"{cpu_err[1]:.4f} % {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"xsim {margin}")
+    if failures:
+        raise AssertionError(f"mining checks failed: {failures}")
+    return launches
+
+
 # -- --compare: this checkout against others, in turns, on one card ------------------
 
 
@@ -1776,7 +1991,8 @@ def times_of(torch, card, root: Path) -> dict:
     8 and 1 and at S 259, idx 200 with a random and a tree ancestry (warm,
     and with a cold L2 there), with the host's us a call (100 calls queued
     back to back), and in fp32 at B 32; of ``beam_diag_attend`` (bf16) at
-    B 32; of ``beam_reorder_attend`` (bf16) at B 32, S 51 with a random and
+    B 32, 8 and 1 and at S 259, idx 200 (warm, and with a cold L2 at B 32),
+    and in fp32 at B 32; of ``beam_reorder_attend`` (bf16) at B 32, S 51 with a random and
     a one-row sel and at S 259, idx 200, warm and cold; of rel-pos v1 at
     [8, 16, 499, 64] in bf16 and fp32 and v2 there in fp32; of
     ``fused_bf16_ffn_ln_residual`` at M 3992, D 1024, F 4096, 2 splits; and
@@ -1837,12 +2053,17 @@ def times_of(torch, card, root: Path) -> dict:
             out[key]["cold_ms"] = _timed_cold(torch, fn, 20)
         log(f"{root.name}: {key}: {out[key]}")
 
+    for b, s, idx, dt in ((32, 51, 25, torch.bfloat16), (8, 51, 25, torch.bfloat16),
+                          (1, 51, 25, torch.bfloat16), (32, 259, 200, torch.bfloat16),
+                          (32, 51, 25, torch.float32)):
+        pos = torch.arange(s, device=dev)
+        vbias = torch.where(pos <= idx, 0.0, -1e30).float()
+        q, k, v = rnd(b, beam, h, dh, dt=dt), rnd(b, h, beam, s, dh, dt=dt), rnd(b, h, beam, s, dh, dt=dt)
+        timed(f"beam_diag_attend B {b} S {s} idx {idx}" + (" fp32" if dt == torch.float32 else ""),
+              lambda: beam_attend.beam_diag_attend(q, k, v, vbias), cold=s > 64 or b == 32)
     b, s, idx = 32, 51, 25
     pos = torch.arange(s, device=dev)
     vbias = torch.where(pos <= idx, 0.0, -1e30).float()
-    q, k, v = rnd(b, beam, h, dh), rnd(b, h, beam, s, dh), rnd(b, h, beam, s, dh)
-    timed(f"beam_diag_attend B {b} S {s} idx {idx}",
-          lambda: beam_attend.beam_diag_attend(q, k, v, vbias))
     q32 = rnd(b * h, beam, dh, dt=torch.float32)
     kc, vc = (rnd(b * h, beam, s, dh, dt=torch.float32) for _ in range(2))
     anc = torch.randint(0, beam, (b, beam, s), generator=gen, device=dev, dtype=torch.int32)
@@ -1955,7 +2176,8 @@ def main() -> int:
     decode = phase("(f)", run_decode, torch, card, handoff)
     s2t = phase("(g)", run_speech_to_text, torch, card, handoff)
     rest = phase("(h)", run_sampling_int8_heads, torch, card, handoff)
-    launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest))
+    mined = phase("(i)", run_mining, torch, card)
+    launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest, mined))
                 for name in KERNELS}
     launched = [name for name in NO_PATH if launches[name] != 0]
     if launched:

@@ -1,30 +1,27 @@
-// Beam-decode self-attention over the un-reordered KV cache: two kernels.
+// Beam-decode self-attention over the un-reordered KV cache, fp32.
 //
-// Replace the TPU kernels of sonar_tpu/ops/pallas/beam_attend.py:
+// Replaces the TPU kernel sonar_tpu/ops/pallas/beam_attend.py
+// beam_masked_attend for fp32 inputs: each of the K query beams of a
+// sentence attends every cache row c and position s that its ancestry names
+// (anc[b, q, s] == c), with an additive position bias; the compute core of
+// the port's _beam_self_attend, launched at every layer of every beam-decode
+// step. bf16 runs on the tensor cores in csrc/beam_masked.cu, which also
+// holds the C entry point. The other two kernels of that file are
+// csrc/beam_diag.cu (beam_diag_attend) and csrc/beam_reorder.cu
+// (beam_reorder_attend).
 //
-//   beam_masked_attend  (MODE_MASKED)  each of the K query beams of a
-//       sentence attends every cache row c and position s that its ancestry
-//       names (anc[b, q, s] == c), with an additive position bias; the
-//       compute core of the port's _beam_self_attend, launched at every
-//       layer of every beam-decode step. This body serves fp32; bf16 runs
-//       on the tensor cores in csrc/beam_masked.cu, which also holds the
-//       C entry point;
-//   beam_diag_attend    (MODE_DIAG)    beam row k attends its own cache row.
-// The third kernel of that file, beam_reorder_attend, is csrc/beam_reorder.cu.
+// The cache is [B, H, C, S, Dh] (C cache rows per sentence), seen here as
+// [B*H, C, S, Dh]. Numerics follow the TPU kernel: q scaled in fp32 before
+// the dot, fp32 logits plus the additive bias, softmax and P @ V in fp32,
+// the output cast to the input dtype.
 //
-// The cache is [B, H, C, S, Dh] (C cache rows per sentence, C == K), seen
-// here as [B*H, C, S, Dh]. Numerics follow the TPU kernels: q scaled in
-// fp32 before the dot, fp32 logits plus the additive bias, softmax and P @ V
-// in fp32, the output cast to the input dtype.
-//
-// What bounds them on the H100: almost no arithmetic (a decode query is one
-// Dh vector), so bytes. A query needs, at each position, one cache row: the
-// one its ancestry names (MODE_MASKED) or its own (MODE_DIAG). So the
-// kernels read rows, not the whole C x S slab: a position that no query
-// references, or whose bias is <= -1e29, is never read. Such a position's
-// term in the reference is exp(-1e29 - m) == 0 in fp32 exactly (a valid
-// position always exists on the decode path: position 0), so skipping it is
-// the same function.
+// What bounds it on the H100: almost no arithmetic (a decode query is one
+// Dh vector), so bytes. A query needs, at each position, the one cache row
+// its ancestry names. So the kernel reads rows, not the whole C x S slab: a
+// position that no query references, or whose bias is <= -1e29, is never
+// read. Such a position's term in the reference is exp(-1e29 - m) == 0 in
+// fp32 exactly (a valid position always exists on the decode path: position
+// 0), so skipping it is the same function.
 //
 // Design: one block per (sentence, head), one warp per query beam (at most
 // 16). A warp walks the positions 32 at a time: each lane finds the row its
@@ -38,15 +35,13 @@
 
 namespace {
 
-enum BeamMode { MODE_MASKED = 0, MODE_DIAG = 1 };
-
 constexpr float kMasked = -1e29f;  // a bias at or below this contributes exactly 0
 
 struct BeamArgs {
-  const void* q;      // MASKED: [B*H, K, Dh]; DIAG: [B, K, H, Dh]
+  const void* q;      // [B*H, K, Dh]
   const void* k;      // [B*H, C, S, Dh]
   const void* v;
-  const int* anc;     // MASKED: [B, K, S] cache row per (query beam, position)
+  const int* anc;     // [B, K, S] cache row per (query beam, position)
   const float* vbias; // [S] additive position bias
   void* out;          // laid out like q
   int H, K, C, S, Dh;
@@ -67,29 +62,26 @@ template <typename T, int DPL> struct Slice {
 };
 
 // Offset of query beam kq's row of head (bh % H) in q and out.
-__device__ __forceinline__ size_t q_offset(const BeamArgs& a, int mode, int bh, int kq) {
-  const int b = bh / a.H, h = bh % a.H;
-  const size_t row = mode == MODE_MASKED ? (size_t)bh * a.K + kq
-                                         : ((size_t)b * a.K + kq) * a.H + h;
-  return row * a.Dh;
+__device__ __forceinline__ size_t q_offset(const BeamArgs& a, int bh, int kq) {
+  return ((size_t)bh * a.K + kq) * a.Dh;
 }
 
 // At most 64 registers a thread (two blocks of 512 threads an SM): left to
 // itself the compiler took 36 and kept fewer row loads in flight, and the
 // fp32 masked attend ran 7% slower.
-template <typename T, int DPL, int MODE>
+template <typename T, int DPL>
 __global__ void __launch_bounds__(512, 2) beam_attend_kernel(BeamArgs a) {
   extern __shared__ float qs[];  // [K, Dh] scaled queries
   constexpr int DH = 32 * DPL;
   constexpr int PER = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int NONE = -1;              // no row
   constexpr int UNROLL = 8;             // positions of P @ V whose loads are in flight together
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int bh = blockIdx.x, b = bh / a.H;
   const int kq = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int S = a.S;
 
   for (int i = threadIdx.x; i < a.K * DH; i += blockDim.x) {
-    qs[i] = to_float(static_cast<const T*>(a.q)[q_offset(a, MODE, bh, i / DH) + i % DH]) *
+    qs[i] = to_float(static_cast<const T*>(a.q)[q_offset(a, bh, i / DH) + i % DH]) *
             a.scale;
   }
   __syncthreads();
@@ -97,11 +89,11 @@ __global__ void __launch_bounds__(512, 2) beam_attend_kernel(BeamArgs a) {
 
   const T* kc = static_cast<const T*>(a.k) + (size_t)bh * a.C * S * DH;
   const T* vc = static_cast<const T*>(a.v) + (size_t)bh * a.C * S * DH;
-  const int* anc = MODE == MODE_MASKED ? a.anc + ((size_t)b * a.K + kq) * S : nullptr;
+  const int* anc = a.anc + ((size_t)b * a.K + kq) * S;
 
   // The row position s of this query reads: a cache row (>= 0) or NONE.
   auto code_of = [&](int s) -> int {
-    const int c = MODE == MODE_MASKED ? anc[s] : kq;
+    const int c = anc[s];
     return (c >= 0 && c < a.C) ? c : NONE;
   };
   auto row_ptr = [&](const T* cache, int code, int s) -> const T* {
@@ -164,33 +156,24 @@ __global__ void __launch_bounds__(512, 2) beam_attend_kernel(BeamArgs a) {
       }
     }
   }
-  T* out = static_cast<T*>(a.out) + q_offset(a, MODE, bh, kq);
+  T* out = static_cast<T*>(a.out) + q_offset(a, bh, kq);
   float res[DPL];
 #pragma unroll
   for (int i = 0; i < DPL; ++i) res[i] = acc[i] / l;
   Slice<T, DPL>::store(out + lane * DPL, res);
 }
 
-template <typename T, int MODE>
+template <typename T>
 int launch_dpl(const BeamArgs& a, int BH, cudaStream_t st) {
   const dim3 grid(BH), block(32 * a.K);
   const size_t smem = (size_t)a.K * a.Dh * sizeof(float);
   switch (a.Dh / 32) {
-    case 1: beam_attend_kernel<T, 1, MODE><<<grid, block, smem, st>>>(a); break;
-    case 2: beam_attend_kernel<T, 2, MODE><<<grid, block, smem, st>>>(a); break;
-    case 4: beam_attend_kernel<T, 4, MODE><<<grid, block, smem, st>>>(a); break;
+    case 1: beam_attend_kernel<T, 1><<<grid, block, smem, st>>>(a); break;
+    case 2: beam_attend_kernel<T, 2><<<grid, block, smem, st>>>(a); break;
+    case 4: beam_attend_kernel<T, 4><<<grid, block, smem, st>>>(a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-template <int MODE>
-int launch(BeamArgs a, int BH, int kind, cudaStream_t st) {
-  if (a.K < 1 || a.K > 16 || a.Dh % 32 != 0 || a.Dh > 128)
-    return (int)cudaErrorInvalidValue;
-  a.scale = 1.0f / sqrtf((float)a.Dh);
-  return kind == KIND_BF16 ? launch_dpl<__nv_bfloat16, MODE>(a, BH, st)
-                           : launch_dpl<float, MODE>(a, BH, st);
 }
 
 }  // namespace
@@ -199,17 +182,10 @@ int launch(BeamArgs a, int BH, int kind, cudaStream_t st) {
 int beam_masked_attend_f32(const void* q, const void* k, const void* v, const int* anc,
                            const float* vbias, void* out, int BH, int H, int K, int C, int S,
                            int Dh, cudaStream_t stream) {
+  if (K < 1 || K > 16 || Dh % 32 != 0 || Dh > 128) return (int)cudaErrorInvalidValue;
   BeamArgs a{};
   a.q = q; a.k = k; a.v = v; a.anc = anc; a.vbias = vbias; a.out = out;
   a.H = H; a.K = K; a.C = C; a.S = S; a.Dh = Dh;
-  return launch<MODE_MASKED>(a, BH, KIND_F32, stream);
-}
-
-extern "C" int sonar_beam_diag_attend(const void* q, const void* k, const void* v,
-                                      const float* vbias, void* out, int B, int H, int K, int S,
-                                      int Dh, int kind, void* stream) {
-  BeamArgs a{};
-  a.q = q; a.k = k; a.v = v; a.vbias = vbias; a.out = out;
-  a.H = H; a.K = K; a.C = K; a.S = S; a.Dh = Dh;
-  return launch<MODE_DIAG>(a, B * H, kind, (cudaStream_t)stream);
+  a.scale = 1.0f / sqrtf((float)Dh);
+  return launch_dpl<float>(a, BH, stream);
 }

@@ -4,8 +4,9 @@
 // - tensor maps: 2-D tiled descriptors of a row-major array, encoded on the
 //   host through the driver entry point (the library links only the CUDA
 //   runtime, so cuTensorMapEncodeTiled is looked up, not linked);
-// - mbarrier wait / arrive / expect-tx and the TMA tile load that completes
-//   on an mbarrier (optionally multicast to every block of a cluster);
+// - mbarrier wait / arrive / expect-tx, the 1-D bulk copy and the TMA tile
+//   load that complete on an mbarrier (the tile optionally multicast to every
+//   block of a cluster);
 // - wgmma: the shared-memory descriptors of K-major and MN-major operands in
 //   the 128-byte swizzle that TMA writes, fence / commit / wait, and the s8
 //   and bf16 products.
@@ -114,6 +115,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
   } while (!done);
+}
+
+// `bytes` contiguous bytes of global memory at `src` into `dst`, completing
+// on `bar` (1-D bulk copy: both addresses 16-byte aligned, `bytes` a multiple
+// of 16).
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // Box (c0 = column, c1 = row) of `map` into `dst`, completing on `bar`.

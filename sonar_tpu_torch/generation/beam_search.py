@@ -45,15 +45,20 @@ class BeamSearchConfig:
     len_penalty: float = 1.0
     normalize_scores: bool = True
     unk_penalty: float = 0.0
+    # The JAX package's ``approx_topk=True`` shortlists with
+    # ``lax.approx_max_k``, which is approximate only on a TPU: elsewhere it
+    # lowers to an exact top-k. The port shortlists with the exact blocked
+    # top-k (``ops/topk.exact_top_k_wide``) for both values, which is the
+    # function JAX computes off a TPU.
+    approx_topk: bool = False
 
     @classmethod
     def from_kwargs(cls, model_max_len: int, **kwargs: Any) -> "BeamSearchConfig":
         """Map reference generator kwargs (incl. ``max_seq_len``) to a
-        config; unknown kwargs raise, as fairseq2's generator does (so does
-        ``approx_topk``: the JAX package's approximate selector is not
-        ported)."""
+        config; unknown kwargs raise, as fairseq2's generator does.
+        ``approx_topk`` is accepted and selects exactly (see the field)."""
         known = ("beam_size", "max_seq_len", "max_gen_len", "min_gen_len",
-                 "len_penalty", "normalize_scores", "unk_penalty")
+                 "len_penalty", "normalize_scores", "unk_penalty", "approx_topk")
         unknown = sorted(set(kwargs) - set(known))
         if unknown:
             raise TypeError(f"unsupported generator kwargs: {unknown}; supported: {list(known)}")
@@ -63,7 +68,8 @@ class BeamSearchConfig:
         max_seq_len = min(int(kwargs.get("max_seq_len", model_max_len)), model_max_len)
         max_gen = int(kwargs.get("max_gen_len", min(cfg.max_gen_len, max_seq_len)))
         cfg = dataclasses.replace(cfg, max_gen_len=min(max_gen, max_seq_len))
-        for key in ("min_gen_len", "len_penalty", "normalize_scores", "unk_penalty"):
+        for key in ("min_gen_len", "len_penalty", "normalize_scores", "unk_penalty",
+                    "approx_topk"):
             if key in kwargs:
                 cfg = dataclasses.replace(cfg, **{key: kwargs[key]})
         return cfg

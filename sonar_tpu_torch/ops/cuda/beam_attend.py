@@ -1,9 +1,9 @@
 """Beam-decode self-attention over the un-reordered KV cache.
 
 Port of ``sonar_tpu/ops/pallas/beam_attend.py``; the CUDA kernels are in
-``csrc/beam_masked.cu`` (the masked attend; its fp32 body and the diagonal
-attend in ``csrc/beam_attend.cu``) and ``csrc/beam_reorder.cu`` (the
-reorder). Three functions, each with its plain PyTorch version (taken for
+``csrc/beam_masked.cu`` (the masked attend; its fp32 body in
+``csrc/beam_attend.cu``), ``csrc/beam_diag.cu`` (the diagonal attend) and
+``csrc/beam_reorder.cu`` (the reorder). Three functions, each with its plain PyTorch version (taken for
 CPU tensors) and a launch count:
 
 - ``beam_masked_attend``: each of the K query beams attends every cache row
@@ -36,6 +36,7 @@ import torch
 MASKED_LAUNCHES = 0
 DIAG_LAUNCHES = 0
 REORDER_LAUNCHES = 0
+DIAG_MAX_POSITIONS = 32768  # the diagonal attend keeps a row's logits in shared memory
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -168,6 +169,7 @@ def beam_diag_attend(
     _check_common(q, [("k_cache", k_cache), ("v_cache", v_cache)], valid_bias)
     require(tuple(v_cache.shape) == tuple(k_cache.shape), "v_cache must match k_cache")
     s = k_cache.shape[3]
+    require(s <= DIAG_MAX_POSITIONS, f"at most {DIAG_MAX_POSITIONS} positions, got {s}")
     out = torch.empty_like(q)
     lib = _build.library()
     _build.check(

@@ -294,6 +294,26 @@ def test_beam_search_matches_jax(name, kwargs):
         np.testing.assert_allclose(ts[r, 0], want_score, atol=1e-5)
 
 
+@pytest.mark.parametrize("name", ["toy", "wide"])
+def test_approx_topk_matches_jax(name):
+    """``approx_topk=True`` in both packages: JAX's ``lax.approx_max_k`` is
+    exact off a TPU and the port's shortlist is the exact blocked top-k, so
+    the hypotheses are identical token for token (scores to 1e-5, as in
+    test_beam_search_matches_jax)."""
+    jrun, trun = _runtimes(name)
+    kwargs = dict(beam_size=3, max_gen_len=8, approx_topk=True)
+    config, tconfig = jbs.BeamSearchConfig(**kwargs), tbs.BeamSearchConfig(**kwargs)
+    memory = np.random.default_rng(11).normal(
+        size=(3, 1, trun.model.config.model_dim)).astype(np.float32) * 2.0
+    jt, js, jl = jrun.generate_beam(memory, [3, 7], config)
+    tt, ts, tl = trun.generate_beam(memory, [3, 7], tconfig)
+    np.testing.assert_array_equal(tl, jl)
+    for r in range(3):
+        for k in range(config.beam_size):
+            assert tt[r, k, : tl[r, k]].tolist() == jt[r, k, : jl[r, k]].tolist()
+    np.testing.assert_allclose(ts, js, atol=1e-5)
+
+
 def test_oracle_is_the_jax_oracle():
     """The port's ``beam_search_oracle`` and the JAX one on one callback."""
     _, trun = _runtimes("toy")
@@ -343,11 +363,13 @@ def test_runtime_options():
                            tbs.BeamSearchConfig())
     capped = trun._cap_gen_len(tbs.BeamSearchConfig(max_gen_len=600), 2)
     assert capped.max_gen_len == trun.max_target_len - 2 == 508
-    for bad in ({"beam_sz": 3}, {"approx_topk": True}):
-        with pytest.raises(TypeError):
-            tbs.BeamSearchConfig.from_kwargs(512, **bad)
+    with pytest.raises(TypeError):
+        tbs.BeamSearchConfig.from_kwargs(512, beam_sz=3)
     cfg = tbs.BeamSearchConfig.from_kwargs(510, beam_size=2, max_seq_len=20)
-    assert (cfg.beam_size, cfg.max_gen_len) == (2, 20)
+    assert (cfg.beam_size, cfg.max_gen_len, cfg.approx_topk) == (2, 20, False)
+    # ``approx_topk`` is accepted as the JAX package accepts it (the selection
+    # stays exact: test_approx_topk_matches_jax).
+    assert tbs.BeamSearchConfig.from_kwargs(512, approx_topk=True).approx_topk
     steps = trun.decode_steps
     assert trun.warmup(tbs.BeamSearchConfig(beam_size=2, max_gen_len=3), batch_sizes=(2,)) == 1
     assert trun.decode_steps > steps

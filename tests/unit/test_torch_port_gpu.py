@@ -480,15 +480,34 @@ def test_beam_masked_attend_kernel(dev, dtype, shape):
     _assert_close(got, beam_attend.beam_masked_attend_plain(qbh, kc, vc, anc, vbias, h))
 
 
+# BEAM_SHAPES (ids as before), then a cache of 259 positions (a span of 201
+# streamed in chunks), idx 0 (one valid position), K 1 and 16, Dh 32 and 128,
+# idx S - 1 (the whole cache), and no valid position at all (every position
+# counts, as in the reference).
+DIAG_CASES = [pytest.param(shape, id=f"shape{i}") for i, shape in enumerate(BEAM_SHAPES)]
+DIAG_CASES += [pytest.param(shape, id="-".join(map(str, shape))) for shape in [
+    (32, 5, 16, 259, 64, 200), (32, 5, 16, 51, 64, 0), (4, 1, 2, 51, 64, 25),
+    (2, 16, 2, 51, 128, 25), (3, 5, 4, 51, 32, 50), (2, 5, 4, 259, 128, 200),
+    (2, 3, 2, 259, 32, 0), (2, 5, 2, 40, 64, -1)]]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", BEAM_SHAPES)
+@pytest.mark.parametrize("shape", DIAG_CASES)
 def test_beam_diag_attend_kernel(dev, dtype, shape):
+    """Against the plain version; on caches holding NaN at every position
+    past idx, the same bits (those positions are never read); a second call
+    gives the same bits."""
     b, beam, h, s, dh, idx = shape
     q, k, v, _, _, vbias, _ = _beam_inputs(dev, dtype, b, beam, h, s, dh, idx)
     got = _launched(beam_attend, lambda: beam_attend.beam_diag_attend(q, k, v, vbias),
                     counter="DIAG_LAUNCHES")
     _assert_close(got, beam_attend.beam_diag_attend_plain(q, k, v, vbias))
+    assert torch.equal(beam_attend.beam_diag_attend(q, k, v, vbias), got)
+    if idx >= 0:
+        past = (torch.arange(s, device=dev) > idx)[None, None, None, :, None]
+        kp, vp = k.masked_fill(past, float("nan")), v.masked_fill(past, float("nan"))
+        assert torch.equal(beam_attend.beam_diag_attend(q, kp, vp, vbias), got)
 
 
 # (B, K, H, S, Dh, idx, sel): BEAM_SHAPES with a random sel (ids as before),
@@ -539,6 +558,9 @@ def test_beam_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # head dim 48
         beam_attend.beam_diag_attend(q[..., :48].contiguous(), k[..., :48].contiguous(),
                                      v[..., :48].contiguous(), vbias)
+    with pytest.raises(ValueError):  # a cache view 2 bytes off 16-byte alignment
+        flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)
+        beam_attend.beam_diag_attend(q, flat[1:].view(k.shape), v, vbias)
 
 
 def _tree_ancestry(gen, b, beam, s, idx):
@@ -792,3 +814,34 @@ def test_sampling_card_matches_cpu(dev):
     np.testing.assert_array_equal(ct, pt)
     np.testing.assert_array_equal(cl, pl)
     np.testing.assert_allclose(cs, ps, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp32", "int8"])
+def test_cosine_topk_on_the_card(dev, mode):
+    """Mining's product and selection on the card against the same call on
+    the CPU: fp32 scores within 1e-5 and indices equal but in rows with a
+    tie or near tie (two of the CPU's top k + 1 within 1e-6, which the two
+    GEMMs' sums may order either way); int8 (the codes are the same bits on
+    both, the int32 sums exact) scores and indices identical."""
+    from sonar_tpu_torch.parallel import mining
+
+    gen = torch.Generator().manual_seed(7)
+    bank = torch.randn(5000, 256, generator=gen)
+    bank[4000:4100] = bank[:100]  # duplicated rows: exact ties
+    queries = torch.cat([bank[torch.randperm(5000, generator=gen)[:200]]
+                         + 0.5 * torch.randn(200, 256, generator=gen),
+                         torch.randn(312, 256, generator=gen)])
+    dot = "int8" if mode == "int8" else None
+    got_s, got_i = mining.cosine_topk(queries, bank, 8, block_size=1024, dot_dtype=dot,
+                                      device=dev)
+    want_s, want_i = mining.cosine_topk(queries, bank, 8, block_size=1024, dot_dtype=dot,
+                                        device="cpu")
+    got_s, got_i = got_s.cpu(), got_i.cpu()
+    if mode == "int8":
+        assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+        return
+    assert (got_s - want_s).abs().max().item() <= 1e-5
+    ref, _ = mining.cosine_topk(queries, bank, 9, block_size=1024, device="cpu")
+    near = (-ref.diff(dim=1) <= 1e-6).any(dim=1)  # duplicated rows tie exactly on the CPU
+    assert torch.equal(got_i[~near], want_i[~near]) and near.sum().item() <= 128

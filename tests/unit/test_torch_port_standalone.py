@@ -2,8 +2,8 @@
 
 - a fresh interpreter in which ``jax`` and ``sonar_tpu`` cannot be imported
   imports every module of ``sonar_tpu_torch`` and runs text, speech,
-  decode (beam, sampling, int8), speech -> text and MuTox ``predict`` and
-  the three heads on the CPU at toy size;
+  decode (beam, sampling, int8), speech -> text and MuTox ``predict``, the
+  three heads and mining on the CPU at toy size;
 - no file of the port, and not ``chip_smoke.py``, imports ``sonar_tpu`` or
   ``jax`` (an ``ast`` scan);
 - with no GPU, every entry point given ``device=None`` raises instead of
@@ -112,6 +112,13 @@ lcfg = laser2_text.laser2_archs.get("toy")
 lemb = convert.laser2_from_numpy(convert.init_laser2_params(lcfg), lcfg, device="cpu")(
     [[5, 6, 7], [8, 1, 1]], [3, 1])
 assert lemb.shape == (2, 48)
+from sonar_tpu_torch.parallel import cosine_topk, mine_bitexts, xsim, xsim_pp
+bank = rng.standard_normal((40, 16)).astype(np.float32)
+scores, idx = cosine_topk(bank[:8], bank, 3, block_size=16, dot_dtype="int8", device="cpu")
+assert (idx[:, 0].numpy() == np.arange(8)).all()
+assert xsim(bank, bank, device="cpu") == 0.0
+assert xsim_pp(bank, bank, rng.standard_normal((4, 16)), device="cpu") == 0.0
+assert len(mine_bitexts(bank, bank, device="cpu")[0]) == 40
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "sonar_tpu")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -167,6 +174,7 @@ def test_entry_points_default_to_the_gpu(no_gpu):
     from sonar_tpu_torch.models import blaser, laser2_text, mutox
     from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
     from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs, sonar_text_encoder_archs
+    from sonar_tpu_torch.parallel import mining
 
     tcfg = sonar_text_encoder_archs.get("toy")
     tenc = convert.text_encoder_from_numpy(convert.init_text_encoder_params(tcfg, 0), tcfg)
@@ -198,6 +206,10 @@ def test_entry_points_default_to_the_gpu(no_gpu):
         lambda: convert.blaser_from_numpy(convert.init_blaser_params(bcfg), bcfg),
         lambda: convert.mutox_from_numpy(convert.init_mutox_params(mcfg), mcfg),
         lambda: convert.laser2_from_numpy(convert.init_laser2_params(lcfg), lcfg),
+        lambda: mining.cosine_topk(np.ones((2, 4)), np.ones((3, 4)), 1),
+        lambda: mining.xsim(np.ones((2, 4)), np.ones((2, 4))),
+        lambda: mining.xsim_pp(np.ones((2, 4)), np.ones((2, 4)), np.ones((1, 4))),
+        lambda: mining.mine_bitexts(np.ones((2, 4)), np.ones((2, 4))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
