@@ -146,8 +146,42 @@ Phases, each printing ``#`` lines:
     every margin, error rates equal to the CPU's. Mining launches no kernel
     of the port: its products and selection are PyTorch calls.
 
+(j) serving, packing and the HF layer, on the models of (d), (e) and (f):
+    (j1) the port's ``EmbeddingServer`` (``warmup=True``, max_wait_ms 10)
+    with (d)'s int8 text pipeline on /embed, a ``TextToTextModelPipeline``
+    of (d)'s bf16 encoder and (f)'s bf16 decoder on /translate and (e)'s
+    bf16 speech pipeline on /embed_speech, fired at by the port's
+    ``SonarClient``: one /embed request alone (equal bit for bit to the
+    pipeline's direct static ``predict``), then 8 threads x 16 /embed
+    requests of 1-32 sentences of (d)'s corpus beside 2 threads x 4
+    /embed_speech requests of 2 clips of 3-20 s (cosine >= 0.999 per
+    sentence or clip against direct ``predict``), then one /translate
+    request of 4 sentences alone (equal to direct ``predict``); /metrics
+    must count every request and item with no error, the launch counts of
+    #1 or #2, #3, #5, #6 and #8 must be > 0 (threads share the counters),
+    /healthz must read ``draining`` after ``drain()``, and the server is
+    stopped in a ``finally``. Prints each endpoint's requests/s, items/s,
+    p50 / p95 latency and mean batch occupancy, and the encoder's padding
+    waste. (j2) TF32 switched on as a user may have it, (d)'s fp32 text
+    pipeline and (e)'s fp32 speech pipeline served at once (4 threads of 2
+    requests each): the three precision flags must read afterwards what
+    they read before the server started, and the replies agree with direct
+    fp32 ``predict`` within 1e-3 of the scale. (j3) (d)'s corpus packed
+    (``pack_sequences``, rows of 128, 64 rows a batch, up to 16 segments a
+    row) through ``apply_packed`` in int8 and bf16: flash attention in
+    full-bias mode (and in int8 ``fused_int8_ffn``) must launch, every
+    output be finite, each sentence of <= 128 tokens within cosine 0.999 of
+    its static-batch embedding of (d); 16 packed rows against the CPU port
+    within the same limit; encode-only sentences/s, padding waste and MFU
+    (``sonar_tpu_torch.utils.flops``) of packed against static batching on
+    the same sentences. (j4) the HF layer's ``process_batch`` on plain
+    dicts: text -> embedding (a flat and a list-of-sentences column, 256
+    rows each) and audio -> embedding (8 clips) equal bit for bit to direct
+    ``predict`` on the same batches, embedding -> text (8 embeddings) equal
+    to it; rows/s.
+
 A kernel's ``launches`` in the JSON record is the sum of its counts over
-(d) to (i); the kernels that no path calls (``relpos_flash_attention``,
+(d) to (j); the kernels that no path calls (``relpos_flash_attention``,
 ``beam_diag_attend``, ``beam_reorder_attend``,
 ``fused_bf16_ffn_ln_residual``) must read 0. Prints that record on the
 line before the last, and as the last line ``{"ok": true, "device":
@@ -1121,10 +1155,11 @@ def run_slice(torch, card):
     torch.cuda.synchronize()
 
     zero_launches()
-    tput = {}
+    tput, static = {}, {}
     for mode in ("int8", "bf16"):
         t0 = time.perf_counter()
-        emb = gpu[mode].predict(corpus, source_lang="eng_Latn", batching="static")
+        emb = static[mode] = gpu[mode].predict(corpus, source_lang="eng_Latn",
+                                               batching="static")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         tput[mode] = len(corpus) / dt
@@ -1198,7 +1233,8 @@ def run_slice(torch, card):
                 raise AssertionError(f"{mode}: the card disagrees with the CPU reference")
     handoff = {"tokenizer": tokenizer, "corpus": corpus, "embeddings": bf16_embeddings[:64],
                "corpus_embeddings": bf16_embeddings, "encoder": gpu["bf16"].model,
-               "tokenizer_path": tmp / "synthetic_nllb.model"}
+               "tokenizer_path": tmp / "synthetic_nllb.model", "text_pipelines": gpu,
+               "static_embeddings": static, "text_params": params}
     return launches, tput, handoff
 
 
@@ -1259,8 +1295,9 @@ def run_speech(torch, card, handoff):
         return SpeechToEmbeddingModelPipeline(TorchSpeechEncoder(model))
 
     launches = dict.fromkeys(KERNELS, 0)
+    handoff["speech_clips"], handoff["speech_pipelines"] = clips, {}
     for mode, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        pipe = pipeline(dtype, DEVICE)
+        pipe = handoff["speech_pipelines"][mode] = pipeline(dtype, DEVICE)
         pipe.predict(ref, batch_size=3)  # warm: allocator, cuBLAS and cuDNN handles
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1284,8 +1321,6 @@ def run_speech(torch, card, handoff):
             raise AssertionError(f"speech {mode}: a rel-pos path was not taken (v2 {v2}, "
                                  f"plain {plain})")
         on_card = pipe.predict(ref, batch_size=3)
-        del pipe
-        torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
         on_cpu = pipeline(dtype, "cpu").predict(ref, batch_size=3)
@@ -1982,6 +2017,504 @@ def run_mining(torch, card):
     return launches
 
 
+# -- (j) serving, the precision scope under load, packed encoding, the HF layer ----------
+
+
+SERVE_THREADS, SERVE_REQUESTS = 8, 16  # /embed burst: threads x requests of 1-32 sentences
+SPEECH_THREADS, SPEECH_REQUESTS = 2, 4  # /embed_speech burst: requests of 2 clips of 3-20 s
+PACK_ROW_LEN, PACK_ROWS, PACK_SEGMENTS = 128, 64, 16  # scripts/bench_r2_sweep.py:42,77
+PACK_CPU_ROWS = 16  # packed rows held against the CPU: 2048 tokens, the int8 FFN's gate
+
+
+def _fire(jobs):
+    """Run each ``(name, fn)`` of ``jobs`` in a thread of its own; returns
+    {name: result} and the wall seconds. A job's exception is raised here."""
+    import threading
+
+    results, errors = {}, []
+
+    def run(name, fn):
+        try:
+            results[name] = fn()
+        except BaseException as err:  # reported on the main thread
+            errors.append((name, err))
+
+    threads = [threading.Thread(target=run, args=job, daemon=True) for job in jobs]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    dt = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread did not finish within 600 s")
+    if errors:
+        raise AssertionError(f"client threads failed: {errors[:3]}") from errors[0][1]
+    return results, dt
+
+
+def _flags(torch):
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def _embed_client(host, port, reqs):
+    """One client thread: the /embed requests ``reqs`` (lists of texts) in turn."""
+    from sonar_tpu_torch.client import SonarClient
+
+    with SonarClient(host, port, timeout_s=300) as c:
+        return [c.embed(texts) for texts in reqs]
+
+
+def _speech_client(host, port, reqs):
+    """One client thread: the /embed_speech requests ``reqs`` (lists of clips)."""
+    from sonar_tpu_torch.client import SonarClient
+
+    with SonarClient(host, port, timeout_s=300) as c:
+        return [c.embed_speech(clips) for clips in reqs]
+
+
+def _time_predict(pipe, sink):
+    """Record the seconds of each ``pipe.predict`` call into ``sink`` until
+    ``del pipe.predict`` (the server looks the method up at each call)."""
+    predict = pipe.predict
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return predict(*args, **kwargs)
+        finally:
+            sink.append(time.perf_counter() - t0)
+
+    pipe.predict = timed
+
+
+def _endpoint_line(name, m, dt, card):
+    return (f"serve /{name}: {m['requests']} requests, {m['items']} items in {dt:.2f} s = "
+            f"{m['requests'] / dt:.1f} requests/s, {m['items'] / dt:.1f} items/s; latency p50 "
+            f"{m['latency_p50_ms']} ms, p95 {m['latency_p95_ms']} ms; {m['batches']} batches, "
+            f"mean occupancy {m['batch_occupancy_mean']} items; errors {m['errors']}; on {card}")
+
+
+def _serve_at_full_width(torch, card, handoff, launches):
+    """(j1): the three endpoints behind the port's server, fired at by the
+    port's client from many threads."""
+    import numpy as np
+
+    from sonar_tpu_torch.client import SonarClient
+    from sonar_tpu_torch.inference_pipelines.text import TextToTextModelPipeline
+    from sonar_tpu_torch.serving import EmbeddingServer
+
+    corpus, tok = handoff["corpus"], handoff["tokenizer"]
+    embed_pipe = handoff["text_pipelines"]["int8"]
+    translator = TextToTextModelPipeline(handoff["encoder"], handoff["decoders"]["bf16"], tok)
+    speech_pipe = handoff["speech_pipelines"]["bf16"]
+    rng = np.random.default_rng(10)
+    requests = [[[corpus[i] for i in rng.integers(0, len(corpus), int(rng.integers(1, 33)))]
+                 for _ in range(SERVE_REQUESTS)] for _ in range(SERVE_THREADS)]
+    mid = [w for w in handoff["speech_clips"] if 3.0 <= w.shape[0] / 16000.0 <= 20.0]
+    speech_requests = [[[mid[int(i)] for i in rng.integers(0, len(mid), 2)]
+                        for _ in range(SPEECH_REQUESTS)] for _ in range(SPEECH_THREADS)]
+    lone = [corpus[i] for i in rng.integers(0, len(corpus), 12)]
+    to_translate = corpus[100:104]
+
+    t0 = time.perf_counter()
+    srv = EmbeddingServer(embed_pipe, max_wait_ms=10, warmup=True, translator=translator,
+                          speech_pipeline=speech_pipe)
+    log(f"serve: server built and warmed (every endpoint's serving shapes) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    srv.start()
+    host, port = srv.address
+    failures = []
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        with SonarClient(host, port, timeout_s=300) as client:
+            got = client.embed(lone)
+        direct = embed_pipe.predict(lone, source_lang="eng_Latn", batching="static")
+        same = np.array_equal(got, direct)
+        log(f"check serve /embed lone request of {len(lone)} sentences equals the pipeline's "
+            f"direct static predict bit for bit {'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append("lone /embed")
+
+        before = {ep: m.snapshot() for ep, m in srv.metrics.items()}
+        enc_before = embed_pipe.model.stats.snapshot()
+        in_predict = {"embed": [], "embed_speech": []}
+        _time_predict(embed_pipe, in_predict["embed"])
+        _time_predict(speech_pipe, in_predict["embed_speech"])
+        jobs = [(("embed", i), lambda r=r: _embed_client(host, port, r))
+                for i, r in enumerate(requests)]
+        jobs += [(("speech", i), lambda r=r: _speech_client(host, port, r))
+                 for i, r in enumerate(speech_requests)]
+        try:
+            replies, burst_s = _fire(jobs)
+        finally:
+            del embed_pipe.predict, speech_pipe.predict
+        enc_after = embed_pipe.model.stats.snapshot()
+        for ep, calls in in_predict.items():
+            log(f"serve /{ep} burst: the worker was inside predict {sum(calls):.2f} s of the "
+                f"{burst_s:.2f} s ({sum(calls) / burst_s:.1%}, {len(calls)} calls; wall time, "
+                f"waits for the interpreter lock included); on {card}")
+
+        # Each reply against the pipeline's direct predict (static batching,
+        # all sentences in one call): a micro-batch of another size may take
+        # another gate, so the limit is PERF.md's int8 / bf16 cosine.
+        flat = [t for reqs in requests for texts in reqs for t in texts]
+        want = embed_pipe.predict(flat, source_lang="eng_Latn", batching="static")
+        served = np.concatenate([e for i in range(SERVE_THREADS) for e in replies["embed", i]])
+        cos = _cos_rows(served, want)
+        n_tok = max(len(tok.create_encoder(lang="eng_Latn")(t)) for t in flat)
+        log(f"check serve /embed burst: {len(flat)} sentences (longest {n_tok} tokens) min "
+            f"cos {cos.min():.6f} against direct predict (>= 0.999) "
+            f"{'ok' if cos.min() >= 0.999 else 'FAIL'}")
+        if cos.min() < 0.999 or n_tok < 256:
+            failures.append("/embed burst")
+        clips = [w for reqs in speech_requests for ws in reqs for w in ws]
+        swant = speech_pipe.predict(clips)
+        sgot = np.concatenate([e for i in range(SPEECH_THREADS) for e in replies["speech", i]])
+        scos = _cos_rows(sgot, swant)
+        log(f"check serve /embed_speech burst: {len(clips)} clips "
+            f"({sum(w.shape[0] for w in clips) / 16000.0:.1f} s of audio) min cos "
+            f"{scos.min():.6f} against direct predict (>= 0.999) "
+            f"{'ok' if scos.min() >= 0.999 else 'FAIL'}")
+        if scos.min() < 0.999:
+            failures.append("/embed_speech burst")
+
+        t0 = time.perf_counter()
+        with SonarClient(host, port, timeout_s=300) as client:
+            translated = client.translate(to_translate, source_lang="eng_Latn",
+                                          target_lang="eng_Latn")
+        translate_s = time.perf_counter() - t0
+        direct_t = translator.predict(to_translate, source_lang="eng_Latn",
+                                      target_lang="eng_Latn")
+        ok = translated == direct_t
+        log(f"check serve /translate of {len(to_translate)} sentences alone ({translate_s:.2f} s, "
+            f"default max_gen_len) equals direct predict {'ok' if ok else 'FAIL'}; lengths "
+            f"{[len(t.split()) for t in translated]} words")
+        if not ok:
+            failures.append("/translate")
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for name in KERNELS:
+            launches[name] += counts[name]
+        log(f"serve: launches over (j1) (threads share the counters): {counts}")
+        need = ("fused_int8_ffn", "flash_attention", "relpos_flash_attention_v2",
+                "beam_masked_attend")
+        missing = [n for n in need if counts[n] == 0]
+        if counts["short_qkv_attention"] + counts["fused_attn_block"] == 0:
+            missing.append("short_qkv_attention or fused_attn_block")
+        if missing:
+            failures.append(f"no launch of {missing}")
+
+        with SonarClient(host, port, timeout_s=60) as client:
+            metrics = client.metrics()
+            for ep, dt in (("embed", burst_s), ("embed_speech", burst_s),
+                           ("translate", translate_s)):
+                m = dict(metrics[ep])
+                for key in ("requests", "items", "batches"):
+                    m[key] -= before[ep][key]  # the burst's (or the lone translation's)
+                log(_endpoint_line(ep, m, dt, card))
+            enc = {k: enc_after[k] - enc_before[k]
+                   for k in ("batches", "true_tokens", "padded_tokens")}
+            log(f"serve /embed encoder over the burst: {enc['batches']} batches, padding waste "
+                f"{1 - enc['true_tokens'] / enc['padded_tokens']:.4f} ({enc['true_tokens']} of "
+                f"{enc['padded_tokens']} tokens real)")
+            want_counts = {"embed": (1 + SERVE_THREADS * SERVE_REQUESTS, len(lone) + len(flat)),
+                           "embed_speech": (SPEECH_THREADS * SPEECH_REQUESTS, len(clips)),
+                           "translate": (1, len(to_translate))}
+            counted = {ep: (metrics[ep]["requests"], metrics[ep]["items"]) for ep in want_counts}
+            errors = sum(metrics[ep]["errors"] for ep in want_counts)
+            ok = counted == want_counts and errors == 0
+            log(f"check serve /metrics counts {counted} (want {want_counts}), errors {errors} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("/metrics")
+            srv.drain()
+            status = client.healthz()["status"]
+        log(f"check serve /healthz after drain(): {status} "
+            f"{'ok' if status == 'draining' else 'FAIL'}")
+        if status != "draining":
+            failures.append("drain")
+    finally:
+        srv.stop(drain_timeout_s=30.0)
+    return failures
+
+
+def _serve_fp32_under_load(torch, card, handoff, launches):
+    """(j2): two fp32 models served at once, TF32 switched on by the caller."""
+    import numpy as np
+
+    from sonar_tpu_torch.serving import EmbeddingServer
+
+    corpus = handoff["corpus"]
+    text_pipe = handoff["text_pipelines"]["fp32"]
+    speech_pipe = handoff["speech_pipelines"]["fp32"]
+    rng = np.random.default_rng(11)
+    mid = [w for w in handoff["speech_clips"] if 3.0 <= w.shape[0] / 16000.0 <= 10.0]
+    text_reqs = [[[corpus[int(i)] for i in rng.integers(0, len(corpus), int(rng.integers(1, 9)))]
+                  for _ in range(2)] for _ in range(4)]
+    speech_reqs = [[[mid[int(rng.integers(0, len(mid)))]] for _ in range(2)] for _ in range(4)]
+    user = _flags(torch)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    set_before = _flags(torch)
+    srv = EmbeddingServer(text_pipe, max_wait_ms=10, speech_pipeline=speech_pipe).start()
+    host, port = srv.address
+    failures = []
+    try:
+        zero_launches()
+        jobs = [(("text", i), lambda r=r: _embed_client(host, port, r))
+                for i, r in enumerate(text_reqs)]
+        jobs += [(("speech", i), lambda r=r: _speech_client(host, port, r))
+                 for i, r in enumerate(speech_reqs)]
+        replies, dt = _fire(jobs)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for name in KERNELS:
+            launches[name] += counts[name]
+    finally:
+        srv.stop(drain_timeout_s=30.0)
+        after = _flags(torch)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = user[:2]
+        torch.set_float32_matmul_precision(user[2])
+    ok = after == set_before
+    log(f"check serve fp32 text + fp32 speech at once (4 + 4 threads, 8 + 8 requests in "
+        f"{dt:.2f} s): the flags read {after} after, {set_before} before {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("fp32 flags")
+    for kind, reqs, pipe in (("text", text_reqs, text_pipe), ("speech", speech_reqs, speech_pipe)):
+        items = [x for r in reqs for req in r for x in req]
+        got = np.concatenate([e for i in range(4) for e in replies[kind, i]])
+        want = (pipe.predict(items, source_lang="eng_Latn", batching="static") if kind == "text"
+                else pipe.predict(items))
+        max_abs, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        ok = max_abs <= 1e-3 * scale
+        log(f"check serve fp32 {kind}: {len(items)} items max_abs {max_abs:.3e} against direct "
+            f"fp32 predict (<= 1e-3 x scale {scale:.3g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"fp32 {kind}")
+    log(f"serve fp32: launches {counts}")
+    return failures
+
+
+def _packed_encoding(torch, card, handoff, launches):
+    """(j3): the corpus packed into rows of 128 through ``apply_packed``, in
+    int8 and bf16, against static batching on the same sentences."""
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import text_encoder_from_numpy
+    from sonar_tpu_torch.data.batcher import StaticShapeBatcher
+    from sonar_tpu_torch.data.packing import pack_sequences
+    from sonar_tpu_torch.inference_pipelines.text import TorchTextEncoder, _static_len_buckets_for
+    from sonar_tpu_torch.models.sonar_text import sonar_text_encoder_archs
+    from sonar_tpu_torch.ops.precision import matmul_precision_for
+    from sonar_tpu_torch.utils.flops import mfu, transformer_encoder_flops
+
+    cfg = sonar_text_encoder_archs.get("basic")
+    encode = handoff["tokenizer"].create_encoder(lang="eng_Latn")
+    ids = [list(encode(t)) for t in handoff["corpus"]]
+    fits = [i for i, x in enumerate(ids) if len(x) <= PACK_ROW_LEN]
+    packed = list(pack_sequences(ids, row_len=PACK_ROW_LEN, rows_per_batch=PACK_ROWS,
+                                 max_segments=PACK_SEGMENTS))
+    fit_ids = [ids[i] for i in fits]
+    fit_packed = list(pack_sequences(fit_ids, row_len=PACK_ROW_LEN, rows_per_batch=PACK_ROWS,
+                                     max_segments=PACK_SEGMENTS))
+    real = sum(len(x) for x in fit_ids)
+    packed_waste = 1.0 - real / (len(fit_packed) * PACK_ROWS * PACK_ROW_LEN)
+    batcher = StaticShapeBatcher(pad_value=1, len_buckets=_static_len_buckets_for(
+        cfg.max_seq_len), tokens_per_batch=8192)
+    static_batches = list(batcher.batches(fit_ids))
+    static_waste = 1.0 - real / sum(b.seqs.size for b in static_batches)
+    log(f"packed: {len(ids)} sentences into {len(packed)} batches of [{PACK_ROWS}, "
+        f"{PACK_ROW_LEN}] (up to {PACK_SEGMENTS} a row); {len(ids) - len(fits)} sentences are "
+        f"longer than {PACK_ROW_LEN} tokens and truncated by the packer (left out of the "
+        f"comparisons)")
+
+    def to_device(b, device):
+        return [torch.from_numpy(a).to(device) for a in (b.tokens, b.segment_ids, b.positions)]
+
+    def run(model, batches):
+        with torch.inference_mode(), matmul_precision_for(model.dtype):
+            return [model.apply_packed(model.params.tree(), *args, PACK_SEGMENTS)
+                    for args in batches]
+
+    def flops_of(shapes):
+        return sum(transformer_encoder_flops(cfg.model_dim, cfg.ffn_inner_dim,
+                                             cfg.num_encoder_layers, b, s) for b, s in shapes)
+
+    failures = []
+    cpu_base = text_encoder_from_numpy(handoff["text_params"], cfg, torch.bfloat16, "cpu")
+    for mode, quantize in (("int8", True), ("bf16", False)):
+        enc = handoff["text_pipelines"][mode].model
+        model = enc.model
+        on_card = [to_device(b, DEVICE) for b in packed]
+        run(model, on_card[:1])  # warm
+        torch.cuda.synchronize()
+        zero_launches()
+        outs = run(model, on_card)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for name in KERNELS:
+            launches[name] += counts[name]
+        outs = [o.cpu().numpy() for o in outs]
+        finite = all(np.isfinite(o).all() for o in outs)
+        emb = np.zeros((len(ids), cfg.model_dim), np.float32)
+        for b, o in zip(packed, outs):
+            for orig, row, seg in b.mapping:
+                emb[orig] = o[row, seg - 1]
+        cos = _cos_rows(emb[fits], handoff["static_embeddings"][mode][fits])
+        ok = (finite and counts["flash_attention"] > 0
+              and (counts["fused_int8_ffn"] > 0 or mode == "bf16") and cos.min() >= 0.999)
+        log(f"check packed {mode}: launches flash_attention {counts['flash_attention']} (full "
+            f"bias), fused_int8_ffn {counts['fused_int8_ffn']}; outputs finite {finite}; "
+            f"{len(fits)} sentences of <= {PACK_ROW_LEN} tokens against their static-batch "
+            f"embedding on the card: min cos {cos.min():.6f} (>= 0.999) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"packed {mode}")
+
+        # Encode only, the same sentences: packed rows against static batches.
+        fit_dev = [to_device(b, DEVICE) for b in fit_packed]
+        run(model, fit_dev[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(model, fit_dev)
+        torch.cuda.synchronize()
+        packed_s = time.perf_counter() - t0
+        enc.encode_batches(static_batches[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_batches(static_batches)
+        torch.cuda.synchronize()
+        static_s = time.perf_counter() - t0
+        peak = "int8" if quantize else "bf16"
+        pf = flops_of([(PACK_ROWS, PACK_ROW_LEN)] * len(fit_packed))
+        sf = flops_of([b.seqs.shape for b in static_batches])
+        log(f"packed {mode} encode only, {len(fit_ids)} sentences: packed {len(fit_ids) / packed_s:.1f} "
+            f"sentences/s ({len(fit_packed)} batches, padding waste {packed_waste:.4f}, MFU "
+            f"{mfu(pf / packed_s, peak):.4f}) against static {len(fit_ids) / static_s:.1f} "
+            f"sentences/s ({len(static_batches)} batches, padding waste {static_waste:.4f}, MFU "
+            f"{mfu(sf / static_s, peak):.4f}); MFU of the analytic matmul FLOPs of the padded "
+            f"shapes over the H100 SXM's dense {peak} peak; on {card}")
+
+        # The first PACK_CPU_ROWS rows of the first batch on the CPU port.
+        t0 = time.perf_counter()
+        cpu_model = TorchTextEncoder(cpu_base, quantize=quantize, device="cpu").model
+        cut = [a[:PACK_CPU_ROWS] for a in to_device(packed[0], "cpu")]
+        want = run(cpu_model, [cut])[0].numpy()
+        got = outs[0][:PACK_CPU_ROWS]
+        filled = np.zeros(got.shape[:2], bool)
+        for _, row, seg in packed[0].mapping:
+            if row < PACK_CPU_ROWS:
+                filled[row, seg - 1] = True
+        cos = _cos_rows(got[filled], want[filled])
+        ok = cos.min() >= 0.999 and (got[~filled] == 0).all()
+        log(f"check packed {mode} card vs CPU on {PACK_CPU_ROWS} rows ({int(filled.sum())} "
+            f"sentences): min cos {cos.min():.6f} (>= 0.999) {'ok' if ok else 'FAIL'} "
+            f"(CPU {time.perf_counter() - t0:.1f} s)")
+        if not ok:
+            failures.append(f"packed {mode} card vs CPU")
+        del cpu_model
+    return failures
+
+
+def _hf_layer(torch, card, handoff, launches):
+    """(j4): the HF batch layer's ``process_batch`` on plain dicts (the
+    card's machine has no ``datasets``)."""
+    import numpy as np
+
+    from sonar_tpu_torch.huggingface.audio import (
+        HFAudioToEmbeddingPipeline,
+        HFAudioToEmbeddingPipelineConfig,
+    )
+    from sonar_tpu_torch.huggingface.text import (
+        HFEmbeddingToTextPipeline,
+        HFEmbeddingToTextPipelineConfig,
+        HFTextToEmbeddingPipeline,
+        HFTextToEmbeddingPipelineConfig,
+    )
+    from sonar_tpu_torch.inference_pipelines.text import EmbeddingToTextModelPipeline
+
+    tok, corpus = handoff["tokenizer"], handoff["corpus"]
+    text_pipe = handoff["text_pipelines"]["int8"]
+    dim = text_pipe.model.model_dim
+    failures = []
+    zero_launches()
+
+    flat = corpus[:256]
+    nested = [corpus[256 + 3 * i: 256 + 3 * i + 1 + i % 3] for i in range(256)]
+    flat_nested = [t for row in nested for t in row]
+    hf = HFTextToEmbeddingPipeline(HFTextToEmbeddingPipelineConfig(
+        columns=["text", "sents"], encoder_model=text_pipe.model, tokenizer=tok))
+    t0 = time.perf_counter()
+    out = hf.process_batch({"text": flat, "sents": nested})
+    dt = time.perf_counter() - t0
+    same = (np.array_equal(np.asarray(out["text_output"], np.float32),
+                           text_pipe.predict(flat, source_lang="eng_Latn", batch_size=32))
+            and np.array_equal(np.concatenate([np.asarray(r, np.float32).reshape(-1, dim)
+                                               for r in out["sents_output"]]),
+                               text_pipe.predict(flat_nested, source_lang="eng_Latn",
+                                                 batch_size=32)))
+    log(f"check hf text->embedding: 256 rows flat + 256 rows of 1-3 sentences "
+        f"({len(flat) + len(flat_nested)} sentences) in {dt:.2f} s = {512 / dt:.1f} rows/s; "
+        f"equal bits to direct predict (the same batches of 32) {'ok' if same else 'FAIL'}; "
+        f"on {card}")
+    if not same:
+        failures.append("hf text->embedding")
+
+    dec = handoff["decoders"]["bf16"]
+    emb = handoff["embeddings"][:8]
+    hf = HFEmbeddingToTextPipeline(HFEmbeddingToTextPipelineConfig(
+        columns=["emb"], decoder_model=dec, tokenizer=tok, max_seq_len=DECODE_KW["max_gen_len"]))
+    t0 = time.perf_counter()
+    out = hf.process_batch({"emb": list(emb)})["emb_output"]
+    dt = time.perf_counter() - t0
+    want = EmbeddingToTextModelPipeline(dec, tok).predict(
+        emb, target_lang="eng_Latn", batch_size=32, max_seq_len=DECODE_KW["max_gen_len"])
+    same = out == want
+    log(f"check hf embedding->text: 8 rows in {dt:.2f} s = {8 / dt:.2f} rows/s; equal to direct "
+        f"predict {'ok' if same else 'FAIL'}; on {card}")
+    if not same:
+        failures.append("hf embedding->text")
+
+    speech_pipe = handoff["speech_pipelines"]["bf16"]
+    clips = [w for w in handoff["speech_clips"] if w.shape[0] <= 20 * 16000][:8]
+    hf = HFAudioToEmbeddingPipeline(HFAudioToEmbeddingPipelineConfig(
+        columns=["audio"], encoder_model=speech_pipe.model))
+    t0 = time.perf_counter()
+    out = hf.process_batch({"audio": [{"array": w, "sampling_rate": 16000} for w in clips]})
+    dt = time.perf_counter() - t0
+    got = np.asarray(out["audio_output"], np.float32)
+    same = np.array_equal(got, speech_pipe.predict(clips, batch_size=4, n_parallel=2))
+    log(f"check hf audio->embedding: {len(clips)} clips in {dt:.2f} s = {len(clips) / dt:.2f} "
+        f"rows/s; equal bits to "
+        f"direct predict (the same batches of 4) {'ok' if same else 'FAIL'}; on {card}")
+    if not same:
+        failures.append("hf audio->embedding")
+    torch.cuda.synchronize()
+    counts = read_launches()
+    for name in KERNELS:
+        launches[name] += counts[name]
+    log(f"hf: launches {counts}")
+    return failures
+
+
+def run_serving(torch, card, handoff):
+    """Phase (j): (j1) the server at full width, (j2) two fp32 models
+    served at once, (j3) packed encoding, (j4) the HF layer. Reuses the
+    models of (d), (e) and (f). Returns the launch counts of its driven
+    runs."""
+    launches = dict.fromkeys(KERNELS, 0)
+    failures = []
+    for label, part in (("(j1)", _serve_at_full_width), ("(j2)", _serve_fp32_under_load),
+                        ("(j3)", _packed_encoding), ("(j4)", _hf_layer)):
+        t0 = time.perf_counter()
+        failures += part(torch, card, handoff, launches)
+        log(f"part {label} took {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError(f"serving checks failed: {failures}")
+    return launches
+
+
 # -- --compare: this checkout against others, in turns, on one card ------------------
 
 
@@ -2177,7 +2710,8 @@ def main() -> int:
     s2t = phase("(g)", run_speech_to_text, torch, card, handoff)
     rest = phase("(h)", run_sampling_int8_heads, torch, card, handoff)
     mined = phase("(i)", run_mining, torch, card)
-    launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest, mined))
+    served = phase("(j)", run_serving, torch, card, handoff)
+    launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest, mined, served))
                 for name in KERNELS}
     launched = [name for name in NO_PATH if launches[name] != 0]
     if launched:

@@ -13,7 +13,7 @@ Port of ``SonarTextEncoder.apply`` of ``sonar_tpu.models.sonar_text.model``:
 The parameters are an ``nn.Module`` tree that mirrors the JAX pytree key
 for key (a sub-module per dict, a buffer per tensor, layers stacked on a
 leading L axis), so ``state_dict()`` names follow the checkpoint layout.
-``apply_packed`` is not ported yet.
+``apply_packed`` encodes packed rows (``sonar_tpu_torch.data.packing``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Optional
 
 from sonar_tpu_torch.models.common import ParamTree, SonarEncoderOutput
 from sonar_tpu_torch.models.sonar_text.config import SonarTextEncoderConfig
-from sonar_tpu_torch.nn.core import Params, layer_norm
+from sonar_tpu_torch.nn.core import Params, embedding_lookup, layer_norm
 from sonar_tpu_torch.nn.frontend import EmbeddingFrontend
 from sonar_tpu_torch.nn.pooling import Pooling, attention_pool, static_pool
 from sonar_tpu_torch.nn.transformer import encoder_stack
@@ -99,3 +99,48 @@ class SonarTextEncoder(nn.Module):
         return SonarEncoderOutput(
             encoded_seqs=encoded, sentence_embeddings=embeddings, seq_lens=seq_lens
         )
+
+    def apply_packed(self, params: Params, tokens: torch.Tensor, segment_ids: torch.Tensor,
+                     positions: torch.Tensor, max_segments: int) -> torch.Tensor:
+        """Packed forward (``sonar_tpu_torch.data.packing``): several
+        sentences a row with block-diagonal attention, per-segment positions
+        and per-segment mean pooling.
+
+        tokens, segment_ids (0 = padding, 1..K = segments) and positions
+        (restarting per segment) are [B, L] ints -> [B, max_segments, D]
+        fp32; slot k holds segment k + 1, unfilled slots are zero. MEAN
+        pooling and sinusoidal positions only, as in the JAX package.
+        """
+        cfg = self.config
+        dtype = self.dtype
+        if self.pooling != Pooling.MEAN:
+            raise NotImplementedError("packed encoding supports MEAN pooling")
+        if cfg.learned_pos or cfg.no_token_positional_embeddings:
+            raise NotImplementedError("packed encoding needs sinusoidal PE")
+
+        # Frontend with per-token positions (no layernorm_embedding, as in
+        # the JAX package's packed forward).
+        x = embedding_lookup(params["encoder_frontend"]["embed"], tokens, dtype=dtype)
+        if self.frontend.scale != 1.0:
+            x = x * torch.tensor(self.frontend.scale, dtype=dtype)
+        pe = self.frontend.pos_encoder
+        x = x + pe.table(x.device, dtype)[positions.long() + pe.offset]
+
+        # Block-diagonal attention within segments; a padding position
+        # attends to no key.
+        real = segment_ids > 0
+        same = segment_ids[:, :, None] == segment_ids[:, None, :]
+        bias = additive_bias(same & real[:, :, None] & real[:, None, :])[:, None, :, :]
+
+        x = encoder_stack(params["encoder"]["layers"], x, bias,
+                          cfg.num_encoder_attn_heads, cfg.activation_fn, norm_order="pre")
+        if "layer_norm" in params["encoder"]:
+            x = layer_norm(params["encoder"]["layer_norm"], x)
+        encoded = layer_norm(params["layer_norm"], x)
+
+        # Per-segment masked mean with the reference 1e-7 epsilon.
+        slots = torch.arange(1, max_segments + 1, device=segment_ids.device)
+        onehot = (segment_ids[..., None] == slots).float()  # [B, L, K]; padding: 0
+        sums = torch.einsum("bld,blk->bkd", encoded.float(), onehot)
+        counts = onehot.sum(dim=1)  # [B, K]
+        return sums / (counts + 1e-7)[..., None]

@@ -10,31 +10,71 @@ the tied projection and the half-FFN's plain version share.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+import threading
+from typing import Iterator, Optional, Tuple
 
 import torch
 
 
+class _Fp32Scope:
+    """The process-wide state behind ``matmul_precision_for``: how many fp32
+    scopes are open, on any thread, and the flags the first one found."""
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.depth = 0
+        self.saved: Optional[Tuple[bool, bool, str]] = None
+
+    def enter(self) -> None:
+        with self.lock:
+            if self.depth == 0:
+                self.saved = (
+                    torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32,
+                    torch.get_float32_matmul_precision(),
+                )
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+                torch.set_float32_matmul_precision("highest")
+            self.depth += 1
+
+    def exit(self) -> None:
+        with self.lock:
+            self.depth -= 1
+            if self.depth == 0:
+                matmul, cudnn, precision = self.saved
+                torch.backends.cuda.matmul.allow_tf32 = matmul
+                torch.backends.cudnn.allow_tf32 = cudnn
+                torch.set_float32_matmul_precision(precision)
+                self.saved = None
+
+
+_FP32 = _Fp32Scope()
+
+
 @contextlib.contextmanager
 def matmul_precision_for(dtype: torch.dtype) -> Iterator[None]:
-    """Scope in which a model of ``dtype`` runs; restores the flags after."""
+    """Scope in which a model of ``dtype`` runs.
+
+    The three flags it clears (cuBLAS's and cuDNN's TF32 switches and the
+    fp32 matmul precision) are global to the process, so the fp32 scopes of
+    all threads share one count: the first to enter saves the flags and
+    clears them, the last to leave restores them. Every fp32 call thus runs
+    without TF32 while any other thread is inside or outside its own scope,
+    and the caller's flags are back exactly once no scope is open. A bf16
+    scope touches nothing; a bf16 call made while another thread holds an
+    fp32 scope open runs its own fp32 products (its softmax, its norms)
+    without TF32 too, which is the default anyway. A flag that a thread sets
+    while a scope is open is overwritten when the last scope leaves.
+    """
     if dtype not in (torch.float32, torch.float64):
         yield
         return
-    saved = (
-        torch.backends.cuda.matmul.allow_tf32,
-        torch.backends.cudnn.allow_tf32,
-        torch.get_float32_matmul_precision(),
-    )
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    _FP32.enter()
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved[0]
-        torch.backends.cudnn.allow_tf32 = saved[1]
-        torch.set_float32_matmul_precision(saved[2])
+        _FP32.exit()
 
 
 def matmul_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

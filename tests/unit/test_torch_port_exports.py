@@ -12,8 +12,10 @@ import pytest
 pytest.importorskip("torch")
 
 import sonar_tpu  # noqa: E402
+import sonar_tpu.huggingface  # noqa: E402
 import sonar_tpu.inference_pipelines  # noqa: E402
 import sonar_tpu_torch  # noqa: E402
+import sonar_tpu_torch.huggingface  # noqa: E402
 import sonar_tpu_torch.inference_pipelines  # noqa: E402
 
 
@@ -33,6 +35,20 @@ def test_pipeline_name_resolves(name):
     got = getattr(sonar_tpu_torch.inference_pipelines, name)
     assert isinstance(got, type) and got.__name__ == name
     assert got.__module__.startswith("sonar_tpu_torch.inference_pipelines.")
+
+
+def _public_names(mod):
+    return sorted(n for n in vars(mod) if not n.startswith("_")
+                  and not isinstance(vars(mod)[n], type(sys)))
+
+
+@pytest.mark.parametrize("name", _public_names(sonar_tpu.huggingface))
+def test_huggingface_name_resolves(name):
+    """``sonar_tpu_torch.huggingface`` exports every name that
+    ``sonar_tpu.huggingface`` does, each the port's own."""
+    got = getattr(sonar_tpu_torch.huggingface, name)
+    assert got.__name__ == name
+    assert got.__module__.startswith("sonar_tpu_torch.huggingface.")
 
 
 def test_pipeline_names_cover_the_reference():

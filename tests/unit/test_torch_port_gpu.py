@@ -845,3 +845,138 @@ def test_cosine_topk_on_the_card(dev, mode):
     ref, _ = mining.cosine_topk(queries, bank, 9, block_size=1024, device="cpu")
     near = (-ref.diff(dim=1) <= 1e-6).any(dim=1)  # duplicated rows tie exactly on the CPU
     assert torch.equal(got_i[~near], want_i[~near]) and near.sum().item() <= 128
+
+
+# -- packed encoding and serving ---------------------------------------------------
+
+
+def _packed_bias(dev, b, s, seed):
+    """A block-diagonal bias of packed rows [b, 1, s, s] as ``apply_packed``
+    builds it: segments of 1 to s/3 tokens, a padded tail in each row
+    (positions of segment 0, every key masked) and the last row padding
+    from start to end."""
+    rng = torch.Generator().manual_seed(seed)
+    seg = torch.zeros(b, s, dtype=torch.int32)
+    for row in range(b - 1):
+        pos, sid = 0, 1
+        while True:
+            n = int(torch.randint(1, max(2, s // 3), (1,), generator=rng))
+            if pos + n > s - 5:
+                break
+            seg[row, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    seg = seg.to(dev)
+    real = seg > 0
+    keep = (seg[:, :, None] == seg[:, None, :]) & real[:, :, None] & real[:, None, :]
+    return torch.where(keep, 0.0, F32_MIN)[:, None].float(), real
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [128, 130, 512])
+def test_flash_kernel_packed_full_bias(dev, dtype, s):
+    """Mode 2 (a full bias) on packed rows: every padding position is a
+    query whose keys are all masked, and the last row is wholly padding.
+    The output is finite everywhere (the uniform softmax of ``finfo.min``
+    logits, as the plain version and JAX give), agrees with the plain
+    version on every row, and two calls give the same bits."""
+    b = 4
+    q, k, v = (_rand(dev, b, 2, s, 64, dtype=dtype, seed=10 + i) for i in range(3))
+    bias, real = _packed_bias(dev, b, s, seed=s)
+    assert (~real).all(dim=1)[-1] and (~real[:-1]).any()
+    got = _launched(flash, lambda: flash.flash_attention(q, k, v, bias))
+    want = flash.flash_attention_plain(q, k, v, bias)
+    assert torch.isfinite(got.float()).all() and torch.isfinite(want.float()).all()
+    _assert_close(got, want)
+    assert torch.equal(flash.flash_attention(q, k, v, bias), got)
+
+
+def _wide_text_model(dtype, device):
+    import dataclasses
+
+    from sonar_tpu_torch.assets.convert import init_text_encoder_params, text_encoder_from_numpy
+    from sonar_tpu_torch.models.sonar_text import sonar_text_encoder_archs
+
+    cfg = dataclasses.replace(sonar_text_encoder_archs.get("toy"), model_dim=128,
+                              num_encoder_attn_heads=2, ffn_inner_dim=512)
+    return text_encoder_from_numpy(init_text_encoder_params(cfg, seed=1), cfg, dtype, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_apply_packed_on_the_card(dev, mode):
+    """Packed rows of 128 (16 rows: the int8 FFN's gate) through
+    ``apply_packed`` on the card and on the CPU: flash in full-bias mode
+    launches (and the int8 FFN in int8), every output is finite, each
+    filled slot's cosine >= 0.999 against the CPU."""
+    from sonar_tpu_torch.data.packing import pack_sequences
+    from sonar_tpu_torch.inference_pipelines.text import TorchTextEncoder
+    from sonar_tpu_torch.ops.precision import matmul_precision_for
+
+    rng = torch.Generator().manual_seed(3)
+    sents = [torch.randint(4, 1000, (int(n),), generator=rng).tolist()
+             for n in torch.randint(2, 60, (50,), generator=rng)]
+    batch = next(pack_sequences(sents, row_len=128, rows_per_batch=16, max_segments=8))
+    assert (batch.segment_ids == 0).all(axis=1).any()
+    outs = {}
+    for device in (dev, "cpu"):
+        model = TorchTextEncoder(_wide_text_model(torch.bfloat16, device),
+                                 quantize=mode == "int8", device=device).model
+        args = [torch.from_numpy(a).to(device)
+                for a in (batch.tokens, batch.segment_ids, batch.positions)]
+        before = flash.LAUNCHES, ffn.LAUNCHES
+        with torch.inference_mode(), matmul_precision_for(model.dtype):
+            outs[str(device)] = model.apply_packed(model.params.tree(), *args, 8).cpu()
+        torch.cuda.synchronize()
+        if device == dev:
+            assert flash.LAUNCHES > before[0]
+            assert (ffn.LAUNCHES > before[1]) == (mode == "int8")
+    got, want = outs[str(dev)], outs["cpu"]
+    assert torch.isfinite(got).all()
+    filled = torch.zeros(got.shape[:2], dtype=torch.bool)
+    for _, row, seg in batch.mapping:
+        filled[row, seg - 1] = True
+    assert (got[~filled] == 0).all()
+    cos = torch.nn.functional.cosine_similarity(got[filled].double(), want[filled].double(), -1)
+    assert cos.min().item() >= 0.999
+
+
+@pytest.mark.gpu
+def test_server_round_trip_on_the_card(dev, tmp_path):
+    """One /embed request through the port's server and client on the card
+    equals the pipeline's direct static ``predict`` bit for bit (the same
+    batch) and the CPU's within 1e-3 of the embeddings' scale (fp32)."""
+    import numpy as np
+
+    from sonar_tpu_torch.client import SonarClient
+    from sonar_tpu_torch.inference_pipelines.text import TextToEmbeddingModelPipeline
+    from sonar_tpu_torch.serving import EmbeddingServer
+    from sonar_tpu_torch.tokenizers.nllb import NllbTokenizer
+    from sonar_tpu_torch.tokenizers.spm_proto import (
+        PIECE_CONTROL, PIECE_UNKNOWN, ModelProto, NormalizerSpecProto, SentencePieceProto as P,
+        TrainerSpecProto, serialize_model_proto)
+
+    pieces = [P("<blank>", 0.0, PIECE_CONTROL), P("<unk>", 0.0, PIECE_UNKNOWN),
+              P("<s>", 0.0, PIECE_CONTROL), P("</s>", 0.0, PIECE_CONTROL)]
+    pieces += [P("▁" + w, -1.0) for w in ("hello", "world", "the", "cat", "sat")]
+    pieces += [P(c, -5.0) for c in "abcdefghijklmnopqrstuvwxyz"] + [P("▁", -4.0)]
+    path = tmp_path / "t.model"
+    path.write_bytes(serialize_model_proto(ModelProto(
+        pieces=pieces, trainer=TrainerSpecProto(unk_id=1, bos_id=2, eos_id=3, pad_id=1),
+        normalizer=NormalizerSpecProto())))
+    tok = NllbTokenizer(path, langs=["eng_Latn"], default_lang="eng_Latn")
+    texts = ["hello world", "the cat sat on the mat " * 30, "cat"]
+    pipe = TextToEmbeddingModelPipeline(_wide_text_model(torch.float32, dev), tok, device=dev)
+    srv = EmbeddingServer(pipe, max_wait_ms=1, warmup=True).start()
+    try:
+        with SonarClient(*srv.address, timeout_s=120) as client:
+            got = client.embed(texts)
+            assert client.metrics()["embed"]["errors"] == 0
+    finally:
+        srv.stop()
+    direct = pipe.predict(texts, source_lang="eng_Latn", batching="static")
+    assert np.array_equal(got, direct)
+    cpu = TextToEmbeddingModelPipeline(_wide_text_model(torch.float32, "cpu"), tok,
+                                       device="cpu").predict(texts, source_lang="eng_Latn",
+                                                             batching="static")
+    assert np.abs(got - cpu).max() <= 1e-3 * np.abs(cpu).max()

@@ -1,9 +1,11 @@
 """The port stands alone and runs on the GPU unless asked for the CPU.
 
-- a fresh interpreter in which ``jax`` and ``sonar_tpu`` cannot be imported
-  imports every module of ``sonar_tpu_torch`` and runs text, speech,
-  decode (beam, sampling, int8), speech -> text and MuTox ``predict``, the
-  three heads and mining on the CPU at toy size;
+- a fresh interpreter in which ``jax`` and ``sonar_tpu`` (and ``datasets``,
+  which the card's machine lacks) cannot be imported imports every module
+  of ``sonar_tpu_torch`` and runs text, speech, decode (beam, sampling,
+  int8), speech -> text and MuTox ``predict``, the three heads, mining,
+  packed encoding, the HF batch layer on plain dicts and one ``/embed``
+  request through the server and its client on the CPU at toy size;
 - no file of the port, and not ``chip_smoke.py``, imports ``sonar_tpu`` or
   ``jax`` (an ``ast`` scan);
 - with no GPU, every entry point given ``device=None`` raises instead of
@@ -30,6 +32,7 @@ import importlib, pkgutil, sys
 from pathlib import Path
 sys.modules["jax"] = None        # any import of jax now raises ImportError
 sys.modules["sonar_tpu"] = None  # and so does any import of the JAX package
+sys.modules["datasets"] = None   # the HF layer imports it only where a dataset is loaded
 import numpy as np
 import sonar_tpu_torch
 
@@ -119,7 +122,32 @@ assert (idx[:, 0].numpy() == np.arange(8)).all()
 assert xsim(bank, bank, device="cpu") == 0.0
 assert xsim_pp(bank, bank, rng.standard_normal((4, 16)), device="cpu") == 0.0
 assert len(mine_bitexts(bank, bank, device="cpu")[0]) == 40
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "sonar_tpu")
+from sonar_tpu_torch.client import SonarClient
+from sonar_tpu_torch.serving import EmbeddingServer
+srv = EmbeddingServer(TextToEmbeddingModelPipeline(enc, tok, device="cpu"), max_wait_ms=1).start()
+try:
+    with SonarClient(*srv.address, timeout_s=60) as client:
+        served = client.embed(["hello world", "the cat sat"])
+finally:
+    srv.stop()
+assert np.array_equal(served, emb), (served, emb)
+
+from sonar_tpu_torch.huggingface import HFTextToEmbeddingPipeline, HFTextToEmbeddingPipelineConfig
+hf = HFTextToEmbeddingPipeline(HFTextToEmbeddingPipelineConfig(
+    columns=["t"], encoder_model=enc, tokenizer=tok, device="cpu", sub_batch_size=5))
+assert np.array_equal(np.asarray(hf.process_batch({"t": ["hello world", "the cat sat"]})["t_output"],
+                                 np.float32), emb)
+
+import torch
+from sonar_tpu_torch.data.packing import pack_sequences
+from sonar_tpu_torch.utils.flops import mfu
+batch = next(pack_sequences([[5, 6, 7], [8, 9]], row_len=8, rows_per_batch=2, max_segments=2))
+with torch.inference_mode():
+    packed = enc.apply_packed(enc.params.tree(), *(torch.from_numpy(a) for a in (
+        batch.tokens, batch.segment_ids, batch.positions)), batch.max_segments)
+assert packed.shape == (2, 2, 32) and bool(torch.isfinite(packed).all()) and mfu(0.0) == 0.0
+
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "sonar_tpu", "datasets")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
 print("ok")
@@ -174,6 +202,7 @@ def test_entry_points_default_to_the_gpu(no_gpu):
     from sonar_tpu_torch.models import blaser, laser2_text, mutox
     from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
     from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs, sonar_text_encoder_archs
+    from sonar_tpu_torch.huggingface import audio as hf_audio, text as hf_text
     from sonar_tpu_torch.parallel import mining
 
     tcfg = sonar_text_encoder_archs.get("toy")
@@ -210,6 +239,12 @@ def test_entry_points_default_to_the_gpu(no_gpu):
         lambda: mining.xsim(np.ones((2, 4)), np.ones((2, 4))),
         lambda: mining.xsim_pp(np.ones((2, 4)), np.ones((2, 4)), np.ones((1, 4))),
         lambda: mining.mine_bitexts(np.ones((2, 4)), np.ones((2, 4))),
+        lambda: hf_text.HFTextToEmbeddingPipeline(hf_text.HFTextToEmbeddingPipelineConfig(
+            encoder_model=tenc, tokenizer=None)),
+        lambda: hf_text.HFEmbeddingToTextPipeline(hf_text.HFEmbeddingToTextPipelineConfig(
+            decoder_model=dec, tokenizer=None)),
+        lambda: hf_audio.HFAudioToEmbeddingPipeline(hf_audio.HFAudioToEmbeddingPipelineConfig(
+            encoder_model=senc)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
