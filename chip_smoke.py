@@ -180,8 +180,30 @@ Phases, each printing ``#`` lines:
     ``predict`` on the same batches, embedding -> text (8 embeddings) equal
     to it; rows/s.
 
+(k) training, with ``sonar_tpu_torch.training`` (fp32 leaves, bf16 compute
+    in (k1)-(k3)): (k1) ``translation_loss`` on the full-width ``basic``
+    encoder and decoder (weights of (d) and (f), q/k/v fused), AdamW,
+    dropout from a seeded generator on the card, a fixed batch of 16
+    sentences of (d)'s corpus cut to 64 tokens, each its own target; (k2)
+    ``distillation_loss`` (mse) of the full-width ``english`` Conformer
+    (weights of (e)) towards 4 of (d)'s bf16 embeddings, on 4 clips of
+    5-10 s; each 2 warm-up and 5 timed steps: ms a step, tokens/s, MFU (3 x
+    the forward's matmul FLOPs), peak device memory, one more step's busy
+    share and top device operations under torch.profiler; the loss must
+    fall over the timed steps and every launch count read 0 (autograd
+    records, so every gate takes the plain path). (k1)'s state is freed
+    before (k2). (k3) MuTox's head trained 3 steps on (d)'s frozen bf16
+    encoder: ``short_qkv_attention`` must launch (the frozen forward is
+    inference), the encoder stay bit for bit, the head change. (k4) one
+    fp32 step of the ``basic`` encoder and decoder cut to 2 layers on the
+    card and on the CPU port (4 x 64, dropout off): the loss within 1e-5 of
+    the CPU's, every gradient leaf within 1e-4 of its scale (the
+    cross-attention's q and k projections, zero in exact arithmetic, read
+    zero at that resolution), no launch, and a TF32 control (the fp32 scope
+    switched off) above that limit.
+
 A kernel's ``launches`` in the JSON record is the sum of its counts over
-(d) to (j); the kernels that no path calls (``relpos_flash_attention``,
+(d) to (k); the kernels that no path calls (``relpos_flash_attention``,
 ``beam_diag_attend``, ``beam_reorder_attend``,
 ``fused_bf16_ffn_ln_residual``) must read 0. Prints that record on the
 line before the last, and as the last line ``{"ok": true, "device":
@@ -191,6 +213,7 @@ line before the last, and as the last line ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 from pathlib import Path
@@ -2556,6 +2579,357 @@ def run_serving(torch, card, handoff):
     return launches
 
 
+# -- (k) training on the card ----------------------------------------------------------------
+
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5  # (k1), (k2): steps before the timed ones, timed steps
+TRAIN_BATCH, TRAIN_LEN = 16, 64  # (k1): source / target pairs and their length
+TRAIN_LR = 1e-4  # AdamW's rate in (k1) and (k2) (decay 1e-2, torch's fused update)
+TRAIN_LOSS_LIMIT = 1e-5  # (k4): the card's loss against the CPU's, x the CPU's
+# (k4): each gradient leaf against the CPU's, x its scale. Set from a first
+# reading on an NVIDIA H100 80GB HBM3 (700 W): the worst sound leaf read
+# 4.7e-4 (the decoder's final LayerNorm bias, behind the tied projection's
+# 256,206-term fp32 reductions, which the card and the CPU sum in other
+# orders), the TF32 control 2.3e-2.
+TRAIN_GRAD_LIMIT = 2e-3
+
+
+def _card_tree(torch, tree, device=None):
+    """A tree of numpy arrays as fp32 tensors on ``device`` (the card)."""
+    return {k: _card_tree(torch, v, device) if isinstance(v, dict)
+            else torch.from_numpy(v).to(device or DEVICE) for k, v in tree.items()}
+
+
+def _first_layers(tree, n):
+    """A JAX-layout tree whose stacked ``layers`` keep their first ``n``."""
+    def cut(node):
+        return {k: cut(v) if isinstance(v, dict) else v[:n] for k, v in node.items()}
+    return {k: cut(v) if k == "layers" else (_first_layers(v, n) if isinstance(v, dict) else v)
+            for k, v in tree.items()}
+
+
+def _translation_batch(torch, handoff, rows, device):
+    """``rows`` sentences of (d)'s corpus with at least 65 tokens, each its
+    own target (auto-encoding through the bottleneck): source the first 64
+    tokens, decoder input EOS + the first 63, labels the first 64."""
+    encode = handoff["tokenizer"].create_encoder(lang="eng_Latn")
+    long = (x[:TRAIN_LEN] for x in (list(encode(t)) for t in handoff["corpus"])
+            if len(x) > TRAIN_LEN)
+    ids = list(itertools.islice(long, rows))
+    if len(ids) < rows:
+        raise RuntimeError(f"the corpus has {len(ids)} sentences of more than {TRAIN_LEN} tokens")
+    src = torch.tensor(ids, dtype=torch.int64)
+    lens = torch.full((rows,), TRAIN_LEN, dtype=torch.int64)
+    tgt_in = torch.cat([torch.full((rows, 1), 3, dtype=torch.int64), src[:, :-1]], dim=1)
+    batch = {"src_tokens": src, "src_lens": lens, "tgt_in": tgt_in, "tgt_out": src,
+             "tgt_lens": lens}
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _translation_flops(ecfg, dcfg, b, s, t):
+    """Matmul FLOPs of one ``translation_loss`` forward (``utils/flops.py``'s
+    conventions): the encoder at [b, s]; the decoder at [b, t], its layers
+    self-attention QKVO 8 D^2, cross-attention Q and O 4 D^2 (K and V of the
+    one memory row are negligible), FFN 4 D F a token and 4 t D a token of
+    self-attention scores and PV; the tied projection 2 D V a token."""
+    from sonar_tpu_torch.utils.flops import transformer_encoder_flops
+
+    d, f, n, v = dcfg.model_dim, dcfg.ffn_inner_dim, dcfg.num_decoder_layers, dcfg.vocab_info.size
+    enc = transformer_encoder_flops(ecfg.model_dim, ecfg.ffn_inner_dim, ecfg.num_encoder_layers,
+                                    b, s)
+    dec = b * t * (n * (12 * d * d + 4 * d * f + 4 * t * d) + 2 * d * v)
+    return enc + dec
+
+
+def _timed_steps(torch, card, label, state, step, batch, gen, n_tokens, flops):
+    """TRAIN_WARMUP then TRAIN_STEPS steps, each ended by reading its loss
+    (a host sync), then one more under torch.profiler. Prints ms a step,
+    tokens/s, MFU (3 x the forward's FLOPs over the bf16 peak), the peak
+    device memory and the profiled step's busy share and top device
+    operations. The launch counts over all the steps must read 0 and the
+    loss must fall over the timed ones. Returns (failures, counts)."""
+    from sonar_tpu_torch.utils.flops import mfu
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_launches()
+    losses, times = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch, gen)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARMUP:
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+    ops, wall, _ = _device_profile(torch, lambda: step(state, batch, gen))
+    counts = read_launches()
+    ms = sum(times) / len(times)
+    log(f"train {label}: {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: ms a step "
+        f"{[round(t, 3) for t in times]}, mean {ms:.3f}; {n_tokens / ms * 1e3:.1f} tokens/s; "
+        f"MFU {mfu(3 * flops / (ms / 1e3)):.4f} (3 x {flops / 1e12:.3f} TFLOP a step); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({held / 2**30:.2f} "
+        f"GiB allocated before the first step: earlier phases' models and these parameters), "
+        f"on {card}")
+    busy = sum(ms for ms, _ in ops.values())
+    log(f"train {label}: one more step under torch.profiler: device busy {busy:.2f} ms of "
+        f"{wall:.2f} ms wall = {busy / wall:.3f} busy share, "
+        f"{sum(n for _, n in ops.values())} device operations" if ops else
+        f"train {label}: the profiler saw no device time (busy share not measured)")
+    for name, (op_ms, n) in sorted(ops.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"train {label} device time: {op_ms:9.3f} ms {100 * op_ms / busy:5.1f}% {n:6d} calls "
+            f"{name[:90]}")
+    failures = []
+    falls = all(x == x for x in losses) and losses[-1] < losses[0]
+    log(f"check train {label}: losses {[round(x, 4) for x in losses]} fall "
+        f"{'ok' if falls else 'FAIL'}; launches {counts} all 0 "
+        f"{'ok' if not any(counts.values()) else 'FAIL'}")
+    if not falls:
+        failures.append(f"{label} loss")
+    if any(counts.values()):
+        failures.append(f"{label} launches")
+    return failures, counts
+
+
+def _train_translation(torch, card, handoff, launches):
+    """(k1): ``translation_loss`` on the full-width ``basic`` encoder and
+    decoder, fp32 leaves (q/k/v fused) under AdamW, bf16 compute, dropout
+    from a seeded generator on the card."""
+    from sonar_tpu_torch.models.sonar_text import (
+        SonarTextEncoder, sonar_text_decoder_archs, sonar_text_encoder_archs)
+    from sonar_tpu_torch.nn.conditional_decoder import ConditionalTransformerDecoder
+    from sonar_tpu_torch.nn.transformer import fuse_qkv
+    from sonar_tpu_torch.training import init_train_state, make_train_step, translation_loss
+
+    ecfg, dcfg = sonar_text_encoder_archs.get("basic"), sonar_text_decoder_archs.get("basic")
+    tree = {"encoder": fuse_qkv(_card_tree(torch, handoff["text_params"]), keep_split=False),
+            "decoder": fuse_qkv(_card_tree(torch, handoff["decoder_params"]), keep_split=False)}
+    encoder = SonarTextEncoder(ecfg, tree["encoder"], dtype=torch.bfloat16)
+    decoder = ConditionalTransformerDecoder(dcfg, tree["decoder"], dtype=torch.bfloat16)
+    state = init_train_state(tree, lambda leaves: torch.optim.AdamW(
+        leaves, lr=TRAIN_LR, weight_decay=1e-2, fused=True))
+    n_params = sum(t.numel() for t in state.optimizer.param_groups[0]["params"])
+    step = make_train_step(lambda p, b, g: translation_loss(encoder, decoder, p["encoder"],
+                                                            p["decoder"], b, g))
+    batch = _translation_batch(torch, handoff, TRAIN_BATCH, DEVICE)
+    log(f"train (k1): basic encoder + decoder, {n_params / 1e9:.3f} B fp32 parameters, AdamW, "
+        f"bf16 compute, dropout {ecfg.emb_dropout_p}; batch {TRAIN_BATCH} x {TRAIN_LEN} source "
+        f"and target tokens")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    flops = _translation_flops(ecfg, dcfg, TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN)
+    failures, counts = _timed_steps(torch, card, "(k1) translation", state, step, batch, gen,
+                                    2 * TRAIN_BATCH * TRAIN_LEN, flops)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    return failures
+
+
+def _train_distillation(torch, card, handoff, launches):
+    """(k2): ``distillation_loss`` (mse) of the full-width ``english``
+    Conformer towards (d)'s bf16 text embeddings, fp32 leaves under AdamW,
+    bf16 compute, on 4 clips of 5-10 s."""
+    import numpy as np
+
+    from sonar_tpu_torch.models.sonar_speech import SonarSpeechEncoder, sonar_speech_encoder_archs
+    from sonar_tpu_torch.ops.fbank import FbankConfig, batched_fbank, num_frames
+    from sonar_tpu_torch.training import distillation_loss, init_train_state, make_train_step
+    from sonar_tpu_torch.utils.flops import conformer_encoder_flops
+
+    cfg = sonar_speech_encoder_archs.get("english")
+    c = cfg.conformer
+    rng = np.random.default_rng(21)
+    clips = [_clip(rng, s) for s in rng.uniform(5.0, 10.0, 4)]
+    waves = np.zeros((len(clips), max(w.shape[0] for w in clips)), np.float32)
+    for i, w in enumerate(clips):
+        waves[i, :w.shape[0]] = w
+    fcfg = FbankConfig(num_mel_bins=cfg.frontend.num_fbank_channels)
+    with torch.no_grad():
+        feats, frame_lens = batched_fbank(
+            torch.from_numpy(waves).to(DEVICE),
+            torch.tensor([w.shape[0] for w in clips], device=DEVICE),
+            num_frames(waves.shape[1], fcfg), fcfg)
+    batch = {"inputs": feats, "lens": frame_lens,
+             "teacher_emb": torch.from_numpy(handoff["embeddings"][:len(clips)]).to(DEVICE)}
+    tree = _card_tree(torch, handoff["speech_params"])
+    model = SonarSpeechEncoder(cfg, tree, dtype=torch.bfloat16)
+    state = init_train_state(tree, lambda leaves: torch.optim.AdamW(
+        leaves, lr=TRAIN_LR, weight_decay=1e-2, fused=True))
+    n_params = sum(t.numel() for t in state.optimizer.param_groups[0]["params"])
+    step = make_train_step(lambda p, b, g: distillation_loss(model, p, b, objective="mse"))
+    s = feats.shape[1] // cfg.frontend.fbank_stride
+    log(f"train (k2): english Conformer, {n_params / 1e9:.3f} B fp32 parameters, AdamW, bf16 "
+        f"compute; {len(clips)} clips of {[round(w.shape[0] / 16000, 2) for w in clips]} s "
+        f"(S {s} padded), teachers from (d)'s bf16 pipeline")
+    flops = conformer_encoder_flops(c.model_dim, c.ffn_inner_dim, c.num_layers,
+                                    c.depthwise_kernel_size, len(clips), s)
+    n_tokens = int((frame_lens // cfg.frontend.fbank_stride).sum())
+    failures, counts = _timed_steps(torch, card, "(k2) distillation", state, step, batch, None,
+                                    n_tokens, flops)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    return failures
+
+
+def _train_classifier(torch, card, handoff, launches):
+    """(k3): MuTox's head (``mutox``: 1024 -> 512 -> 128 -> 1) trained for 3
+    Adam steps on (d)'s bf16 ``basic`` encoder, frozen: its forward runs
+    under no_grad and may launch the kernels; its leaves stay bit for bit."""
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_mutox_params, mutox_from_numpy
+    from sonar_tpu_torch.models.mutox import mutox_archs
+    from sonar_tpu_torch.nn.core import tree_leaves
+    from sonar_tpu_torch.training import (
+        classifier_loss, init_train_state, make_train_step)
+
+    encoder = handoff["encoder"].model
+    mcfg = mutox_archs.get("mutox")
+    head = mutox_from_numpy(init_mutox_params(mcfg, seed=0), mcfg, device=DEVICE)
+    params = {"encoder": encoder.params.tree(), "head": head.params.tree()}
+    frozen = [t.clone() for t in tree_leaves(params["encoder"])]
+    head_before = [t.clone() for t in tree_leaves(params["head"])]
+    encode = handoff["tokenizer"].create_encoder(lang="eng_Latn")
+    ids = list(itertools.islice((x for x in (list(encode(t)) for t in handoff["corpus"])
+                                 if 20 <= len(x) <= 128), 16))
+    s = max(len(x) for x in ids)
+    tokens = torch.ones((len(ids), s), dtype=torch.int64)
+    for i, x in enumerate(ids):
+        tokens[i, :len(x)] = torch.tensor(x)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": tokens.to(DEVICE), "lens": torch.tensor([len(x) for x in ids],
+                                                                device=DEVICE),
+             "labels": torch.from_numpy(rng.integers(0, 2, len(ids))).to(DEVICE)}
+    state = init_train_state(params, lambda leaves: torch.optim.Adam(leaves, lr=1e-3))
+    step = make_train_step(lambda p, b, g: classifier_loss(encoder, head, p, b, g))
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        counts = read_launches()
+    finally:
+        for t in tree_leaves(params):
+            t.requires_grad_(False)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(params["encoder"]), frozen))
+    moved = any(not torch.equal(a, b) for a, b in zip(tree_leaves(params["head"]), head_before))
+    short = counts["short_qkv_attention"]
+    ok = same and moved and short > 0
+    log(f"check train (k3) frozen-encoder classifier: {len(ids)} sentences at S {s}, 3 steps, "
+        f"losses {[round(x, 4) for x in losses]}; launches {counts} (short_qkv_attention "
+        f"{short} > 0: the frozen forward is inference); encoder bit-identical {same}, head "
+        f"changed {moved} {'ok' if ok else 'FAIL'}")
+    return [] if ok else ["(k3) frozen classifier"]
+
+
+def _leaf_paths(tree, prefix=""):
+    """The paths of a tree's leaves in ``tree_leaves``' order (sorted keys,
+    depth first)."""
+    out = []
+    for key in sorted(tree):
+        path = f"{prefix}/{key}"
+        out += _leaf_paths(tree[key], path) if isinstance(tree[key], dict) else [path]
+    return out
+
+
+# Leaves whose gradient is zero in exact arithmetic: cross-attention on a
+# one-row memory is output_proj(v_proj(memory)) whatever its query and key
+# (the softmax over one key is 1), so its q and k projections read as
+# rounding noise on both sides.
+ZERO_GRAD = ("/encoder_decoder_attn/q_proj/", "/encoder_decoder_attn/k_proj/")
+
+
+def _train_card_vs_cpu(torch, card, handoff, launches):
+    """(k4): one fp32 ``translation_loss`` step of the ``basic`` encoder and
+    decoder cut to 2 layers each, full width, on the card and on the CPU
+    port: the same weights and batch (4 x 64), dropout off. The loss within
+    TRAIN_LOSS_LIMIT of the CPU's; every gradient leaf within
+    TRAIN_GRAD_LIMIT of its scale (its CPU max-abs, floored at a thousandth
+    of the largest leaf's), but the ZERO_GRAD leaves, which must read zero
+    at that resolution on both (max-abs within TRAIN_GRAD_LIMIT of the
+    largest leaf's). A TF32 control (the fp32 scope switched off, TF32 on)
+    must read worse than the limit."""
+    import dataclasses
+
+    from sonar_tpu_torch.models.sonar_text import (
+        SonarTextEncoder, sonar_text_decoder_archs, sonar_text_encoder_archs)
+    from sonar_tpu_torch.nn.conditional_decoder import ConditionalTransformerDecoder
+    from sonar_tpu_torch.nn.core import tree_leaves
+    from sonar_tpu_torch.nn.transformer import fuse_qkv
+    from sonar_tpu_torch.training import init_train_state, make_train_step, translation_loss
+
+    ecfg = dataclasses.replace(sonar_text_encoder_archs.get("basic"), num_encoder_layers=2)
+    dcfg = dataclasses.replace(sonar_text_decoder_archs.get("basic"), num_decoder_layers=2)
+    enc_np = _first_layers(handoff["text_params"], 2)
+    dec_np = _first_layers(handoff["decoder_params"], 2)
+    rows = 4
+    paths = []
+
+    def grads(device):
+        tree = {"encoder": fuse_qkv(_card_tree(torch, enc_np, device), keep_split=False),
+                "decoder": fuse_qkv(_card_tree(torch, dec_np, device), keep_split=False)}
+        paths[:] = _leaf_paths(tree)
+        encoder = SonarTextEncoder(ecfg, tree["encoder"])
+        decoder = ConditionalTransformerDecoder(dcfg, tree["decoder"])
+        state = init_train_state(tree, lambda leaves: torch.optim.SGD(leaves, lr=0.0))
+        step = make_train_step(lambda p, b, g: translation_loss(encoder, decoder, p["encoder"],
+                                                                p["decoder"], b, g))
+        _, loss = step(state, _translation_batch(torch, handoff, rows, device))
+        return float(loss), [t.grad.cpu() for t in tree_leaves(tree)]
+
+    def errors(got, want):
+        """{path: error / scale} over the leaves, ZERO_GRAD leaves by their
+        max-abs over the largest leaf's."""
+        top = max(w.abs().max().item() for w in want)
+        out = {}
+        for path, g, w in zip(paths, got, want):
+            if any(z in path for z in ZERO_GRAD):
+                out[path] = max(g.abs().max().item(), w.abs().max().item()) / top
+            else:
+                out[path] = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-3 * top)
+        return out
+
+    t0 = time.perf_counter()
+    (loss, on_card), counts = _counted(torch, launches, lambda: grads(DEVICE))
+    tf32_loss, tf32 = _tf32_control(torch, lambda: grads(DEVICE))
+    cpu_loss, on_cpu = grads("cpu")
+    loss_err, tf32_loss_err = (abs(x - cpu_loss) / abs(cpu_loss) for x in (loss, tf32_loss))
+    err, tf32_err = errors(on_card, on_cpu), errors(tf32, on_cpu)
+    worst = sorted(err.items(), key=lambda kv: -kv[1])[:3]
+    ok = (loss_err <= TRAIN_LOSS_LIMIT and max(err.values()) <= TRAIN_GRAD_LIMIT
+          < max(tf32_err.values()) and not any(counts.values()))
+    log(f"check train (k4) card vs CPU, fp32, 2 + 2 layers at full width, {rows} x {TRAIN_LEN}: "
+        f"loss {loss:.6f} against {cpu_loss:.6f} (rel {loss_err:.3e} <= {TRAIN_LOSS_LIMIT:g}); "
+        f"{len(on_cpu)} gradient leaves, worst {[(p, f'{e:.3e}') for p, e in worst]} of the "
+        f"scale (<= {TRAIN_GRAD_LIMIT:g}); the TF32 control reads {max(tf32_err.values()):.3e} "
+        f"(loss rel {tf32_loss_err:.3e}; must exceed the limit); launches {counts} "
+        f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+    return [] if ok else ["(k4) card vs CPU"]
+
+
+def run_training(torch, card, handoff):
+    """Phase (k): (k1) translation, (k2) distillation, (k3) a frozen-encoder
+    classifier, (k4) one step on the card against the CPU. Each step of
+    (k1), (k2) and (k4) runs with autograd recording, so no kernel may
+    launch; (k3)'s frozen forward is inference. (k1)'s state is freed before
+    (k2). Returns the launch counts of its runs."""
+    launches = dict.fromkeys(KERNELS, 0)
+    failures = []
+    for label, part in (("(k1)", _train_translation), ("(k2)", _train_distillation),
+                        ("(k3)", _train_classifier), ("(k4)", _train_card_vs_cpu)):
+        t0 = time.perf_counter()
+        failures += part(torch, card, handoff, launches)
+        torch.cuda.empty_cache()
+        log(f"part {label} took {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError(f"training checks failed: {failures}")
+    return launches
+
+
 # -- --compare: this checkout against others, in turns, on one card ------------------
 
 
@@ -2752,7 +3126,9 @@ def main() -> int:
     rest = phase("(h)", run_sampling_int8_heads, torch, card, handoff)
     mined = phase("(i)", run_mining, torch, card)
     served = phase("(j)", run_serving, torch, card, handoff)
-    launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest, mined, served))
+    trained = phase("(k)", run_training, torch, card, handoff)
+    launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest, mined, served,
+                                                 trained))
                 for name in KERNELS}
     launched = [name for name in NO_PATH if launches[name] != 0]
     if launched:

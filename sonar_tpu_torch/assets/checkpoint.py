@@ -20,6 +20,9 @@ Layout conversion to JAX:
 - everything lands as numpy fp32; device placement happens at model build.
 
 Torch is used on the host only, for unpickling ``.pt`` files.
+
+``save_params`` / ``load_params`` write and read the JAX package's flat
+``.npz`` native format (what ``scripts/convert_checkpoint.py`` writes).
 """
 
 from __future__ import annotations
@@ -278,3 +281,56 @@ def text_decoder_params(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
         # final_proj is tied to decoder_frontend.embed (factory.py:303-315);
         # a stored final_proj.weight is redundant and intentionally dropped.
     }
+
+
+# -- native save/load ---------------------------------------------------------
+#
+# The flat ``.npz`` "native format" of the JAX package
+# (``scripts/convert_checkpoint.py`` writes it): one array per leaf, keyed by
+# its path through the tree joined with "/".
+
+
+def _as_numpy(leaf: Any) -> np.ndarray:
+    """A numpy array of a leaf; a tensor is detached and copied to the host
+    (bf16, which numpy lacks, as fp32)."""
+    if hasattr(leaf, "detach"):
+        import torch
+
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(leaf)
+
+
+def flatten_params(params: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict -> {"a/b/c": array}."""
+    out = {}
+    for k, v in params.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten_params(v, key))
+        else:
+            out[key] = _as_numpy(v)
+    return out
+
+
+def unflatten_params(flat: Dict[str, np.ndarray]) -> Dict:
+    """{"a/b/c": array} -> nested dict (the inverse of ``flatten_params``)."""
+    root: Dict = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return root
+
+
+def save_params(path: Union[str, Path], params: Dict) -> None:
+    np.savez(path, **flatten_params(params))
+
+
+def load_params(path: Union[str, Path]) -> Dict:
+    """The tree of numpy arrays that ``save_params`` (of either package)
+    wrote; ``convert.*_from_numpy`` builds a model of it."""
+    with np.load(path) as z:
+        return unflatten_params({k: z[k] for k in z.files})

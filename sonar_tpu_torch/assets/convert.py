@@ -155,6 +155,11 @@ def init_text_encoder_params(config: SonarTextEncoderConfig, seed: int = 0) -> D
         "encoder": {"layers": layers},
         "layer_norm": _init_ln((d,)),
     }
+    if config.learned_pos:
+        rows = config.max_seq_len + ((config.vocab_info.pad_idx or 0) + 1
+                                     if config._from_fairseq else 0)
+        params["encoder_frontend"]["pos"] = {
+            "weight": rng.standard_normal((rows, d), dtype=np.float32)}
     if config.normalize_before:
         params["encoder"]["layer_norm"] = _init_ln((d,))
     if config.pooling.lower() == "attention":
@@ -288,7 +293,7 @@ def init_text_decoder_params(config: SonarTextDecoderConfig, seed: int = 0) -> D
     projection), unit LayerNorms."""
     rng = np.random.default_rng(seed)
     d = config.model_dim
-    return {
+    params: Dict[str, Any] = {
         "decoder_frontend": {"embed": {"weight": _init_embedding(
             rng, config.vocab_info.size, d, config.vocab_info.pad_idx)}},
         "decoder": {
@@ -297,6 +302,10 @@ def init_text_decoder_params(config: SonarTextDecoderConfig, seed: int = 0) -> D
             "layer_norm": _init_ln((d,)),
         },
     }
+    if config.learned_pos:
+        params["decoder_frontend"]["pos"] = {
+            "weight": rng.standard_normal((config.max_seq_len, d), dtype=np.float32)}
+    return params
 
 
 def load_text_decoder_checkpoint(

@@ -70,7 +70,9 @@ def as_float_input(x: Any, device: torch.device) -> torch.Tensor:
 
 
 class BlaserModel(nn.Module):
-    """``forward(src, mt, ref=None)`` -> [N, output_dim] fp32 scores."""
+    """``forward(src, mt, ref=None)`` -> [N, output_dim] fp32 scores;
+    ``forward_with`` runs the same function on an explicit parameter tree
+    and tensors (the counterpart of the JAX model's ``apply``; training)."""
 
     def __init__(self, config: BlaserConfig, params: Params):
         super().__init__()
@@ -93,25 +95,29 @@ class BlaserModel(nn.Module):
         return torch.cat([src, mt, src * mt, (mt - src).abs()], dim=-1)
 
     def forward(self, src: Any, mt: Any, ref: Any = None) -> torch.Tensor:
-        cfg = self.config
         dev = self.device
         src, mt = as_float_input(src, dev), as_float_input(mt, dev)
         ref = None if ref is None else as_float_input(ref, dev)
-        mlp = self.params.tree()["mlp"]
         with torch.inference_mode(), matmul_precision_for(torch.float32):
-            if cfg.norm_emb:
-                def norm(e):
-                    return e / torch.clamp(torch.linalg.norm(e, dim=-1, keepdim=True), min=1e-12)
+            return self.forward_with(self.params.tree(), src, mt, ref)
 
-                src, mt = norm(src), norm(mt)
-                ref = None if ref is None else norm(ref)
-            x = self.featurize(src, mt, ref)
-            act = get_activation(cfg.activation)
-            for i in range(len(mlp)):
-                x = linear(mlp[str(i)], x)
-                if i < len(mlp) - 1:
-                    x = act(x)
-            return torch.tanh(x) if cfg.output_act else x
+    def forward_with(self, params: Params, src: torch.Tensor, mt: torch.Tensor,
+                     ref: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.config
+        mlp = params["mlp"]
+        if cfg.norm_emb:
+            def norm(e):
+                return e / torch.clamp(torch.linalg.norm(e, dim=-1, keepdim=True), min=1e-12)
+
+            src, mt = norm(src), norm(mt)
+            ref = None if ref is None else norm(ref)
+        x = self.featurize(src, mt, ref)
+        act = get_activation(cfg.activation)
+        for i in range(len(mlp)):
+            x = linear(mlp[str(i)], x)
+            if i < len(mlp) - 1:
+                x = act(x)
+        return torch.tanh(x) if cfg.output_act else x
 
 
 def blaser_params_from_torch(flat: dict) -> Params:

@@ -34,7 +34,9 @@ def _mutox() -> MutoxConfig:
 
 
 class MutoxClassifier(nn.Module):
-    """``forward(inputs [N, input_size], output_prob=False)`` -> [N, 1] fp32."""
+    """``forward(inputs [N, input_size], output_prob=False)`` -> [N, 1] fp32;
+    ``forward_with`` runs the same function on an explicit parameter tree
+    and tensor (the counterpart of the JAX model's ``apply``; training)."""
 
     HIDDEN = (512, 128)
 
@@ -48,14 +50,18 @@ class MutoxClassifier(nn.Module):
         return next(self.params.buffers()).device
 
     def forward(self, inputs: Any, output_prob: bool = False) -> torch.Tensor:
-        layers = self.params.tree()["layers"]
         x = as_float_input(inputs, self.device)
         with torch.inference_mode(), matmul_precision_for(torch.float32):
-            for i in range(len(layers)):
-                if i > 0:
-                    x = torch.relu(x)
-                x = linear(layers[str(i)], x)
-            return torch.sigmoid(x) if output_prob else x
+            return self.forward_with(self.params.tree(), x, output_prob)
+
+    def forward_with(self, params: Params, x: torch.Tensor,
+                     output_prob: bool = False) -> torch.Tensor:
+        layers = params["layers"]
+        for i in range(len(layers)):
+            if i > 0:
+                x = torch.relu(x)
+            x = linear(layers[str(i)], x)
+        return torch.sigmoid(x) if output_prob else x
 
 
 def mutox_params_from_torch(flat: dict) -> Params:

@@ -9,8 +9,8 @@
   ``projection_out``.
 
 Parameters are a ``ParamTree`` in the JAX pytree layout, Conformer layers
-stacked on a leading L axis; each layer's ``self_attn.sdpa`` also holds
-``wr_heads``, the rel-pos kernel's per-head r_proj, built here once.
+stacked on a leading L axis. ``remat=True`` recomputes each Conformer block
+in the backward pass (training).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 from sonar_tpu_torch.models.common import ParamTree, SonarEncoderOutput
 from sonar_tpu_torch.models.sonar_speech.config import SonarSpeechEncoderConfig
-from sonar_tpu_torch.nn.conformer import conformer_stack, with_relpos_heads
+from sonar_tpu_torch.nn.conformer import conformer_stack
 from sonar_tpu_torch.nn.core import Params, layer_norm, linear
 from sonar_tpu_torch.nn.frontend import EmbeddingFrontend
 from sonar_tpu_torch.nn.pooling import attention_pool
@@ -34,16 +34,14 @@ class SonarSpeechEncoder(nn.Module):
     (the counterpart of the JAX model's ``apply``)."""
 
     def __init__(self, config: SonarSpeechEncoderConfig, params: Params,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.remat = remat
         self.pooler_frontend = EmbeddingFrontend(model_dim=config.model_dim,
                                                  max_seq_len=config.max_seq_len)
-        layers = params["encoder"]["layers"]
-        layers = dict(layers, self_attn=with_relpos_heads(layers["self_attn"],
-                                                          config.conformer.num_heads))
-        self.params = ParamTree(dict(params, encoder=dict(params["encoder"], layers=layers)))
+        self.params = ParamTree(params)
 
     def forward(self, fbank: torch.Tensor,
                 frame_lens: Optional[torch.Tensor] = None) -> SonarEncoderOutput:
@@ -70,7 +68,8 @@ class SonarSpeechEncoder(nn.Module):
         x, seq_lens = self.frontend(params["encoder_frontend"], fbank, frame_lens)
         mask = length_mask(seq_lens, x.shape[1])
         bias = additive_bias(mask)[:, None, None, :]
-        x = conformer_stack(params["encoder"]["layers"], x, bias, mask, cfg.conformer)
+        x = conformer_stack(params["encoder"]["layers"], x, bias, mask, cfg.conformer,
+                            remat=self.remat)
         encoded = layer_norm(params["layer_norm"], x)
         pooled = attention_pool(
             params["encoder_pooler"], self.pooler_frontend, encoded, seq_lens,

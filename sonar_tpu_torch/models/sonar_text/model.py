@@ -3,7 +3,8 @@
 Port of ``SonarTextEncoder.apply`` of ``sonar_tpu.models.sonar_text.model``:
 
 - frontend: scaled embedding + legacy-offset sinusoidal PE (``_from_fairseq``
-  grows the table by pad_idx + 1),
+  grows the table by pad_idx + 1) or a learned table, then dropout when a
+  ``generator`` is given (training),
 - N pre-LN encoder layers; a trailing stack LN only when the config is
   ``normalize_before``,
 - the model-level final LayerNorm,
@@ -14,6 +15,7 @@ The parameters are an ``nn.Module`` tree that mirrors the JAX pytree key
 for key (a sub-module per dict, a buffer per tensor, layers stacked on a
 leading L axis), so ``state_dict()`` names follow the checkpoint layout.
 ``apply_packed`` encodes packed rows (``sonar_tpu_torch.data.packing``).
+``remat=True`` recomputes each encoder layer in the backward pass.
 """
 
 from __future__ import annotations
@@ -37,13 +39,12 @@ class SonarTextEncoder(nn.Module):
     the JAX model's ``apply``)."""
 
     def __init__(self, config: SonarTextEncoderConfig, params: Params,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        self.remat = remat
         self.pooling = Pooling(config.pooling.lower())
-        if config.learned_pos:
-            raise NotImplementedError("learned positional embeddings are not ported")
 
         max_seq_len = config.max_seq_len
         if config._from_fairseq:
@@ -52,7 +53,7 @@ class SonarTextEncoder(nn.Module):
         self.max_seq_len = max_seq_len
         # Longest token sequence the PE table serves: the legacy offset
         # (pad_idx + 1) takes the leading table rows.
-        if config.no_token_positional_embeddings:
+        if config.no_token_positional_embeddings or config.learned_pos:
             self.max_source_len = max_seq_len
         else:
             self.max_source_len = max_seq_len - ((config.vocab_info.pad_idx or 0) + 1)
@@ -61,8 +62,10 @@ class SonarTextEncoder(nn.Module):
             max_seq_len=max_seq_len,
             no_scale=config.no_scale_embedding,
             layernorm=config.layernorm_embedding,
+            learned_pos=config.learned_pos,
             legacy_pad_idx=config.vocab_info.pad_idx,
             no_pos=config.no_token_positional_embeddings,
+            dropout_p=config.emb_dropout_p,
         )
         if self.pooling == Pooling.ATTENTION:
             self.pooler_frontend = EmbeddingFrontend(
@@ -74,16 +77,22 @@ class SonarTextEncoder(nn.Module):
         return self.forward_with(self.params.tree(), seqs, seq_lens)
 
     def forward_with(self, params: Params, seqs: torch.Tensor,
-                     seq_lens: Optional[torch.Tensor] = None) -> SonarEncoderOutput:
-        """seqs: [B, S] int token ids; seq_lens: [B] or None."""
+                     seq_lens: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None) -> SonarEncoderOutput:
+        """seqs: [B, S] int token ids; seq_lens: [B] or None; ``generator``
+        turns the frontend's dropout on (training). The attention pooler's
+        frontend gets none: the JAX model splits its key in two but passes
+        the pooler neither half, so its pooler never drops."""
         cfg = self.config
         bias = None
         if seq_lens is not None:
             bias = additive_bias(length_mask(seq_lens, seqs.shape[1]))[:, None, None, :]
-        x = self.frontend(params["encoder_frontend"], seqs, dtype=self.dtype)
+        x = self.frontend(params["encoder_frontend"], seqs, dtype=self.dtype,
+                          generator=generator)
         x = encoder_stack(
             params["encoder"]["layers"], x, bias,
             cfg.num_encoder_attn_heads, cfg.activation_fn, norm_order="pre",
+            remat=self.remat,
         )
         if "layer_norm" in params["encoder"]:
             x = layer_norm(params["encoder"]["layer_norm"], x)

@@ -3,8 +3,8 @@
 
 ``encode_to_memory`` runs any SONAR encoder and hands the decoder a
 length-1 memory holding the pooled sentence embedding; ``generate``
-delegates to the decoder runtime (``TorchTextDecoder``). Sampling is not
-ported.
+delegates to the decoder runtime (``TorchTextDecoder``): beam search, or
+sampling when it is given a sampler.
 """
 
 from __future__ import annotations
@@ -45,10 +45,12 @@ class SonarEncoderDecoderModel:
 
     def generate(self, encoder_inputs: Any, prefix_ids: Sequence[int], gen_config: Any,
                  sampler: Any = None) -> Any:
+        memory = self.encode_to_memory(encoder_inputs)
         if sampler is not None:
-            raise NotImplementedError("sampling is not ported (ROADMAP queue 1)")
-        return self.decoder.generate_beam(self.encode_to_memory(encoder_inputs), prefix_ids,
-                                          gen_config)
+            return self.decoder.generate_sample(memory, prefix_ids, sampler,
+                                                max_gen_len=gen_config.max_gen_len,
+                                                min_gen_len=gen_config.min_gen_len)
+        return self.decoder.generate_beam(memory, prefix_ids, gen_config)
 
 
 def create_sonar_text_encoder_decoder_model(encoder: Any, decoder: Any) -> SonarEncoderDecoderModel:

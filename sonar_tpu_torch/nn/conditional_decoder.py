@@ -7,8 +7,10 @@ Port of ``sonar_tpu.nn.conditional_decoder.ConditionalTransformerDecoder``:
 - the output projection is tied to the input embedding: logits = h @ E^T,
   accumulated and returned in fp32.
 
-``decode`` / ``forward`` run the full sequence (teacher-forced scoring);
-``init_cache`` / ``step`` run one position at a time against a
+``decode`` / ``forward`` run the full sequence (teacher-forced scoring) on
+the module's parameters, ``decode_with`` / ``forward_with`` on an explicit
+tree (training: gradients with respect to it, dropout from a ``generator``,
+``remat``); ``init_cache`` / ``step`` run one position at a time against a
 ``DecoderCache`` for the generators. The parameters are an ``nn.Module``
 tree in the JAX layout, as in ``SonarTextEncoder``.
 """
@@ -43,24 +45,25 @@ def tied_projection(h: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 class ConditionalTransformerDecoder(nn.Module):
     def __init__(self, config: SonarTextDecoderConfig, params: Params,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
-        if config.learned_pos:
-            raise NotImplementedError("learned positional embeddings are not ported")
+        self.remat = remat
         self.frontend = EmbeddingFrontend(
             model_dim=config.model_dim,
             max_seq_len=config.max_seq_len,
             no_scale=config.no_scale_embedding,
             layernorm=config.layernorm_embedding,
+            learned_pos=config.learned_pos,
             legacy_pad_idx=config.vocab_info.pad_idx,
             no_pos=config.no_token_positional_embeddings,
+            dropout_p=config.emb_dropout_p,
         )
         # Usable generation length given the legacy position offset.
         pad_off = (config.vocab_info.pad_idx or 0) + 1
         self.max_target_len = config.max_seq_len - (
-            0 if config.no_token_positional_embeddings else pad_off
+            0 if config.no_token_positional_embeddings or config.learned_pos else pad_off
         )
         self.params = ParamTree(params)
 
@@ -73,7 +76,13 @@ class ConditionalTransformerDecoder(nn.Module):
     def decode(self, seqs: torch.Tensor, seq_lens: Optional[torch.Tensor],
                memory: torch.Tensor, memory_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Teacher-forced decode: [B, S] ids + [B, S_mem, D_in] memory -> [B, S, D]."""
-        params = self.params.tree()
+        return self.decode_with(self.params.tree(), seqs, seq_lens, memory, memory_lens)
+
+    def decode_with(self, params: Params, seqs: torch.Tensor, seq_lens: Optional[torch.Tensor],
+                    memory: torch.Tensor, memory_lens: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``decode`` on the tree ``params``; ``generator`` turns the
+        frontend's dropout on (training)."""
         cfg = self.config
         s = seqs.shape[1]
         pos = torch.arange(s, device=seqs.device)
@@ -84,10 +93,11 @@ class ConditionalTransformerDecoder(nn.Module):
         memory_bias = None
         if memory_lens is not None:
             memory_bias = additive_bias(length_mask(memory_lens, memory.shape[1]))[:, None, None, :]
-        x = self.frontend(params["decoder_frontend"], seqs, dtype=self.dtype)
+        x = self.frontend(params["decoder_frontend"], seqs, dtype=self.dtype,
+                          generator=generator)
         x = decoder_stack(params["decoder"]["layers"], x, self_bias, memory.to(self.dtype),
                           memory_bias, cfg.num_encoder_attn_heads, cfg.activation_fn,
-                          norm_order="pre")
+                          norm_order="pre", remat=self.remat)
         return layer_norm(params["decoder"]["layer_norm"], x)
 
     def project(self, decoder_out: torch.Tensor) -> torch.Tensor:
@@ -97,7 +107,15 @@ class ConditionalTransformerDecoder(nn.Module):
     def forward(self, seqs: torch.Tensor, seq_lens: Optional[torch.Tensor],
                 memory: torch.Tensor, memory_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         """decode + project -> [B, S, V] fp32 logits."""
-        return self.project(self.decode(seqs, seq_lens, memory, memory_lens))
+        return self.forward_with(self.params.tree(), seqs, seq_lens, memory, memory_lens)
+
+    def forward_with(self, params: Params, seqs: torch.Tensor, seq_lens: Optional[torch.Tensor],
+                     memory: torch.Tensor, memory_lens: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``forward`` on the tree ``params`` (the counterpart of the JAX
+        model's ``forward``): the projection reads its tied embedding."""
+        h = self.decode_with(params, seqs, seq_lens, memory, memory_lens, generator)
+        return tied_projection(h, params["decoder_frontend"]["embed"]["weight"])
 
     # -- incremental --------------------------------------------------------
 

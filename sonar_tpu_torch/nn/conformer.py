@@ -12,11 +12,15 @@ with r_proj's input columns de-interleaved (even table columns first).
 bd is one product against the [S, D] basis; no [B, H, S, 2S - 1] table and
 no rel-shift.
 
-Dispatch is the JAX package's, on shapes only: 128 <= S <= 2048, head dim
-64 or 128 and a key-padding bias take ``relpos_flash_attention_v2`` (its
-wrapper then runs the CUDA kernel for CUDA tensors, its plain version for
-CPU tensors); everything else takes ``rel_pos_attend_plain``, the math of
-the JAX package's XLA lowering. ``PLAIN_CALLS`` counts the latter.
+Dispatch is the JAX package's, on shapes: 128 <= S <= 2048, head dim 64 or
+128 and a key-padding bias take ``relpos_flash_attention_v2`` (its wrapper
+then runs the CUDA kernel for CUDA tensors, its plain version for CPU
+tensors) unless autograd records (``ops.gates``); everything else takes
+``rel_pos_attend_plain``, the math of the JAX package's XLA lowering.
+``PLAIN_CALLS`` counts the latter. The kernel reads r_proj per head
+(``relpos_heads``), laid out from the layer's r_proj at each call, so a
+trained r_proj is never read through a stale copy. ``conformer_stack(remat=
+True)`` recomputes each block in the backward pass.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 from sonar_tpu_torch.nn.core import Params, layer_norm, linear
-from sonar_tpu_torch.nn.transformer import _merge_heads, _split_heads, layer_slice, num_stacked_layers
+from sonar_tpu_torch.nn.transformer import _merge_heads, _split_heads, run_layers
 from sonar_tpu_torch.ops.attention import softmax
+from sonar_tpu_torch.ops.gates import records_grad
 import torch
 
 PLAIN_CALLS = 0  # rel-pos attention calls outside the kernel gate
@@ -81,9 +86,13 @@ def rel_pos_sin_cos_basis(seq_len: int, dim: int) -> Tuple[np.ndarray, np.ndarra
 def _trig_tables(seq_len: int, dim: int, dtype: torch.dtype,
                  device: torch.device) -> Tuple[torch.Tensor, ...]:
     """``rel_pos_sin_cos_basis`` rounded to ``dtype`` on ``device``, made once
-    per shape (every layer of a batch reads the same tables; read only)."""
-    return tuple(torch.from_numpy(t).to(device=device, dtype=dtype).contiguous()
-                 for t in rel_pos_sin_cos_basis(seq_len, dim))
+    per shape (every layer of a batch reads the same tables; read only).
+    They are made outside inference mode even when an inference forward asks
+    first: a training forward saves them for its backward, which an
+    inference tensor refuses."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(t).to(device=device, dtype=dtype).contiguous()
+                     for t in rel_pos_sin_cos_basis(seq_len, dim))
 
 
 def _deinterleave(dim: int) -> torch.Tensor:
@@ -96,14 +105,6 @@ def relpos_heads(r_proj_kernel: torch.Tensor, num_heads: int) -> torch.Tensor:
     *lead, d, _ = r_proj_kernel.shape
     w = r_proj_kernel.reshape(*lead, d, num_heads, d // num_heads).transpose(-3, -2)
     return w[..., _deinterleave(d).to(w.device), :].contiguous()
-
-
-def with_relpos_heads(attn: Params, num_heads: int) -> Params:
-    """A copy of a rel-pos attention tree (one layer's or stacked) whose
-    ``sdpa`` also holds ``wr_heads``, ``relpos_heads`` of its r_proj: the
-    kernel path reads it, so it is built once, at load."""
-    sdpa = dict(attn["sdpa"], wr_heads=relpos_heads(attn["sdpa"]["r_proj"]["kernel"], num_heads))
-    return dict(attn, sdpa=sdpa)
 
 
 def _use_relpos_kernel(bias: Optional[torch.Tensor], s: int, hd: int) -> bool:
@@ -169,17 +170,19 @@ def rel_pos_attention(
     cfg: ConformerConfig,
 ) -> torch.Tensor:
     """x [B, S, D] -> [B, S, D]: score(i, j) = (q_i + u) k_j + (q_i + v) r_(i-j),
-    scaled by Dh^-0.5; ``bias`` broadcasts over [B, H, S, S]. ``params``
-    comes from ``with_relpos_heads`` (the kernel path reads ``wr_heads``)."""
+    scaled by Dh^-0.5; ``bias`` broadcasts over [B, H, S, S]."""
     b, s, d = x.shape
     q, k, v = rel_pos_qkv(params, x, cfg.num_heads)
-    if _use_relpos_kernel(bias, s, cfg.head_dim):
+    sdpa = params["sdpa"]
+    if (_use_relpos_kernel(bias, s, cfg.head_dim)
+            and not records_grad(q, k, v, sdpa["u_bias"], sdpa["v_bias"],
+                                 sdpa["r_proj"]["kernel"])):
         from sonar_tpu_torch.ops.cuda.relpos_flash import relpos_flash_attention_v2
 
-        sdpa = params["sdpa"]
         si, ci, basis = _trig_tables(s, d, x.dtype, x.device)
+        wr_heads = relpos_heads(sdpa["r_proj"]["kernel"].to(x.dtype), cfg.num_heads)
         out = relpos_flash_attention_v2(
-            q, k, v, sdpa["wr_heads"].to(x.dtype), si, ci, basis,
+            q, k, v, wr_heads, si, ci, basis,
             sdpa["u_bias"].to(x.dtype).contiguous(), sdpa["v_bias"].to(x.dtype).contiguous(),
             None if bias is None else bias[:, 0, 0, :].float(),
         )
@@ -245,8 +248,8 @@ def conformer_stack(
     attn_bias: Optional[torch.Tensor],
     pad_mask: Optional[torch.Tensor],
     cfg: ConformerConfig,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Run the L stacked Conformer blocks in order."""
-    for i in range(num_stacked_layers(stacked)):
-        x = conformer_block(layer_slice(stacked, i), x, attn_bias, pad_mask, cfg)
-    return x
+    return run_layers(stacked, x, lambda p, h: conformer_block(p, h, attn_bias, pad_mask, cfg),
+                      remat)

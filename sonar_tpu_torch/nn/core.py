@@ -12,11 +12,21 @@ layout so converted weights map one-to-one:
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 Params = Dict[str, Any]
+
+
+def tree_leaves(tree: Params) -> List[torch.Tensor]:
+    """The tensors of a parameter tree in sorted key order, depth first (the
+    order of ``jax.tree_util.tree_leaves``; an optimizer's parameter order)."""
+    out: List[torch.Tensor] = []
+    for key in sorted(tree):
+        value = tree[key]
+        out.extend(tree_leaves(value) if isinstance(value, dict) else [value])
+    return out
 
 
 def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -47,6 +57,19 @@ def embedding_lookup(
     # without converting all V rows on every call.
     out = params["weight"][ids.long()]
     return out if dtype is None else out.to(dtype)
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability 1 - p and
+    divided by it; the identity when ``generator`` is None (inference) or
+    ``p <= 0``. The mask is drawn from ``generator``, which must live on
+    ``x``'s device (torch's random bits are not JAX's, so the masks differ
+    from the JAX package's; the function is the same)."""
+    if generator is None or p <= 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {

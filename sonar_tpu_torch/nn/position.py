@@ -1,8 +1,11 @@
-"""Fairseq-legacy sinusoidal position encoder (``sonar_tpu.nn.position``).
+"""Position encoders (``sonar_tpu.nn.position``): fairseq-legacy
+sinusoidal and learned.
 
-table[p] = concat(sin(p * w), cos(p * w)), w_i = exp(-i * ln(10000) / (half - 1)):
+Sinusoidal: table[p] = concat(sin(p * w), cos(p * w)), w_i = exp(-i * ln(10000) / (half - 1)):
 the half-split layout with fairseq1's (half - 1) denominator. With a legacy
 pad index, sequence position t reads table row ``t + pad_idx + 1``.
+Learned: a [max_seq_len, D] parameter (``{"weight": ...}`` in the tree),
+read from row 0 with no offset.
 """
 
 from __future__ import annotations
@@ -59,4 +62,22 @@ class SinusoidalPositionEncoder:
             raise ValueError(f"positions up to {start + seq_len} exceed the "
                              f"{self.max_seq_len}-row position table")
         pe = self.table(seqs.device, seqs.dtype)[start:start + seq_len]
+        return seqs + pe[None, :, :]
+
+
+class LearnedPositionEncoder:
+    """Learned positional embeddings (fairseq2 ``LearnedPositionEncoder``):
+    the table is the parameter tree's ``{"weight": [max_seq_len, D]}``."""
+
+    def __init__(self, dim: int, max_seq_len: int):
+        self.dim = dim
+        self.max_seq_len = max_seq_len
+
+    def __call__(self, params: dict, seqs: torch.Tensor, step: int = 0) -> torch.Tensor:
+        """seqs: [B, S, D]; returns seqs + weight[step : step + S]."""
+        seq_len = seqs.shape[1]
+        if step + seq_len > self.max_seq_len:
+            raise ValueError(f"positions up to {step + seq_len} exceed the "
+                             f"{self.max_seq_len}-row position table")
+        pe = params["weight"][step:step + seq_len].to(seqs.dtype)
         return seqs + pe[None, :, :]

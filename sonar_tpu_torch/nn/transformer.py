@@ -13,20 +13,25 @@ whose core is the ``beam_masked_attend`` kernel).
 Parameters are nested dicts in the JAX layout; the per-layer tensors of a
 stack carry a leading L axis, and ``encoder_stack`` loops over it.
 
-The kernel gates are the JAX package's, on shapes and dtypes only; each
-kernel wrapper then runs its plain version for CPU tensors and its CUDA
-kernel for CUDA tensors. The thresholds (S 8..128, >= 2048 tokens) were
-tuned on a TPU; re-tuning them on the H100 is open work.
+The kernel gates are the JAX package's, on shapes and dtypes, and take
+the plain version whenever autograd records (``ops.gates.records_grad``: the
+kernels have no backward); each kernel wrapper then runs its plain version
+for CPU tensors and its CUDA kernel for CUDA tensors. The thresholds (S
+8..128, >= 2048 tokens) were tuned on a TPU; re-tuning them on the H100 is
+open work. ``encoder_stack`` / ``decoder_stack(remat=True)`` recompute each
+layer's activations in the backward pass (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from sonar_tpu_torch.nn.core import Params, get_activation, layer_norm, linear
+from sonar_tpu_torch.nn.core import Params, get_activation, layer_norm, linear, tree_leaves
 from sonar_tpu_torch.ops.attention import dispatch_sdpa
+from sonar_tpu_torch.ops.gates import records_grad
 import torch
+import torch.utils.checkpoint
 
 F32_MIN = torch.finfo(torch.float32).min
 
@@ -54,7 +59,7 @@ def mha(
 ) -> torch.Tensor:
     if "qkv_proj" in params and x is kv:
         qkv = linear(params["qkv_proj"], x)
-        if _key_bias(bias) and 8 <= qkv.shape[1] <= 128:
+        if _key_bias(bias) and 8 <= qkv.shape[1] <= 128 and not records_grad(qkv):
             # Short-sequence attention straight from the fused QKV layout.
             from sonar_tpu_torch.ops.cuda.short_attn import short_qkv_attention
 
@@ -84,9 +89,15 @@ def mha_attend(params: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return linear(params["output_proj"], _merge_heads(out))
 
 
-def fuse_qkv(params: Params) -> Params:
+def fuse_qkv(params: Params, keep_split: bool = True) -> Params:
     """Concatenate the q/k/v projections of every ``self_attn`` into one
-    ``qkv_proj`` along the output axis (q | k | v), as a runtime copy."""
+    ``qkv_proj`` along the output axis (q | k | v), as a runtime copy.
+
+    The full-sequence paths read ``qkv_proj``; incremental decoding reads
+    the separate projections, which are kept unless ``keep_split`` is False.
+    A tree to train drops them: an optimizer steps ``qkv_proj`` only, and a
+    kept copy would go stale.
+    """
 
     def transform(node: Any) -> Any:
         if not isinstance(node, dict):
@@ -99,7 +110,7 @@ def fuse_qkv(params: Params) -> Params:
                 and {"q_proj", "k_proj", "v_proj"} <= set(value)
             ):
                 names = ("q_proj", "k_proj", "v_proj")
-                fused = dict(value)
+                fused = {k: v for k, v in value.items() if keep_split or k not in names}
                 fused["qkv_proj"] = {
                     "kernel": torch.cat([value[p]["kernel"] for p in names], dim=-1)
                 }
@@ -127,6 +138,7 @@ def ffn(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
         and inner["kernel_q"].shape[1] % 256 == 0
         and inner["kernel_q"].shape[0] % 128 == 0
         and n_tokens >= 2048
+        and not records_grad(x, *tree_leaves(params))
     ):
         from sonar_tpu_torch.ops.cuda.ffn import fused_int8_ffn
 
@@ -151,8 +163,11 @@ def _residual_block(params_ln: Params, x: torch.Tensor, fn, norm_order: str) -> 
 def _block_kernels_eligible(params: Params, x: torch.Tensor, bias, num_heads: int,
                             activation: str, norm_order: str) -> bool:
     """Whole-block kernels: pre-LN int8 layers with a fused QKV projection,
-    ReLU FFN, key-padding bias, sentence-length sequences, enough tokens."""
+    ReLU FFN, key-padding bias, sentence-length sequences, enough tokens,
+    and nothing that autograd records."""
     if norm_order != "pre" or activation != "relu" or not _key_bias(bias):
+        return False
+    if records_grad(x, *tree_leaves(params)):
         return False
     sa, f = params["self_attn"], params["ffn"]
     if not ("qkv_proj" in sa and "kernel_q" in sa["qkv_proj"]
@@ -207,9 +222,15 @@ def encoder_layer(
     )
 
 
-def layer_slice(stacked: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked tree (views, no copies)."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
+def layer_slices(stacked: Params) -> List[Params]:
+    """Every layer of a stacked tree (views, no copies), from one ``unbind``
+    of each tensor: under autograd its backward is one ``stack`` of the
+    layers' gradients, where indexing layer i alone would give each layer a
+    zero-filled gradient of the whole stack to add up."""
+    parts = {k: layer_slices(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in stacked.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: part[i] for k, part in parts.items()} for i in range(n)]
 
 
 def num_stacked_layers(stacked: Params) -> int:
@@ -219,6 +240,22 @@ def num_stacked_layers(stacked: Params) -> int:
     return node.shape[0]
 
 
+def run_layers(stacked: Params, x: torch.Tensor,
+               layer_fn: Callable[[Params, torch.Tensor], torch.Tensor],
+               remat: bool = False) -> torch.Tensor:
+    """``x`` through ``layer_fn(layer_params, x)`` for each of the L stacked
+    layers in order. With ``remat`` each layer keeps only its input for the
+    backward pass and recomputes the rest there (the counterpart of the JAX
+    package's ``jax.checkpoint`` of the scan body): the same gradients, less
+    activation memory."""
+    for p in layer_slices(stacked):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer_fn, p, x, use_reentrant=False)
+        else:
+            x = layer_fn(p, x)
+    return x
+
+
 def encoder_stack(
     stacked_params: Params,
     x: torch.Tensor,
@@ -226,12 +263,11 @@ def encoder_stack(
     num_heads: int,
     activation: str,
     norm_order: str = "pre",
+    remat: bool = False,
 ) -> torch.Tensor:
     """Run the L stacked encoder layers in order."""
-    for i in range(num_stacked_layers(stacked_params)):
-        x = encoder_layer(layer_slice(stacked_params, i), x, bias, num_heads,
-                          activation, norm_order)
-    return x
+    return run_layers(stacked_params, x, lambda p, h: encoder_layer(
+        p, h, bias, num_heads, activation, norm_order), remat)
 
 
 def decoder_layer(
@@ -269,12 +305,11 @@ def decoder_stack(
     num_heads: int,
     activation: str,
     norm_order: str = "pre",
+    remat: bool = False,
 ) -> torch.Tensor:
     """Run the L stacked decoder layers in order."""
-    for i in range(num_stacked_layers(stacked_params)):
-        x = decoder_layer(layer_slice(stacked_params, i), x, self_bias, memory, memory_bias,
-                          num_heads, activation, norm_order)
-    return x
+    return run_layers(stacked_params, x, lambda p, h: decoder_layer(
+        p, h, self_bias, memory, memory_bias, num_heads, activation, norm_order), remat)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +357,7 @@ def init_decoder_cache(
     n_layers = num_stacked_layers(stacked_params)
     head_dim = model_dim // num_heads
     dev = memory.device
-    layers = [layer_slice(stacked_params, i)["encoder_decoder_attn"] for i in range(n_layers)]
+    layers = [p["encoder_decoder_attn"] for p in layer_slices(stacked_params)]
     if memory.shape[1] == 1:
         cross_out = torch.stack(
             [linear(p["output_proj"], linear(p["v_proj"], memory)) for p in layers]
@@ -424,8 +459,7 @@ def decoder_step(
             "cache was built for an unmasked length-1 memory (cross_out set); "
             "memory_bias is not applicable"
         )
-    for layer in range(num_stacked_layers(stacked_params)):
-        p = layer_slice(stacked_params, layer)
+    for layer, p in enumerate(layer_slices(stacked_params)):
         sk, sv = cache.self_k[layer], cache.self_v[layer]
         h = layer_norm(p["self_attn_layer_norm"], x)
         k_new = _split_heads(linear(p["self_attn"]["k_proj"], h), num_heads)  # [N, H, 1, Dh]

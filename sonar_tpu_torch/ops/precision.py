@@ -82,12 +82,31 @@ def matmul_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     code's ``preferred_element_type``).
 
     fp32 operands multiply in fp32. A bf16 product on the card asks cuBLAS
-    for an fp32 output of its fp32 accumulator; on the CPU, whose bf16
-    matmul rounds its output, the bf16 operands are widened first (their
-    products are exact in fp32, so the function is the same).
+    for an fp32 output of its fp32 accumulator (``torch.mm``'s ``out_dtype``
+    form, which has no derivative: ``_MatmulF32Out`` gives it one); on the
+    CPU, whose bf16 matmul rounds its output, the bf16 operands are widened
+    first (their products are exact in fp32, so the function is the same).
     """
     if a.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _MatmulF32Out.apply(a, b)
     return a.float() @ b.float()
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=torch.float32)`` of two model-dtype
+    matrices with a backward: the fp32 output gradient is rounded to the
+    operands' dtype, and each operand's gradient is one product in that
+    dtype (fp32 accumulation), as a model-dtype matmul's backward is."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        a, b = ctx.saved_tensors
+        g = grad.to(a.dtype)
+        return g @ b.t(), a.t() @ g

@@ -58,11 +58,14 @@ def test_pipeline_names_cover_the_reference():
 @pytest.mark.parametrize("sub,names", [
     ("nn", ["ConditionalTransformerDecoder", "ConformerConfig", "conformer_stack",
             "embedding_lookup", "layer_norm", "linear", "EmbeddingFrontend", "bilstm_stack",
-            "Pooling", "static_pool", "SinusoidalPositionEncoder", "decoder_stack",
-            "encoder_stack", "fuse_qkv"]),
+            "Pooling", "static_pool", "SinusoidalPositionEncoder", "LearnedPositionEncoder",
+            "decoder_stack", "encoder_stack", "fuse_qkv", "dropout", "tree_leaves"]),
     ("ops", ["dispatch_sdpa", "sdpa_xla", "FbankConfig", "batched_fbank", "additive_bias",
-             "length_mask", "quantize_params_int8"]),
+             "length_mask", "quantize_params_int8", "records_grad"]),
     ("models", ["ConfigRegistry", "SonarEncoderOutput", "VocabularyInfo"]),
+    ("training", ["TrainState", "cross_entropy", "translation_loss", "distillation_loss",
+                  "classifier_loss", "make_train_step", "init_train_state",
+                  "save_train_state", "restore_train_state"]),
 ])
 def test_subpackage_names_resolve(sub, names):
     import importlib
@@ -80,7 +83,7 @@ def test_import_stays_light():
     code = (
         "import sys\n"
         "import sonar_tpu_torch, sonar_tpu_torch.inference_pipelines, sonar_tpu_torch.nn\n"
-        "import sonar_tpu_torch.ops, sonar_tpu_torch.models\n"
+        "import sonar_tpu_torch.ops, sonar_tpu_torch.models, sonar_tpu_torch.training\n"
         "heavy = [m for m in ('sonar_tpu_torch.ops._build', 'sonar_tpu_torch.ops.cuda',\n"
         "                     'sonar_tpu_torch.inference_pipelines.text') if m in sys.modules]\n"
         "assert not heavy, heavy\n"

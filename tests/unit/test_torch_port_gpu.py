@@ -8,6 +8,8 @@ and skip without one. The machine with the card has no JAX, and
 
 Tolerance: every row's cosine >= 0.9999 against the plain version (rows of
 length >= 1 for the int8 attention block), and each call counted as a launch.
+Training: one step on the card launches no kernel and gives the gradients
+of the same step on the CPU.
 """
 
 import pytest
@@ -980,3 +982,180 @@ def test_server_round_trip_on_the_card(dev, tmp_path):
                                        device="cpu").predict(texts, source_lang="eng_Latn",
                                                              batching="static")
     assert np.abs(got - cpu).max() <= 1e-3 * np.abs(cpu).max()
+
+
+# -- training ------------------------------------------------------------------------
+
+
+def _all_launches():
+    return (short_attn.LAUNCHES, flash.LAUNCHES, attn_block.LAUNCHES, ffn.LAUNCHES,
+            ffn.BF16_LAUNCHES, relpos_flash.LAUNCHES, relpos_flash.V1_LAUNCHES,
+            beam_attend.MASKED_LAUNCHES, beam_attend.DIAG_LAUNCHES,
+            beam_attend.REORDER_LAUNCHES)
+
+
+def _wide_translation(dtype, device, s):
+    """A D 128 (two heads of 64) encoder and decoder with fused q/k/v, their
+    trees as fp32 leaves on ``device``, and a batch at source length ``s``
+    (40: the short-attention gate; 300: flash's) and target length 24."""
+    import dataclasses
+
+    from sonar_tpu_torch.assets.convert import (
+        init_text_decoder_params, init_text_encoder_params, text_decoder_from_numpy,
+        text_encoder_from_numpy)
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs, sonar_text_encoder_archs
+    from sonar_tpu_torch.nn.transformer import fuse_qkv
+
+    wide = dict(model_dim=128, num_encoder_attn_heads=2, num_decoder_attn_heads=2,
+                ffn_inner_dim=256)
+    ecfg = dataclasses.replace(sonar_text_encoder_archs.get("toy"), **wide)
+    dcfg = dataclasses.replace(sonar_text_decoder_archs.get("toy"), **wide)
+    enc_np, dec_np = init_text_encoder_params(ecfg, seed=2), init_text_decoder_params(dcfg, seed=3)
+    encoder = text_encoder_from_numpy(enc_np, ecfg, dtype, device)
+    decoder = text_decoder_from_numpy(dec_np, dcfg, dtype, device)
+    params = {"encoder": fuse_qkv(text_encoder_from_numpy(enc_np, ecfg, device=device)
+                                  .params.tree(), keep_split=False),
+              "decoder": fuse_qkv(text_decoder_from_numpy(dec_np, dcfg, device=device)
+                                  .params.tree(), keep_split=False)}
+    gen = torch.Generator().manual_seed(s)
+    batch = {"src_tokens": torch.randint(4, 1000, (4, s), generator=gen),
+             "src_lens": torch.tensor([s, s - 7, s // 2, 3]),
+             "tgt_in": torch.randint(4, 1000, (4, 24), generator=gen),
+             "tgt_out": torch.randint(4, 1000, (4, 24), generator=gen),
+             "tgt_lens": torch.tensor([24, 20, 9, 1])}
+    return encoder, decoder, params, {k: v.to(device) for k, v in batch.items()}
+
+
+def _translation_grads(dtype, device, s):
+    from sonar_tpu_torch.training import train_step as ts
+
+    encoder, decoder, params, batch = _wide_translation(dtype, device, s)
+    state = ts.init_train_state(params, lambda leaves: torch.optim.SGD(leaves, lr=0.0))
+    before = _all_launches()
+    step = ts.make_train_step(lambda p, b, g: ts.translation_loss(
+        encoder, decoder, p["encoder"], p["decoder"], b, g))
+    _, loss = step(state, batch)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        assert _all_launches() == before  # no kernel while autograd records
+    return float(loss), {path: t.grad.cpu() for path, t in _leaves(params)}
+
+
+def _leaves(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}/{key}")
+        else:
+            yield f"{prefix}/{key}", value
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [40, 300])
+def test_training_step_card_matches_cpu(dev, s):
+    """One fp32 ``translation_loss`` step on the card and on the CPU, the
+    same weights and batch, dropout off: the loss within 1e-5 of the CPU's,
+    every gradient leaf within 1e-4 of the larger of its scale and a
+    thousandth of the largest leaf's, and no kernel launched (the shapes
+    reach the short-attention and flash gates). The cross-attention's q and
+    k projections have a zero gradient in exact arithmetic (a softmax over
+    one memory row is 1): both sides must read them zero at that
+    resolution."""
+    loss, grads = _translation_grads(torch.float32, dev, s)
+    want_loss, want = _translation_grads(torch.float32, "cpu", s)
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    top = max(g.abs().max().item() for g in want.values())
+    for path, w in want.items():
+        if "/encoder_decoder_attn/q_proj/" in path or "/encoder_decoder_attn/k_proj/" in path:
+            assert max(grads[path].abs().max().item(), w.abs().max().item()) <= 1e-4 * top, path
+            continue
+        scale = max(w.abs().max().item(), 1e-3 * top)
+        assert (grads[path] - w).abs().max().item() <= 1e-4 * scale, path
+
+
+@pytest.mark.gpu
+def test_training_step_bf16_on_the_card(dev):
+    """A bf16 step on fp32 leaves: no kernel launched, every gradient finite,
+    and the tied projection's backward (``matmul_f32_out`` on the card)
+    against the fp32 product's: cosine >= 0.999."""
+    from sonar_tpu_torch.ops.precision import matmul_f32_out
+
+    loss, grads = _translation_grads(torch.bfloat16, dev, 40)
+    assert loss == loss and all(bool(torch.isfinite(g).all()) for g in grads.values())
+    a = _rand(dev, 96, 128, dtype=torch.bfloat16, seed=1).requires_grad_(True)
+    b = _rand(dev, 128, 3000, dtype=torch.bfloat16, seed=2).requires_grad_(True)
+    g = _rand(dev, 96, 3000, seed=3)
+    (matmul_f32_out(a, b) * g).sum().backward()
+    a32, b32 = a.detach().float().requires_grad_(True), b.detach().float().requires_grad_(True)
+    ((a32 @ b32) * g).sum().backward()
+    for got, want in ((a.grad, a32.grad), (b.grad, b32.grad)):
+        cos = torch.nn.functional.cosine_similarity(got.float().flatten(), want.flatten(), 0)
+        assert got.dtype == torch.bfloat16 and cos.item() >= 0.999
+
+
+@pytest.mark.gpu
+def test_frozen_encoder_launches_kernels(dev):
+    """``classifier_loss`` with the encoder frozen runs its forward under
+    ``no_grad``: the short-attention kernel launches (S 40, fused q/k/v),
+    the head gets gradients, the encoder none."""
+    from sonar_tpu_torch.assets.convert import init_mutox_params, mutox_from_numpy
+    from sonar_tpu_torch.models.mutox import MutoxConfig
+    from sonar_tpu_torch.nn.core import tree_leaves
+    from sonar_tpu_torch.training import train_step as ts
+
+    encoder, _, params, batch = _wide_translation(torch.bfloat16, dev, 40)
+    head_np = init_mutox_params(MutoxConfig(128), seed=0)
+    head = mutox_from_numpy(head_np, MutoxConfig(128), device=dev)
+    tree = {"encoder": params["encoder"], "head": head.params.tree()}
+    for t in tree_leaves(tree):
+        t.requires_grad_(True)
+    before = short_attn.LAUNCHES
+    loss = ts.classifier_loss(encoder, head, tree, {
+        "tokens": batch["src_tokens"], "lens": batch["src_lens"],
+        "labels": torch.tensor([0, 1, 1, 0], device=dev)})
+    loss.backward()
+    torch.cuda.synchronize()
+    assert short_attn.LAUNCHES > before
+    assert all(t.grad is None for t in tree_leaves(tree["encoder"]))
+    assert all(t.grad is not None for t in tree_leaves(tree["head"]))
+
+
+@pytest.mark.gpu
+def test_relpos_after_a_step_on_the_card(dev, monkeypatch):
+    """A D 128 speech encoder serves an inference forward at S 150, takes
+    one Adam step on the card (r_proj changes), and serves again: the
+    rel-pos v2 kernel launches and agrees with the plain path (fp32, cosine
+    >= 0.9999 a row)."""
+    import dataclasses
+
+    from sonar_tpu_torch.assets.convert import init_speech_encoder_params, speech_encoder_from_numpy
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.nn import conformer
+    from sonar_tpu_torch.training import train_step as ts
+
+    base = sonar_speech_encoder_archs.get("toy")
+    cfg = dataclasses.replace(
+        base, conformer=conformer.ConformerConfig(model_dim=128, num_layers=2, num_heads=2,
+                                                  ffn_inner_dim=256, depthwise_kernel_size=7),
+        frontend=dataclasses.replace(base.frontend, num_fbank_channels=80, model_dim=128),
+        model_dim=128, num_decoder_attn_heads=2, ffn_inner_dim=256)
+    model = speech_encoder_from_numpy(init_speech_encoder_params(cfg, seed=0), cfg, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    fb = torch.randn(2, 300, 80, generator=gen).to(dev)
+    lens = torch.tensor([300, 260], device=dev)
+    batch = {"inputs": fb, "lens": lens, "teacher_emb": torch.randn(2, 128, generator=gen).to(dev)}
+    with torch.inference_mode():
+        model(fb, lens)
+    state = ts.init_train_state(model.params.tree(),
+                                lambda leaves: torch.optim.Adam(leaves, lr=0.05))
+    before = _all_launches()
+    ts.make_train_step(lambda p, b, g: ts.distillation_loss(model, p, b))(state, batch)
+    torch.cuda.synchronize()
+    assert _all_launches() == before
+    with torch.inference_mode():
+        launches = relpos_flash.LAUNCHES
+        got = model(fb, lens).sentence_embeddings
+        torch.cuda.synchronize()
+        assert relpos_flash.LAUNCHES == launches + 2
+        monkeypatch.setattr(conformer, "_use_relpos_kernel", lambda *a: False)
+        want = model(fb, lens).sentence_embeddings
+    _assert_close(got, want)

@@ -205,8 +205,8 @@ def test_rel_pos_attention_matches_jax(s, dtype):
     params = _jax_params(CFG, jconf.init_rel_pos_attention)
     x, (pbias, _), (jbias, _), lens = _x_and_bias(2, s, [s, s - 37])
     calls = conformer.PLAIN_CALLS
-    got = conformer.rel_pos_attention(conformer.with_relpos_heads(_port_tree(params, dtype), 2),
-                                      _both(x, dtype)[0], pbias, PORT_CFG)
+    got = conformer.rel_pos_attention(_port_tree(params, dtype), _both(x, dtype)[0], pbias,
+                                      PORT_CFG)
     assert conformer.PLAIN_CALLS == calls + (s < 128)
     forced = _jax_kernel_forced() if s >= 128 else contextlib.nullcontext()
     with forced:
@@ -215,20 +215,27 @@ def test_rel_pos_attention_matches_jax(s, dtype):
     _assert_close(got, np.asarray(want, np.float32), dtype, kernel=False)
 
 
-def test_kernel_path_reads_wr_heads():
-    """``with_relpos_heads`` lays r_proj out per head with its input columns
-    de-interleaved (the JAX wrapper's Wr_h); the kernel path needs it."""
+def test_kernel_path_reads_wr_heads(monkeypatch):
+    """The kernel path hands the kernel r_proj laid out per head with its
+    input columns de-interleaved (the JAX wrapper's Wr_h), made from the
+    layer's r_proj at each call: after r_proj changes in place, the next
+    call reads the new weights, and the tree holds no copy to go stale."""
     p = _port_tree(_jax_params(CFG, jconf.init_rel_pos_attention), "float32")
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 130, 128)).astype(
         np.float32))
-    with pytest.raises(KeyError):
+    seen = []
+    kernel = relpos_flash.relpos_flash_attention_v2
+    monkeypatch.setattr(relpos_flash, "relpos_flash_attention_v2",
+                        lambda q, k, v, wrh, *rest: seen.append(wrh) or kernel(q, k, v, wrh, *rest))
+    for _ in range(2):
         conformer.rel_pos_attention(p, x, None, PORT_CFG)
-    wrh = conformer.with_relpos_heads(p, 2)["sdpa"]["wr_heads"]
-    want = p["sdpa"]["r_proj"]["kernel"].reshape(128, 2, 64).permute(1, 0, 2)
-    want = torch.cat([want[:, 0::2], want[:, 1::2]], dim=1)
-    assert wrh.shape == (2, 128, 64) and wrh.is_contiguous()
-    assert torch.equal(wrh, want)
-    assert "wr_heads" not in p["sdpa"]  # a copy: the input tree is unchanged
+        want = p["sdpa"]["r_proj"]["kernel"].reshape(128, 2, 64).permute(1, 0, 2)
+        want = torch.cat([want[:, 0::2], want[:, 1::2]], dim=1)
+        wrh = seen[-1]
+        assert wrh.shape == (2, 128, 64) and wrh.is_contiguous()
+        assert torch.equal(wrh, want)
+        p["sdpa"]["r_proj"]["kernel"].mul_(-0.5)
+    assert len(seen) == 2 and "wr_heads" not in p["sdpa"]
 
 
 def test_kernel_gate_bounds():
@@ -298,7 +305,6 @@ def test_conformer_block_matches_jax(s, dtype):
     params = _jax_params(CFG, jconf.init_conformer_block)
     x, (pbias, pmask), (jbias, jmask), lens = _x_and_bias(2, s, [s, s - 21])
     p = _port_tree(params, dtype)
-    p["self_attn"] = conformer.with_relpos_heads(p["self_attn"], 2)
     got = conformer.conformer_block(p, _both(x, dtype)[0], pbias, pmask, PORT_CFG)
     forced = _jax_kernel_forced() if s >= 128 else contextlib.nullcontext()
     with forced:

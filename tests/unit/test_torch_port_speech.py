@@ -210,16 +210,25 @@ def test_encoder_matches_jax(wide_params, dtype):
 
 
 @pytest.mark.parametrize("quantize", [False, True])
-def test_encoder_builds_wr_heads_at_load(wide_params, quantize):
-    """The model's tree holds the kernel's per-head r_proj of every layer,
-    built from r_proj (which int8 quantisation leaves in floating point)."""
+def test_encoder_builds_wr_heads_at_load(wide_params, quantize, monkeypatch):
+    """The kernel's per-head r_proj of every layer is built from the layer's
+    r_proj (which int8 quantisation leaves in floating point) each time the
+    kernel path runs; the model's tree holds no copy that could go stale."""
     model = speech_encoder_from_numpy(wide_params, PORT_CFG, torch.bfloat16)
-    sdpa = speech.TorchSpeechEncoder(model, quantize=quantize, device="cpu").model.params.tree()[
-        "encoder"]["layers"]["self_attn"]["sdpa"]
+    runtime = speech.TorchSpeechEncoder(model, quantize=quantize, device="cpu")
+    sdpa = runtime.model.params.tree()["encoder"]["layers"]["self_attn"]["sdpa"]
+    assert "wr_heads" not in sdpa
+    seen = []
+    kernel = relpos_flash.relpos_flash_attention_v2
+    monkeypatch.setattr(relpos_flash, "relpos_flash_attention_v2",
+                        lambda q, k, v, wrh, *rest: seen.append(wrh) or kernel(q, k, v, wrh, *rest))
+    fbank = torch.randn(1, 300, 80, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        runtime.model(fbank, torch.tensor([300]))
     r_proj = wide_params["encoder"]["layers"]["self_attn"]["sdpa"]["r_proj"]["kernel"]
     want = conformer.relpos_heads(torch.tensor(np.array(r_proj)).to(torch.bfloat16), 2)
-    assert sdpa["wr_heads"].shape == (2, 2, 128, 64)
-    assert torch.equal(sdpa["wr_heads"], want)
+    assert len(seen) == 2 and all(w.shape == (2, 128, 64) for w in seen)
+    assert all(torch.equal(w, want[i]) for i, w in enumerate(seen))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

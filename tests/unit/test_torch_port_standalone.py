@@ -4,8 +4,9 @@
   which the card's machine lacks) cannot be imported imports every module
   of ``sonar_tpu_torch`` and runs text, speech, decode (beam, sampling,
   int8), speech -> text and MuTox ``predict``, the three heads, mining,
-  packed encoding, the HF batch layer on plain dicts and one ``/embed``
-  request through the server and its client on the CPU at toy size;
+  packed encoding, the HF batch layer on plain dicts, one ``/embed``
+  request through the server and its client, and one training step with a
+  checkpoint round trip on the CPU at toy size;
 - no file of the port, and not ``chip_smoke.py``, imports ``sonar_tpu`` or
   ``jax`` (an ``ast`` scan);
 - with no GPU, every entry point given ``device=None`` raises instead of
@@ -146,6 +147,21 @@ with torch.inference_mode():
     packed = enc.apply_packed(enc.params.tree(), *(torch.from_numpy(a) for a in (
         batch.tokens, batch.segment_ids, batch.positions)), batch.max_segments)
 assert packed.shape == (2, 2, 32) and bool(torch.isfinite(packed).all()) and mfu(0.0) == 0.0
+
+from sonar_tpu_torch.training import (
+    init_train_state, make_train_step, restore_train_state, save_train_state, translation_loss)
+tree = {"encoder": convert.init_text_encoder_params(cfg, 1), "decoder": convert.init_text_decoder_params(dcfg, 1)}
+tree = {k: convert.text_encoder_from_numpy(v, cfg).params.tree() if k == "encoder"
+        else convert.text_decoder_from_numpy(v, dcfg).params.tree() for k, v in tree.items()}
+state = init_train_state(tree, lambda leaves: torch.optim.AdamW(leaves, lr=1e-3, weight_decay=0.01))
+ids = torch.tensor([[5, 6, 7, 8]] * 2)
+tb = {"src_tokens": ids, "src_lens": torch.tensor([4, 2]), "tgt_in": ids, "tgt_out": ids,
+      "tgt_lens": torch.tensor([4, 3])}
+step = make_train_step(lambda p, b, g: translation_loss(enc, dec, p["encoder"], p["decoder"], b, g))
+state, loss = step(state, tb, torch.Generator().manual_seed(0))
+assert state.step == 1 and bool(torch.isfinite(loss))
+save_train_state(Path(sys.argv[1]) / "train.pt", state)
+assert restore_train_state(Path(sys.argv[1]) / "train.pt", state).step == 1
 
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "sonar_tpu", "datasets")
                 and sys.modules[m] is not None)
