@@ -202,8 +202,30 @@ Phases, each printing ``#`` lines:
     zero at that resolution), no launch, and a TF32 control (the fp32 scope
     switched off) above that limit.
 
+(l) scale-out over ``torch.distributed``, in three child processes started
+    together (``--scaleout-child``; the main process never joins a group),
+    each check timed: (l1) one rank over NCCL, ``make_mesh(1, 1)``: the
+    ``basic`` encoder in int8 and bf16 through ``TextToEmbeddingModelPipeline``
+    over ``TorchTextEncoder(mesh=)`` on (d)'s 3000 sentences, equal to (d)'s
+    embeddings bit for bit with (d)'s launch counts of #1, #2, #3 and #5;
+    ``TorchTextDecoder(mesh=)`` on (f)'s 64 embeddings, every beam output
+    equal to (f)'s; ``sharded_cosine_topk`` at (i)'s size, equal to (i)'s
+    fp32 top 8; a ``make_train_step(mesh=)`` step of (k4)'s model, its loss
+    equal to (k4)'s and every gradient leaf to the mesh-free step's but the
+    two embedding tables (sums by atomic adds, which differ between any two
+    runs: within (k4)'s limit). (l2) two ranks sharing the card over gloo:
+    every collective the port issues on CUDA tensors; ``make_mesh(1, 2)``:
+    the bf16 and int8 encoders on 64 sentences (16 of >= 250 words), cosine
+    >= 0.999 per sentence against (d), #1 and #5 launched on each rank, #2
+    and #3 not; int8 also bit for bit against the layers' model-split path
+    on one rank, and two planted wrong int8 variants (the row absmax not
+    agreed; each slice scaled alone) that this check must catch;
+    ``make_mesh(2, 1)``: the int8 encoder on the 3000
+    sentences, equal to (d) bit for bit; one DP = 2 step of (k4)'s model
+    against the single-rank step within (k4)'s limits.
+
 A kernel's ``launches`` in the JSON record is the sum of its counts over
-(d) to (k); the kernels that no path calls (``relpos_flash_attention``,
+(d) to (l), (l)'s summed over its children; the kernels that no path calls (``relpos_flash_attention``,
 ``beam_diag_attend``, ``beam_reorder_attend``,
 ``fused_bf16_ffn_ln_residual``) must read 0. Prints that record on the
 line before the last, and as the last line ``{"ok": true, "device":
@@ -1178,13 +1200,15 @@ def run_slice(torch, card):
     torch.cuda.synchronize()
 
     zero_launches()
-    tput, static = {}, {}
+    tput, static, static_launches = {}, {}, {}
     for mode in ("int8", "bf16"):
+        before = read_launches()
         t0 = time.perf_counter()
         emb = static[mode] = gpu[mode].predict(corpus, source_lang="eng_Latn",
                                                batching="static")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        static_launches[mode] = {n: c - before[n] for n, c in read_launches().items()}
         tput[mode] = len(corpus) / dt
         if emb.shape != (len(corpus), cfg.model_dim) or not np.isfinite(emb).all():
             raise AssertionError(f"{mode}: embeddings of shape {emb.shape}, finite "
@@ -1257,7 +1281,8 @@ def run_slice(torch, card):
     handoff = {"tokenizer": tokenizer, "corpus": corpus, "embeddings": bf16_embeddings[:64],
                "corpus_embeddings": bf16_embeddings, "encoder": gpu["bf16"].model,
                "tokenizer_path": tmp / "synthetic_nllb.model", "text_pipelines": gpu,
-               "static_embeddings": static, "text_params": params}
+               "static_embeddings": static, "static_launches": static_launches,
+               "text_params": params}
     return launches, tput, handoff
 
 
@@ -1365,6 +1390,7 @@ def run_speech(torch, card, handoff):
 
 
 DECODE_KW = {"beam_size": 5, "max_gen_len": 48}
+EMB_TO_TEXT = "embedding->text (64 embeddings, batch 32, beam 5, max_gen_len 48)"
 
 
 def _device_profile(torch, fn):
@@ -1425,17 +1451,17 @@ def _busy_share(torch, card, label, dec, fn, top=8):
 
 
 def _recording(dec):
-    """Wrap ``dec.generate_beam`` to keep each call's best-hypothesis lengths."""
-    lens = []
+    """Wrap ``dec.generate_beam`` to keep each call's (tokens, scores, lens)."""
+    outs = []
     generate = dec.generate_beam
 
     def generate_beam(*args, **kwargs):
         out = generate(*args, **kwargs)
-        lens.append(out[2][:, 0].copy())
+        outs.append(out)
         return out
 
     dec.generate_beam = generate_beam
-    return lens
+    return outs
 
 
 def _same_best(label, card, cpu, tol=1e-5):
@@ -1485,7 +1511,7 @@ def run_decode(torch, card, handoff):
     launches = dict.fromkeys(KERNELS, 0)
 
     def drive(label, dec, fn, n_sentences):
-        lens = _recording(dec)
+        outs = handoff.setdefault("beam_outputs", {})[label] = _recording(dec)
         dec.decode_steps = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1496,7 +1522,7 @@ def run_decode(torch, card, handoff):
         dt = time.perf_counter() - t0
         counts = read_launches()
         del dec.generate_beam  # drop the recording wrapper
-        steps, n_tok = dec.decode_steps, int(sum(x.sum() for x in lens))
+        steps, n_tok = dec.decode_steps, int(sum(o[2][:, 0].sum() for o in outs))
         for name in KERNELS:
             launches[name] += counts[name]
         log(f"decode {label}: {n_sentences} sentences in {dt:.3f} s = {n_sentences / dt:.2f} "
@@ -1517,9 +1543,8 @@ def run_decode(torch, card, handoff):
         pipe = EmbeddingToTextModelPipeline(decoders[mode], tok)
         pipe.predict(emb[:32], target_lang="eng_Latn", batch_size=32, beam_size=5,
                      max_gen_len=4)  # warm: allocator, cuBLAS handles
-        drive(f"{mode} embedding->text (64 embeddings, batch 32, beam 5, max_gen_len 48)",
-              decoders[mode], lambda: pipe.predict(emb, target_lang="eng_Latn", batch_size=32,
-                                                   **DECODE_KW), len(emb))
+        drive(f"{mode} {EMB_TO_TEXT}", decoders[mode], lambda: pipe.predict(
+            emb, target_lang="eng_Latn", batch_size=32, **DECODE_KW), len(emb))
     texts = handoff["corpus"][:16]
     t2t = TextToTextModelPipeline(handoff["encoder"], decoders["bf16"], tok)
     drive("bf16 text->text (16 sentences, batch 8, beam 5, max_gen_len 48)", decoders["bf16"],
@@ -1614,7 +1639,7 @@ def run_speech_to_text(torch, card, handoff):
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
 
-    lens = _recording(dec)
+    outs = _recording(dec)
     dec.decode_steps = 0
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -1624,7 +1649,7 @@ def run_speech_to_text(torch, card, handoff):
     dt = time.perf_counter() - t0
     counts = read_launches()
     del dec.generate_beam
-    steps, n_tok = dec.decode_steps, int(sum(x.sum() for x in lens))
+    steps, n_tok = dec.decode_steps, int(sum(o[2][:, 0].sum() for o in outs))
     log(f"speech->text bf16: {len(clips)} clips ({audio_s:.1f} s of audio) in {dt:.3f} s = "
         f"{len(clips) / dt:.2f} clips/s = {len(out) / dt:.2f} sentences/s, RTFx "
         f"{audio_s / dt:.1f}, {n_tok} generated tokens; encoder alone {encode_s:.3f} s, so "
@@ -2591,6 +2616,7 @@ TRAIN_LOSS_LIMIT = 1e-5  # (k4): the card's loss against the CPU's, x the CPU's
 # 256,206-term fp32 reductions, which the card and the CPU sum in other
 # orders), the TF32 control 2.3e-2.
 TRAIN_GRAD_LIMIT = 2e-3
+K4_ROWS = 4  # (k4)'s batch rows
 
 
 def _card_tree(torch, tree, device=None):
@@ -2843,16 +2869,12 @@ def _leaf_paths(tree, prefix=""):
 ZERO_GRAD = ("/encoder_decoder_attn/q_proj/", "/encoder_decoder_attn/k_proj/")
 
 
-def _train_card_vs_cpu(torch, card, handoff, launches):
-    """(k4): one fp32 ``translation_loss`` step of the ``basic`` encoder and
-    decoder cut to 2 layers each, full width, on the card and on the CPU
-    port: the same weights and batch (4 x 64), dropout off. The loss within
-    TRAIN_LOSS_LIMIT of the CPU's; every gradient leaf within
-    TRAIN_GRAD_LIMIT of its scale (its CPU max-abs, floored at a thousandth
-    of the largest leaf's), but the ZERO_GRAD leaves, which must read zero
-    at that resolution on both (max-abs within TRAIN_GRAD_LIMIT of the
-    largest leaf's). A TF32 control (the fp32 scope switched off, TF32 on)
-    must read worse than the limit."""
+def _k4_step(torch, handoff, device, mesh=None):
+    """One step of (k4)'s model: the ``basic`` encoder and decoder cut to 2
+    layers each, full width, fp32 leaves, q/k/v fused, SGD at rate 0 (the
+    gradients, the leaves unchanged), dropout off, on 4 x 64 rows of the
+    corpus; over ``mesh`` if given. -> (loss, the gradients in
+    ``tree_leaves`` order on the CPU, their paths)."""
     import dataclasses
 
     from sonar_tpu_torch.models.sonar_text import (
@@ -2864,50 +2886,61 @@ def _train_card_vs_cpu(torch, card, handoff, launches):
 
     ecfg = dataclasses.replace(sonar_text_encoder_archs.get("basic"), num_encoder_layers=2)
     dcfg = dataclasses.replace(sonar_text_decoder_archs.get("basic"), num_decoder_layers=2)
-    enc_np = _first_layers(handoff["text_params"], 2)
-    dec_np = _first_layers(handoff["decoder_params"], 2)
-    rows = 4
-    paths = []
+    tree = {"encoder": fuse_qkv(_card_tree(torch, _first_layers(handoff["text_params"], 2),
+                                           device), keep_split=False),
+            "decoder": fuse_qkv(_card_tree(torch, _first_layers(handoff["decoder_params"], 2),
+                                           device), keep_split=False)}
+    paths = _leaf_paths(tree)
+    encoder = SonarTextEncoder(ecfg, tree["encoder"])
+    decoder = ConditionalTransformerDecoder(dcfg, tree["decoder"])
+    state = init_train_state(tree, lambda leaves: torch.optim.SGD(leaves, lr=0.0), mesh=mesh)
+    step = make_train_step(lambda p, b, g: translation_loss(encoder, decoder, p["encoder"],
+                                                            p["decoder"], b, g), mesh)
+    _, loss = step(state, _translation_batch(torch, handoff, K4_ROWS, device))
+    return float(loss), [t.grad.cpu() for t in tree_leaves(state.params)], paths
 
-    def grads(device):
-        tree = {"encoder": fuse_qkv(_card_tree(torch, enc_np, device), keep_split=False),
-                "decoder": fuse_qkv(_card_tree(torch, dec_np, device), keep_split=False)}
-        paths[:] = _leaf_paths(tree)
-        encoder = SonarTextEncoder(ecfg, tree["encoder"])
-        decoder = ConditionalTransformerDecoder(dcfg, tree["decoder"])
-        state = init_train_state(tree, lambda leaves: torch.optim.SGD(leaves, lr=0.0))
-        step = make_train_step(lambda p, b, g: translation_loss(encoder, decoder, p["encoder"],
-                                                                p["decoder"], b, g))
-        _, loss = step(state, _translation_batch(torch, handoff, rows, device))
-        return float(loss), [t.grad.cpu() for t in tree_leaves(tree)]
 
-    def errors(got, want):
-        """{path: error / scale} over the leaves, ZERO_GRAD leaves by their
-        max-abs over the largest leaf's."""
-        top = max(w.abs().max().item() for w in want)
-        out = {}
-        for path, g, w in zip(paths, got, want):
-            if any(z in path for z in ZERO_GRAD):
-                out[path] = max(g.abs().max().item(), w.abs().max().item()) / top
-            else:
-                out[path] = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-3 * top)
-        return out
+def _grad_errors(paths, got, want):
+    """{path: error / scale} over the gradient leaves (the scale: the
+    reference's max-abs, floored at a thousandth of the largest leaf's); the
+    ZERO_GRAD leaves by their max-abs over the largest leaf's."""
+    top = max(w.abs().max().item() for w in want)
+    out = {}
+    for path, g, w in zip(paths, got, want):
+        if any(z in path for z in ZERO_GRAD):
+            out[path] = max(g.abs().max().item(), w.abs().max().item()) / top
+        else:
+            out[path] = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-3 * top)
+    return out
 
+
+def _train_card_vs_cpu(torch, card, handoff, launches):
+    """(k4): one fp32 ``translation_loss`` step of ``_k4_step``'s model on the
+    card and on the CPU port: the same weights and batch. The loss within
+    TRAIN_LOSS_LIMIT of the CPU's; every gradient leaf within
+    TRAIN_GRAD_LIMIT of its scale (its CPU max-abs, floored at a thousandth
+    of the largest leaf's), but the ZERO_GRAD leaves, which must read zero
+    at that resolution on both (max-abs within TRAIN_GRAD_LIMIT of the
+    largest leaf's). A TF32 control (the fp32 scope switched off, TF32 on)
+    must read worse than the limit."""
     t0 = time.perf_counter()
-    (loss, on_card), counts = _counted(torch, launches, lambda: grads(DEVICE))
-    tf32_loss, tf32 = _tf32_control(torch, lambda: grads(DEVICE))
-    cpu_loss, on_cpu = grads("cpu")
+    (loss, on_card, paths), counts = _counted(torch, launches,
+                                              lambda: _k4_step(torch, handoff, DEVICE))
+    handoff["k4_loss"] = loss
+    tf32_loss, tf32, _ = _tf32_control(torch, lambda: _k4_step(torch, handoff, DEVICE))
+    cpu_loss, on_cpu, _ = _k4_step(torch, handoff, "cpu")
     loss_err, tf32_loss_err = (abs(x - cpu_loss) / abs(cpu_loss) for x in (loss, tf32_loss))
-    err, tf32_err = errors(on_card, on_cpu), errors(tf32, on_cpu)
+    err, tf32_err = _grad_errors(paths, on_card, on_cpu), _grad_errors(paths, tf32, on_cpu)
     worst = sorted(err.items(), key=lambda kv: -kv[1])[:3]
     ok = (loss_err <= TRAIN_LOSS_LIMIT and max(err.values()) <= TRAIN_GRAD_LIMIT
           < max(tf32_err.values()) and not any(counts.values()))
-    log(f"check train (k4) card vs CPU, fp32, 2 + 2 layers at full width, {rows} x {TRAIN_LEN}: "
-        f"loss {loss:.6f} against {cpu_loss:.6f} (rel {loss_err:.3e} <= {TRAIN_LOSS_LIMIT:g}); "
-        f"{len(on_cpu)} gradient leaves, worst {[(p, f'{e:.3e}') for p, e in worst]} of the "
-        f"scale (<= {TRAIN_GRAD_LIMIT:g}); the TF32 control reads {max(tf32_err.values()):.3e} "
-        f"(loss rel {tf32_loss_err:.3e}; must exceed the limit); launches {counts} "
-        f"({time.perf_counter() - t0:.1f} s) {'ok' if ok else 'FAIL'}")
+    log(f"check train (k4) card vs CPU, fp32, 2 + 2 layers at full width, {K4_ROWS} x "
+        f"{TRAIN_LEN}: loss {loss:.6f} against {cpu_loss:.6f} (rel {loss_err:.3e} <= "
+        f"{TRAIN_LOSS_LIMIT:g}); {len(on_cpu)} gradient leaves, worst "
+        f"{[(p, f'{e:.3e}') for p, e in worst]} of the scale (<= {TRAIN_GRAD_LIMIT:g}); the "
+        f"TF32 control reads {max(tf32_err.values()):.3e} (loss rel {tf32_loss_err:.3e}; must "
+        f"exceed the limit); launches {counts} ({time.perf_counter() - t0:.1f} s) "
+        f"{'ok' if ok else 'FAIL'}")
     return [] if ok else ["(k4) card vs CPU"]
 
 
@@ -2927,6 +2960,413 @@ def run_training(torch, card, handoff):
         log(f"part {label} took {time.perf_counter() - t0:.1f} s")
     if failures:
         raise AssertionError(f"training checks failed: {failures}")
+    return launches
+
+
+# -- (l) scale-out over torch.distributed, in child processes -----------------------
+
+SCALEOUT_DIR = REPO / "build" / "chip_smoke" / "scaleout"
+SCALEOUT_TIMEOUT = 600  # seconds a child may take
+SCALEOUT_TEXT = 64  # (l2)'s model-split encodes: sentences of (d)'s corpus
+SCALEOUT_COS = {"bf16": 0.999, "int8": 0.999}  # (l2) model 2: cosine per sentence against (d)
+
+
+class _Checks:
+    """A child's checks: each logged with its time, kept for its JSON line."""
+
+    def __init__(self, card):
+        self.card, self.rows = card, []
+
+    def add(self, name, ok, detail, t0):
+        dt = time.perf_counter() - t0
+        log(f"check {name}: {detail} ({dt:.2f} s, on {self.card}) {'ok' if ok else 'FAIL'}")
+        self.rows.append({"name": name, "ok": bool(ok), "s": round(dt, 3), "detail": detail})
+
+
+def _scaleout_handoff(torch, workdir):
+    """What (d), (f) and (k4) drew from their seeds, drawn again: the
+    tokenizer (written into ``workdir``, the child's own, since the children
+    run at once), the corpus and both models' numpy weights."""
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_decoder_params, init_text_encoder_params
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs, sonar_text_encoder_archs
+
+    rng = np.random.default_rng(0)
+    workdir.mkdir(parents=True, exist_ok=True)
+    tokenizer, words = _tokenizer(workdir, rng)
+    return {"tokenizer": tokenizer, "corpus": _corpus(rng, words, N_SENTENCES),
+            "text_params": init_text_encoder_params(sonar_text_encoder_archs.get("basic"), seed=0),
+            "decoder_params": init_text_decoder_params(sonar_text_decoder_archs.get("basic"),
+                                                       seed=0)}
+
+
+def _text_pipeline(torch, handoff, dtype, quantize, mesh):
+    from sonar_tpu_torch.assets.convert import text_encoder_from_numpy
+    from sonar_tpu_torch.inference_pipelines.text import (
+        TextToEmbeddingModelPipeline,
+        TorchTextEncoder,
+    )
+    from sonar_tpu_torch.models.sonar_text import sonar_text_encoder_archs
+
+    model = text_encoder_from_numpy(handoff["text_params"], sonar_text_encoder_archs.get("basic"),
+                                    dtype, DEVICE)
+    return TextToEmbeddingModelPipeline(
+        TorchTextEncoder(model, fuse_qkv=True, quantize=quantize, device=DEVICE, mesh=mesh),
+        handoff["tokenizer"])
+
+
+def _scaleout_l1(torch, checks, ref, handoff, launches):
+    """(l1): world 1 over NCCL, every check bit for bit against the phase it
+    repeats."""
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import text_decoder_from_numpy
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.inference_pipelines.text import EmbeddingToTextModelPipeline
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+    from sonar_tpu_torch.parallel import make_mesh, mining
+
+    mesh = make_mesh(1, 1)
+    corpus = handoff["corpus"]
+    for mode in ("int8", "bf16"):
+        pipe = _text_pipeline(torch, handoff, torch.bfloat16, mode == "int8", mesh)
+        pipe.predict(corpus[:256], source_lang="eng_Latn", batching="static")  # warm, as (d)
+        t0 = time.perf_counter()
+        emb, counts = _counted(torch, launches, lambda: pipe.predict(
+            corpus, source_lang="eng_Latn", batching="static"))
+        text = ("short_qkv_attention", "fused_attn_block", "fused_int8_ffn", "flash_attention")
+        same = {n: counts[n] == ref[f"d_launches_{mode}"][n] for n in text}
+        checks.add(f"(l1) {mode} encoder, mesh 1 x 1 over NCCL, {len(corpus)} sentences",
+                   np.array_equal(emb, ref[f"d_{mode}"]) and all(same.values()),
+                   f"embeddings equal to (d)'s bit for bit: {np.array_equal(emb, ref[f'd_{mode}'])}; "
+                   f"launches {[counts[n] for n in text]} against (d)'s "
+                   f"{[ref[f'd_launches_{mode}'][n] for n in text]}", t0)
+        del pipe
+    torch.cuda.empty_cache()
+
+    cfg = sonar_text_decoder_archs.get("basic")
+    dec = TorchTextDecoder(text_decoder_from_numpy(handoff["decoder_params"], cfg,
+                                                   torch.bfloat16, DEVICE),
+                           device=DEVICE, mesh=mesh)
+    pipe = EmbeddingToTextModelPipeline(dec, handoff["tokenizer"])
+    pipe.predict(ref["f_memory"][:32], target_lang="eng_Latn", batch_size=32, beam_size=5,
+                 max_gen_len=4)  # warm, as (f)
+    outs = _recording(dec)
+    t0 = time.perf_counter()
+    _counted(torch, launches, lambda: pipe.predict(ref["f_memory"], target_lang="eng_Latn",
+                                                   batch_size=32, **DECODE_KW))
+    same = len(outs) == len(ref["f_beam"]) and all(
+        np.array_equal(a, b) for got, want in zip(outs, ref["f_beam"]) for a, b in zip(got, want))
+    checks.add(f"(l1) bf16 decoder, mesh 1 x 1, {EMB_TO_TEXT}", same,
+               f"tokens, scores and lengths of {len(outs)} beam calls equal to (f)'s: {same}", t0)
+    del dec, pipe
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x, y = _planted(torch, gen, MINING_ROWS, MINING_DIM, 2.0)
+    want = mining.cosine_topk(x, y, MINING_K, device=DEVICE)  # (i)'s fp32 exact call
+    t0 = time.perf_counter()
+    got, _ = _counted(torch, launches, lambda: mining.sharded_cosine_topk(
+        x, y, MINING_K, mesh, device=DEVICE))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    checks.add(f"(l1) sharded_cosine_topk fp32 [{MINING_ROWS}, {MINING_DIM}] top {MINING_K}, "
+               f"mesh 1 x 1", same, f"scores and indices equal to (i)'s bit for bit: {same}", t0)
+    del x, y, got, want
+    torch.cuda.empty_cache()
+
+    base_loss, base, paths = _k4_step(torch, handoff, DEVICE)
+    t0 = time.perf_counter()
+    (loss, grads, _), _ = _counted(torch, launches, lambda: _k4_step(torch, handoff, DEVICE,
+                                                                     mesh))
+    # The embedding tables' gradients are sums by atomic adds (index_put_
+    # with accumulate), whose order varies between two runs of the same
+    # step: they are held to (k4)'s limit, every other leaf to the bit.
+    err = _grad_errors(paths, grads, base)
+    tables = [p for p in paths if p.endswith("embed/weight")]
+    same = loss == base_loss == ref["k4_loss"] and all(
+        torch.equal(a, b) for p, a, b in zip(paths, grads, base) if p not in tables)
+    table_err = max(err[p] for p in tables)
+    checks.add("(l1) make_train_step(mesh 1 x 1), (k4)'s model",
+               same and table_err <= TRAIN_GRAD_LIMIT,
+               f"loss {loss!r} against (k4)'s {ref['k4_loss']!r}; {len(grads) - len(tables)} "
+               f"gradient leaves equal to the mesh-free step's bit for bit: {same}; the "
+               f"{len(tables)} embedding tables within {table_err:.3e} of their scale "
+               f"(<= {TRAIN_GRAD_LIMIT:g})", t0)
+
+
+def _probe_gloo(torch, mesh):
+    """Each collective the port issues, on CUDA tensors of each dtype it sums
+    or compares, over the world: gloo must take them all."""
+    import torch.distributed as dist
+
+    failures = []
+    for dtype in (torch.bfloat16, torch.float32, torch.int32, torch.int64):
+        for op in (dist.ReduceOp.SUM, dist.ReduceOp.MAX):
+            t = torch.full((4,), mesh.rank + 1, dtype=dtype, device=DEVICE)
+            try:
+                dist.all_reduce(t, op=op)
+                torch.cuda.synchronize()
+                want = 3 if op == dist.ReduceOp.SUM else 2
+                if not bool((t == want).all()):
+                    failures.append(f"all_reduce {op} {dtype}: read {t.tolist()}")
+            except RuntimeError as err:
+                failures.append(f"all_reduce {op} {dtype}: {err}")
+    t = torch.full((4,), float(mesh.rank), device=DEVICE)
+    try:
+        dist.broadcast(t, src=0)
+    except RuntimeError as err:
+        failures.append(f"broadcast float32: {err}")
+    return failures
+
+
+def _cos(a, b):
+    import numpy as np
+
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+class _Swapped:
+    """``target.name`` replaced by ``value`` inside the block, restored on
+    exit."""
+
+    def __init__(self, target, name, value):
+        self.target, self.name, self.value = target, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.target, self.name)
+        setattr(self.target, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.target, self.name, self.saved)
+
+
+def _planted_int8(variant):
+    """A wrong row-parallel int8 projection, for (l2)'s controls: the
+    readings that the model-2 int8 check must catch. ``"local"`` drops the
+    all_reduce of the row absmax (each rank quantizes its slice by the
+    slice's own maximum; the int32 sums are summed and scaled by the rank's
+    own scale); ``"sliced"`` quantizes and scales each slice alone and sums
+    the fp32 products."""
+    from sonar_tpu_torch.ops import quantization
+    from sonar_tpu_torch.parallel import comm
+
+    if variant == "local":
+        return _Swapped(comm, "all_max", lambda x, group: x)
+    plain = quantization.int8_linear
+
+    def sliced(params, x, group=None):
+        if group is None:
+            return plain(params, x)
+        y = comm.all_sum(plain({k: params[k] for k in ("kernel_q", "scale")}, x.float()), group)
+        return (y + params["bias"].float() if "bias" in params else y).to(x.dtype)
+
+    return _Swapped(quantization, "int8_linear", sliced)
+
+
+def _split_of_one():
+    """The layers' model-split code path on one rank: ``nn.transformer``
+    reads a model group of one (the whole-block kernels #2 and #3 off, the
+    row-parallel int8 absmax and int32 sums taken over that one rank). In
+    int8 it is the function a model-2 split must give to the bit: every
+    split product is an exact int32 sum."""
+    from sonar_tpu_torch.nn import transformer
+    from sonar_tpu_torch.parallel import comm
+
+    return _Swapped(transformer, "model_group", lambda: comm.SINGLE)
+
+
+def _scaleout_l2(torch, checks, ref, handoff, launches):
+    """(l2): two ranks sharing the card over gloo."""
+    import numpy as np
+
+    from sonar_tpu_torch.parallel import make_mesh
+
+    world = make_mesh(2, 1)
+    t0 = time.perf_counter()
+    refused = _probe_gloo(torch, world)
+    checks.add("(l2) gloo collectives on CUDA tensors (all_reduce sum / max of bf16, fp32, "
+               "int32, int64; broadcast)", not refused, f"refused: {refused or 'none'}", t0)
+    if refused:
+        return
+    corpus = handoff["corpus"]
+    long_idx = [i for i, t in enumerate(corpus) if len(t.split()) >= 250][:16]
+    idx = [i for i in range(len(corpus)) if i not in long_idx][:SCALEOUT_TEXT - 16] + long_idx
+    texts = [corpus[i] for i in idx]
+    pipe = _text_pipeline(torch, handoff, torch.bfloat16, True, None)
+    with _split_of_one():
+        one = pipe.predict(texts, source_lang="eng_Latn", batching="static")
+    del pipe
+    split = make_mesh(1, 2)
+    for mode in ("bf16", "int8"):
+        pipe = _text_pipeline(torch, handoff, torch.bfloat16, mode == "int8", split)
+        t0 = time.perf_counter()
+        emb, counts = _counted(torch, launches, lambda: pipe.predict(
+            texts, source_lang="eng_Latn", batching="static"))
+        limit = SCALEOUT_COS[mode]
+
+        def reading(emb):
+            """-> (whether ``emb`` passes, what it reads)."""
+            cos = _cos(emb, ref[f"d_{mode}"][idx])
+            ok, text = cos.min() >= limit, (f"min cosine against (d) {cos.min():.6f}, 1 - cos "
+                                            f"{1 - cos.min():.3e} (>= {limit})")
+            if mode == "int8":
+                ok = ok and np.array_equal(emb, one)
+                text += (f"; against the split of one rank max-abs "
+                         f"{np.abs(emb - one).max():.3e} (bit for bit)")
+            return ok, text
+
+        ok, text = reading(emb)
+        kernels_ok = (counts["short_qkv_attention"] > 0 and counts["flash_attention"] > 0
+                      and counts["fused_attn_block"] == 0 and counts["fused_int8_ffn"] == 0)
+        checks.add(f"(l2) {mode} encoder, model 2 (rank {split.model_index}), {len(texts)} "
+                   f"sentences", ok and kernels_ok,
+                   f"{text}; launches #1 {counts['short_qkv_attention']}, #5 "
+                   f"{counts['flash_attention']} (> 0), #2 {counts['fused_attn_block']}, #3 "
+                   f"{counts['fused_int8_ffn']} (0)", t0)
+        controls = (("local", "the row absmax not agreed over the model group"),
+                    ("sliced", "each slice quantized and scaled alone")) if mode == "int8" else ()
+        for variant, what in controls:
+            t0 = time.perf_counter()
+            with _planted_int8(variant):
+                bad = pipe.predict(texts, source_lang="eng_Latn", batching="static")
+            ok, text = reading(bad)
+            checks.add(f"(l2) int8 control, model 2 (rank {split.model_index}): {what}", not ok,
+                       f"{text}; the check catches it: {not ok}", t0)
+        del pipe
+    torch.cuda.empty_cache()
+
+    pipe = _text_pipeline(torch, handoff, torch.bfloat16, True, world)
+    t0 = time.perf_counter()
+    emb, counts = _counted(torch, launches, lambda: pipe.predict(
+        corpus, source_lang="eng_Latn", batching="static"))
+    same = np.array_equal(emb, ref["d_int8"])
+    checks.add(f"(l2) int8 encoder, data 2 (rank {world.data_index}), {len(corpus)} sentences",
+               same and counts["fused_attn_block"] > 0,
+               f"embeddings equal to (d)'s bit for bit: {same}; launches #2 "
+               f"{counts['fused_attn_block']}, #3 {counts['fused_int8_ffn']}", t0)
+    del pipe
+    torch.cuda.empty_cache()
+
+    base_loss, base, paths = _k4_step(torch, handoff, DEVICE)
+    t0 = time.perf_counter()
+    (loss, grads, _), _ = _counted(torch, launches, lambda: _k4_step(torch, handoff, DEVICE,
+                                                                     world))
+    err = _grad_errors(paths, grads, base)
+    loss_err = abs(loss - base_loss) / abs(base_loss)
+    worst = sorted(err.items(), key=lambda kv: -kv[1])[:3]
+    checks.add("(l2) make_train_step(mesh 2 x 1), (k4)'s model, 2 rows a rank",
+               loss_err <= TRAIN_LOSS_LIMIT and max(err.values()) <= TRAIN_GRAD_LIMIT,
+               f"loss {loss:.6f} against the single-rank step's {base_loss:.6f} (rel "
+               f"{loss_err:.3e} <= {TRAIN_LOSS_LIMIT:g}); worst leaves "
+               f"{[(p, f'{e:.3e}') for p, e in worst]} of the scale (<= {TRAIN_GRAD_LIMIT:g})",
+               t0)
+
+
+def scaleout_child(torch, card, name, rank, world):
+    """One rank of (l1) or (l2): joins its group, runs its checks and prints
+    one JSON line ``{"scaleout": name, "rank", "launches", "checks"}``."""
+    import numpy as np
+
+    from sonar_tpu_torch.ops import _build
+    from sonar_tpu_torch.parallel import initialize
+
+    _build.build()  # the parent's library: no compile
+    initialize(f"file://{SCALEOUT_DIR / f'rendezvous_{name}'}", rank=rank, world_size=world,
+               backend="nccl" if name == "l1" else "gloo")
+    with np.load(SCALEOUT_DIR / "ref.npz") as f:
+        ref = {k: f[k] for k in f.files}
+    config = json.loads((SCALEOUT_DIR / "ref.json").read_text())
+    ref.update(config)
+    ref["f_beam"] = [tuple(ref[f"f_beam_{i}_{j}"] for j in range(3))
+                     for i in range(config["f_calls"])]
+    t0 = time.perf_counter()
+    handoff = _scaleout_handoff(torch, SCALEOUT_DIR / f"{name}_{rank}")
+    log(f"(l) {name} rank {rank}: tokenizer, corpus and weights drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    checks, launches = _Checks(card), dict.fromkeys(KERNELS, 0)
+    (_scaleout_l1 if name == "l1" else _scaleout_l2)(torch, checks, ref, handoff, launches)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({"scaleout": name, "rank": rank, "launches": launches,
+                      "checks": checks.rows}), flush=True)
+    return 0
+
+
+def _children():
+    """Start (l1)'s rank and (l2)'s two ranks together: -> [(name, rank, process)]."""
+    return [(name, rank, subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--scaleout-child", name, str(rank),
+         str(world)], cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, world in (("l1", 1), ("l2", 2)) for rank in range(world)]
+
+
+def _collect(children):
+    """Each child's ``#`` lines, echoed with its name, and its JSON line;
+    raises if one fails, prints none or outlives SCALEOUT_TIMEOUT."""
+    results = []
+    deadline = time.perf_counter() + SCALEOUT_TIMEOUT
+    try:
+        for name, rank, p in children:
+            try:
+                out = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0]
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"(l) {name} rank {rank} did not finish in "
+                                     f"{SCALEOUT_TIMEOUT} s")
+            lines = out.splitlines()
+            for line in lines:
+                if line.startswith("#"):
+                    print(f"# [{name} rank {rank}] {line[2:]}", flush=True)
+            rows = [json.loads(x) for x in lines if x.startswith('{"scaleout"')]
+            if p.returncode != 0 or not rows:
+                tail = "\n".join(x for x in lines[-40:] if not x.startswith("#"))
+                raise AssertionError(f"(l) {name} rank {rank} failed (exit {p.returncode}):\n"
+                                     f"{tail}")
+            results.append(rows[-1])
+    finally:
+        for _, _, p in children:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return results
+
+
+def run_scaleout(torch, card, handoff):
+    """Phase (l): the mesh runtimes, sharded mining and mesh training in
+    child processes (the main process never joins a process group), all
+    three at once. (l1): world 1 over NCCL, bit for bit against (d), (f),
+    (i) and (k4); (l2): two ranks sharing the card over gloo, model 2 and
+    data 2. Returns the launch counts summed over the children's driven
+    runs."""
+    import numpy as np
+
+    SCALEOUT_DIR.mkdir(parents=True, exist_ok=True)
+    for old in SCALEOUT_DIR.glob("rendezvous_*"):
+        old.unlink()
+    beam = handoff["beam_outputs"][f"bf16 {EMB_TO_TEXT}"]
+    np.savez(SCALEOUT_DIR / "ref.npz", d_int8=handoff["static_embeddings"]["int8"],
+             d_bf16=handoff["static_embeddings"]["bf16"], f_memory=handoff["embeddings"],
+             **{f"f_beam_{i}_{j}": a for i, out in enumerate(beam) for j, a in enumerate(out)})
+    (SCALEOUT_DIR / "ref.json").write_text(json.dumps({
+        "k4_loss": handoff["k4_loss"], "f_calls": len(beam),
+        **{f"d_launches_{m}": handoff["static_launches"][m] for m in ("int8", "bf16")}}))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(KERNELS, 0)
+    failed = []
+    t0 = time.perf_counter()
+    for row in _collect(_children()):
+        for n in KERNELS:
+            launches[n] += row["launches"][n]
+        failed += [f"{row['scaleout']} rank {row['rank']}: {c['name']}" for c in row["checks"]
+                   if not c["ok"]]
+    log(f"(l) (l1)'s rank and (l2)'s two ranks, run at once, in {time.perf_counter() - t0:.1f} "
+        f"s, on {card}")
+    log(f"(l) launches over the children's driven runs: {launches}")
+    if failed:
+        raise AssertionError(f"scale-out checks failed: {failed}")
     return launches
 
 
@@ -3103,8 +3543,13 @@ def main() -> int:
                     help="instead of the phases, time two kernels and beam decoding for the "
                          "checkouts DIR (e.g. an unpacked parent commit) and this one in turns")
     ap.add_argument("--times-of", type=Path, metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--scaleout-child", nargs=3, metavar=("NAME", "RANK", "WORLD"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     torch, card = setup()
+    if args.scaleout_child:
+        name, rank, world = args.scaleout_child
+        return scaleout_child(torch, card, name, int(rank), int(world))
     if args.compare:
         return compare([d.resolve() for d in args.compare])
     if args.times_of:
@@ -3127,8 +3572,9 @@ def main() -> int:
     mined = phase("(i)", run_mining, torch, card)
     served = phase("(j)", run_serving, torch, card, handoff)
     trained = phase("(k)", run_training, torch, card, handoff)
+    scaled = phase("(l)", run_scaleout, torch, card, handoff)
     launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest, mined, served,
-                                                 trained))
+                                                 trained, scaled))
                 for name in KERNELS}
     launched = [name for name in NO_PATH if launches[name] != 0]
     if launched:

@@ -174,6 +174,7 @@ def beam_search_lax(
     pad_idx: int = 0,
     unk_idx: Optional[int] = None,
     cache_len: Optional[int] = None,
+    agree: Callable[[bool], bool] = bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched beam search.
 
@@ -185,6 +186,10 @@ def beam_search_lax(
 
     Returns (tokens [B, K, T] int32, scores [B, K] fp32, lengths [B, K]
     int32) sorted by score; tokens exclude the prefix and include EOS.
+
+    ``agree`` turns this batch's "some row can still improve" into the
+    decision to take another step; under a mesh it agrees across every rank
+    (each decoder layer holds a collective, so all ranks step together).
     """
     dev = prefix_tokens.device
     B, P = prefix_tokens.shape
@@ -217,7 +222,7 @@ def beam_search_lax(
         # Upper bound of any live beam's final score (see the oracle).
         bound_len = config.max_gen_len + 1 if config.len_penalty >= 0 else step + 1
         live_best = _length_norm(scores, bound_len, config).amax(dim=1)
-        if not bool((live_best > fin_scores.amin(dim=1)).any()):
+        if not agree(bool((live_best > fin_scores.amin(dim=1)).any())):
             break
 
         lse = torch.logsumexp(logits, dim=-1).reshape(B, K)

@@ -83,6 +83,7 @@ def sample_lax(
     min_gen_len: int = 1,
     pad_idx: int = 0,
     noise: Optional[Callable[[int, Tuple[int, ...]], Any]] = None,
+    agree: Callable[[bool], bool] = bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched ancestral sampling.
 
@@ -91,7 +92,8 @@ def sample_lax(
     + G)`` with G a [B, V] Gumbel draw: ``noise(step, (B, V))`` when given,
     else from ``generator``. Returns (tokens [B, T], scores [B], lens [B]),
     T = max_gen_len + 1; tokens exclude the prefix and include EOS, and a
-    row past its EOS holds ``pad_idx``.
+    row past its EOS holds ``pad_idx``. ``agree`` turns "a row is still
+    open" into the decision to step again (under a mesh, across every rank).
     """
     dev = prefix_tokens.device
     B, P = prefix_tokens.shape
@@ -108,7 +110,7 @@ def sample_lax(
     finished = torch.zeros((B,), dtype=torch.bool, device=dev)
 
     step = 0
-    while step < max_gen_len and not bool(finished.all()):
+    while step < max_gen_len and agree(not bool(finished.all())):
         lp = _tempered(logprobs, temp)
         if step + 1 < min_gen_len:
             lp = lp.clone()

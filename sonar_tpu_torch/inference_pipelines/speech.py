@@ -14,7 +14,9 @@ pipeline (``sonar_tpu_torch.data``); ``SpeechToEmbeddingPipeline`` is the
 TSV-driven form. ``SpeechToTextModelPipeline`` and ``SpeechToTextPipeline``
 decode the embeddings to text with the ``TorchTextDecoder``'s beam search,
 the embeddings staying on the device. Every entry point runs on the GPU
-unless it is given ``device="cpu"``.
+unless it is given ``device="cpu"``. ``TorchSpeechEncoder(mesh=...)`` runs
+over a ``parallel.mesh.Mesh``: every rank takes the global batch and
+returns the whole result.
 """
 
 from __future__ import annotations
@@ -33,6 +35,14 @@ from sonar_tpu_torch.inference_pipelines.utils import add_progress_bar
 from sonar_tpu_torch.models.sonar_speech.model import SonarSpeechEncoder
 from sonar_tpu_torch.ops.fbank import FbankConfig, batched_fbank, num_frames
 from sonar_tpu_torch.ops.precision import matmul_precision_for
+from sonar_tpu_torch.parallel.comm import gather_blocks, model_parallel
+from sonar_tpu_torch.parallel.mesh import (
+    SINGLE_MESH,
+    Mesh,
+    data_sharding,
+    pad_rows,
+    shard_params,
+)
 import torch
 
 # Wave-length buckets (samples at 16 kHz), as in the JAX package: padding is
@@ -70,11 +80,20 @@ class TorchSpeechEncoder:
     ``quantize`` stores the linear weights as int8 with per-output-channel
     scales (r_proj and the depthwise convolution stay in floating point).
     ``device=None`` means the GPU.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; ``SINGLE_MESH``, this process
+    alone, when None) holds this rank's slice of the weights
+    (``shard_params``): the batch, padded to a power of two and then
+    to a multiple of ``data``, is split over the data axis; each rank runs
+    fbank and the encoder on its rows with its share of the heads and FFN
+    columns, and the rows are gathered over the data group.
     """
 
     def __init__(self, model: SonarSpeechEncoder, fbank_config: Optional[FbankConfig] = None,
-                 quantize: bool = False, fbank_dtype: Any = None, device: Any = None):
+                 quantize: bool = False, fbank_dtype: Any = None, device: Any = None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
+        self.mesh = SINGLE_MESH if mesh is None else mesh
         if fbank_config is None:
             # The mel-bin count follows the model's frontend, so every arch
             # (the 8-bin toy too) works through the pipeline.
@@ -86,6 +105,7 @@ class TorchSpeechEncoder:
             from sonar_tpu_torch.ops.quantization import quantize_params_int8
 
             params = quantize_params_int8(params)
+        params = shard_params(params, self.mesh)
         self.model = SonarSpeechEncoder(model.config, params, dtype=model.dtype).to(self.device)
 
     @property
@@ -115,20 +135,24 @@ class TorchSpeechEncoder:
         ``materialize=False`` keeps the embeddings on the device."""
         b = len(waves)
         max_t = _bucket_len(max(w.shape[0] for w in waves))
-        b_pad = round_up_pow2(b)
+        mesh = self.mesh
+        b_pad = pad_rows(round_up_pow2(b), mesh)
         batch = np.zeros((b_pad, max_t), np.float32)
         lens = np.zeros((b_pad,), np.int32)
         for i, w in enumerate(waves):
             batch[i, : w.shape[0]] = w
             lens[i] = w.shape[0]
-        waves_t = torch.from_numpy(batch).to(self.device)
-        lens_t = torch.from_numpy(lens).to(self.device)
-        with torch.inference_mode(), matmul_precision_for(self.dtype):
+        rows = data_sharding(mesh, b_pad)
+        waves_t = torch.from_numpy(batch[rows]).to(self.device)
+        lens_t = torch.from_numpy(lens[rows]).to(self.device)
+        with torch.inference_mode(), matmul_precision_for(self.dtype), \
+                model_parallel(mesh.model_group):
             feats, frame_lens = batched_fbank(
                 waves_t, lens_t, num_frames(max_t, self.fbank_config), self.fbank_config)
             if self.fbank_dtype is not None:
                 feats = feats.to(self.fbank_dtype)
-            emb = self.model(feats, frame_lens).sentence_embeddings[:b]
+            emb = self.model(feats, frame_lens).sentence_embeddings
+            emb = gather_blocks(emb, mesh.data_group)[:b]
         return emb.float().cpu().numpy() if materialize else emb
 
 

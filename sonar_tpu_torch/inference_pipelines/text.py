@@ -17,7 +17,9 @@ beam search or (``EmbeddingToTextModelPipeline.predict(sampler=...)``) top-p
 / top-k sampling; ``quantize=True`` decodes with int8 weights.
 
 Every entry point runs on the GPU unless it is given ``device="cpu"``
-(``sonar_tpu_torch.device``).
+(``sonar_tpu_torch.device``). ``TorchTextEncoder(mesh=...)`` runs over a
+``parallel.mesh.Mesh``: every rank takes the global batch and returns the
+whole result.
 """
 
 from __future__ import annotations
@@ -37,6 +39,14 @@ from sonar_tpu_torch.inference_pipelines.utils import add_progress_bar
 from sonar_tpu_torch.models.sonar_text.model import SonarTextEncoder
 from sonar_tpu_torch.nn.core import Params
 from sonar_tpu_torch.ops.precision import matmul_precision_for
+from sonar_tpu_torch.parallel.comm import gather_blocks, model_parallel
+from sonar_tpu_torch.parallel.mesh import (
+    SINGLE_MESH,
+    Mesh,
+    data_sharding,
+    pad_rows,
+    shard_params,
+)
 import torch
 
 
@@ -95,10 +105,21 @@ class TorchTextEncoder:
     with per-output-channel scales (the int8 serving mode). Both are
     runtime copies; the checkpoint layout is unchanged. ``device=None``
     means the GPU.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``, the counterpart of
+    ``JitTextEncoder``'s; ``SINGLE_MESH``, this process alone, when None)
+    holds this rank's slice of the weights (``shard_params``). Every rank
+    takes the global batch: the rows are padded to a multiple of ``data``
+    (pad id 1, length 0, as in the JAX runtime), each rank encodes its data
+    coordinate's rows with its share of the heads and FFN columns, and the
+    rows are gathered over the data group. Under ``data`` alone every
+    kernel gate stays as it is; under ``model > 1`` the whole-block int8
+    kernels (#2, #3) are off and the attention kernels run on the rank's
+    heads (``nn.transformer``).
     """
 
     def __init__(self, model: SonarTextEncoder, fuse_qkv: bool = True,
-                 quantize: bool = False, device: Any = None):
+                 quantize: bool = False, device: Any = None, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         params: Params = model.params.tree()
         if fuse_qkv:
@@ -109,6 +130,8 @@ class TorchTextEncoder:
             from sonar_tpu_torch.ops.quantization import quantize_params_int8
 
             params = quantize_params_int8(params)
+        self.mesh = SINGLE_MESH if mesh is None else mesh
+        params = shard_params(params, self.mesh)
         self.model = SonarTextEncoder(model.config, params, dtype=model.dtype).to(self.device)
         self.stats = EncodeStats()
 
@@ -125,10 +148,19 @@ class TorchTextEncoder:
         return self.model.max_source_len
 
     def _encode(self, seqs: np.ndarray, lens: np.ndarray) -> torch.Tensor:
-        seqs_t = torch.from_numpy(np.ascontiguousarray(seqs, np.int32)).to(self.device)
-        lens_t = torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(self.device)
-        with torch.inference_mode(), matmul_precision_for(self.dtype):
-            return self.model(seqs_t, lens_t).sentence_embeddings
+        mesh = self.mesh
+        seqs, lens = np.asarray(seqs), np.asarray(lens)
+        pad = pad_rows(len(seqs), mesh) - len(seqs)
+        if pad:
+            seqs = np.pad(seqs, ((0, pad), (0, 0)), constant_values=1)
+            lens = np.pad(lens, (0, pad))
+        rows = data_sharding(mesh, len(seqs))
+        seqs_t = torch.from_numpy(np.ascontiguousarray(seqs[rows], np.int32)).to(self.device)
+        lens_t = torch.from_numpy(np.ascontiguousarray(lens[rows], np.int32)).to(self.device)
+        with torch.inference_mode(), matmul_precision_for(self.dtype), \
+                model_parallel(mesh.model_group):
+            emb = self.model(seqs_t, lens_t).sentence_embeddings
+            return gather_blocks(emb, mesh.data_group)
 
     @staticmethod
     def _to_host(emb: torch.Tensor) -> np.ndarray:

@@ -39,8 +39,10 @@ class SonarSpeechEncoder(nn.Module):
         self.config = config
         self.dtype = dtype
         self.remat = remat
+        # The pooler's table has model_dim rows (a quirk of the checkpoints).
         self.pooler_frontend = EmbeddingFrontend(model_dim=config.model_dim,
-                                                 max_seq_len=config.max_seq_len)
+                                                 max_seq_len=config.max_seq_len,
+                                                 vocab_size=config.model_dim)
         self.params = ParamTree(params)
 
     def forward(self, fbank: torch.Tensor,

@@ -66,6 +66,7 @@ class SonarTextEncoder(nn.Module):
             legacy_pad_idx=config.vocab_info.pad_idx,
             no_pos=config.no_token_positional_embeddings,
             dropout_p=config.emb_dropout_p,
+            vocab_size=config.vocab_info.size,
         )
         if self.pooling == Pooling.ATTENTION:
             self.pooler_frontend = EmbeddingFrontend(
@@ -129,7 +130,8 @@ class SonarTextEncoder(nn.Module):
 
         # Frontend with per-token positions (no layernorm_embedding, as in
         # the JAX package's packed forward).
-        x = embedding_lookup(params["encoder_frontend"]["embed"], tokens, dtype=dtype)
+        x = embedding_lookup(params["encoder_frontend"]["embed"], tokens, dtype=dtype,
+                             vocab_size=cfg.vocab_info.size)
         if self.frontend.scale != 1.0:
             x = x * torch.tensor(self.frontend.scale, dtype=dtype)
         pe = self.frontend.pos_encoder

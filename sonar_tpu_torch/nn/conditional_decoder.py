@@ -5,7 +5,10 @@ Port of ``sonar_tpu.nn.conditional_decoder.ConditionalTransformerDecoder``:
 - the "encoder output" is a length-1 memory holding one sentence embedding,
 - pre-LN decoder layers with a final stack LayerNorm,
 - the output projection is tied to the input embedding: logits = h @ E^T,
-  accumulated and returned in fp32.
+  accumulated and returned in fp32. Under a model split with a
+  vocabulary-split table each rank computes its vocabulary block, and the
+  blocks are gathered over the model group before anything reads them (the
+  softmax, the beam top-k, the sampler), so the logits are exact.
 
 ``decode`` / ``forward`` run the full sequence (teacher-forced scoring) on
 the module's parameters, ``decode_with`` / ``forward_with`` on an explicit
@@ -31,16 +34,32 @@ from sonar_tpu_torch.nn.transformer import (
 )
 from sonar_tpu_torch.ops.masks import additive_bias, length_mask
 from sonar_tpu_torch.ops.precision import matmul_f32_out
+from sonar_tpu_torch.parallel.comm import copy_to_group, model_group, sum_over_group
 import torch
 from torch import nn
 
 
-def tied_projection(h: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+def tied_projection(h: torch.Tensor, embed: torch.Tensor,
+                    vocab_size: Optional[int] = None) -> torch.Tensor:
     """[..., D] x [V, D] -> [..., V] fp32 logits: the model-dtype operands'
-    products summed in fp32 (the JAX einsum's ``preferred_element_type``)."""
+    products summed in fp32 (the JAX einsum's ``preferred_element_type``).
+
+    Under a model split, an ``embed`` of fewer than ``vocab_size`` rows is
+    the rank's vocabulary block: its logits are placed in a row of -0.0 at
+    the block's offset and summed over the model group (*g*), which is the
+    gather, exact to the bit; *f* sums the gradient of ``h``."""
+    group = model_group()
+    split = group is not None and vocab_size is not None and embed.shape[0] < vocab_size
+    if split:
+        h = copy_to_group(h, group)
     embed = embed.to(h.dtype)
     out = matmul_f32_out(h.reshape(-1, h.shape[-1]), embed.t())
-    return out.reshape(*h.shape[:-1], embed.shape[0])
+    out = out.reshape(*h.shape[:-1], embed.shape[0])
+    if split:
+        lo = group.index * embed.shape[0]
+        out = torch.nn.functional.pad(out, (lo, vocab_size - lo - embed.shape[0]), value=-0.0)
+        out = sum_over_group(out, group)
+    return out
 
 
 class ConditionalTransformerDecoder(nn.Module):
@@ -59,6 +78,7 @@ class ConditionalTransformerDecoder(nn.Module):
             legacy_pad_idx=config.vocab_info.pad_idx,
             no_pos=config.no_token_positional_embeddings,
             dropout_p=config.emb_dropout_p,
+            vocab_size=config.vocab_info.size,
         )
         # Usable generation length given the legacy position offset.
         pad_off = (config.vocab_info.pad_idx or 0) + 1
@@ -102,7 +122,8 @@ class ConditionalTransformerDecoder(nn.Module):
 
     def project(self, decoder_out: torch.Tensor) -> torch.Tensor:
         """Tied projection: logits = h @ E^T in fp32."""
-        return tied_projection(decoder_out, self.params.decoder_frontend.embed.weight)
+        return tied_projection(decoder_out, self.params.decoder_frontend.embed.weight,
+                               self.config.vocab_info.size)
 
     def forward(self, seqs: torch.Tensor, seq_lens: Optional[torch.Tensor],
                 memory: torch.Tensor, memory_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -115,7 +136,8 @@ class ConditionalTransformerDecoder(nn.Module):
         """``forward`` on the tree ``params`` (the counterpart of the JAX
         model's ``forward``): the projection reads its tied embedding."""
         h = self.decode_with(params, seqs, seq_lens, memory, memory_lens, generator)
-        return tied_projection(h, params["decoder_frontend"]["embed"]["weight"])
+        return tied_projection(h, params["decoder_frontend"]["embed"]["weight"],
+                               self.config.vocab_info.size)
 
     # -- incremental --------------------------------------------------------
 

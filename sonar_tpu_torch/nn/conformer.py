@@ -21,6 +21,13 @@ tensors) unless autograd records (``ops.gates``); everything else takes
 (``relpos_heads``), laid out from the layer's r_proj at each call, so a
 trained r_proj is never read through a stale copy. ``conformer_stack(remat=
 True)`` recomputes each block in the backward pass.
+
+Under a model split (``parallel.comm.model_parallel``) a rank runs its
+H / model heads and its share of each half-FFN's columns, as in
+``nn.transformer``; r_proj, u_bias and v_bias stay whole (as in the JAX
+package) and the rank reads its heads' slices of them through *f*, so their
+gradients sum the ranks' parts. The rel-pos kernel (#6) runs on the rank's
+heads.
 """
 
 from __future__ import annotations
@@ -31,10 +38,11 @@ import math
 from typing import Optional, Tuple
 
 import numpy as np
-from sonar_tpu_torch.nn.core import Params, layer_norm, linear
-from sonar_tpu_torch.nn.transformer import _merge_heads, _split_heads, run_layers
+from sonar_tpu_torch.nn.core import Params, layer_norm, linear, row_linear
+from sonar_tpu_torch.nn.transformer import _merge_heads, _split_heads, local_heads, run_layers
 from sonar_tpu_torch.ops.attention import softmax
 from sonar_tpu_torch.ops.gates import records_grad
+from sonar_tpu_torch.parallel.comm import Group, copy_to_group, model_group
 import torch
 
 PLAIN_CALLS = 0  # rel-pos attention calls outside the kernel gate
@@ -116,9 +124,22 @@ def _use_relpos_kernel(bias: Optional[torch.Tensor], s: int, hd: int) -> bool:
 
 
 def rel_pos_qkv(params: Params, x: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, ...]:
-    """[B, S, D] -> per-head q, k, v [B, H, S, Dh]."""
-    return tuple(_split_heads(linear(params[p], x), num_heads)
+    """[B, S, D] -> per-head q, k, v [B, H, S, Dh] (the rank's heads under a
+    model split)."""
+    group = model_group()
+    x = copy_to_group(x, group)
+    return tuple(_split_heads(linear(params[p], x), local_heads(num_heads, group))
                  for p in ("q_proj", "k_proj", "v_proj"))
+
+
+def _rank_heads(t: torch.Tensor, dim: int, num_heads: int,
+                group: Optional[Group]) -> torch.Tensor:
+    """The rank's heads of a whole per-head tensor (axis ``dim`` holds the
+    heads), read through *f*."""
+    if group is None:
+        return t
+    h = local_heads(num_heads, group)
+    return copy_to_group(t, group).narrow(dim, group.index * h, h)
 
 
 def rel_pos_attend_plain(
@@ -142,10 +163,12 @@ def rel_pos_attend_plain(
     half = d // 2
     dt = q.dtype
     acc = torch.float32 if dt == torch.float32 else dt
-    u = params["sdpa"]["u_bias"].to(dt)
-    vb = params["sdpa"]["v_bias"].to(dt)
-    wr = params["sdpa"]["r_proj"]["kernel"].to(acc).reshape(d, h, hd)
-    wr = wr[_deinterleave(d).to(wr.device)]                              # [D, H, Dh]
+    group = model_group()
+    sdpa = params["sdpa"]
+    u = _rank_heads(sdpa["u_bias"], 0, h, group).to(dt)
+    vb = _rank_heads(sdpa["v_bias"], 0, h, group).to(dt)
+    wr = sdpa["r_proj"]["kernel"].to(acc).reshape(d, h, hd)
+    wr = _rank_heads(wr[_deinterleave(d).to(wr.device)], 1, h, group)  # [D, H, Dh]
     qv = (q + vb[None, :, None, :]).to(acc)
     z = torch.einsum("bhie,dhe->bhid", qv, wr)                           # [B, H, S, D]
     z_s, z_c = z[..., :half], z[..., half:]
@@ -160,7 +183,7 @@ def rel_pos_attend_plain(
         scores = scores + bias.float()
     probs = softmax(scores).to(dt)
     out = (probs.float() @ v.float()).to(dt)
-    return linear(params["output_proj"], _merge_heads(out))
+    return row_linear(params["output_proj"], _merge_heads(out), group)
 
 
 def rel_pos_attention(
@@ -179,14 +202,18 @@ def rel_pos_attention(
                                  sdpa["r_proj"]["kernel"])):
         from sonar_tpu_torch.ops.cuda.relpos_flash import relpos_flash_attention_v2
 
+        group = model_group()
+        h = cfg.num_heads
         si, ci, basis = _trig_tables(s, d, x.dtype, x.device)
-        wr_heads = relpos_heads(sdpa["r_proj"]["kernel"].to(x.dtype), cfg.num_heads)
+        wr_heads = _rank_heads(relpos_heads(sdpa["r_proj"]["kernel"].to(x.dtype), h), 0, h,
+                               group).contiguous()
         out = relpos_flash_attention_v2(
             q, k, v, wr_heads, si, ci, basis,
-            sdpa["u_bias"].to(x.dtype).contiguous(), sdpa["v_bias"].to(x.dtype).contiguous(),
+            _rank_heads(sdpa["u_bias"], 0, h, group).to(x.dtype).contiguous(),
+            _rank_heads(sdpa["v_bias"], 0, h, group).to(x.dtype).contiguous(),
             None if bias is None else bias[:, 0, 0, :].float(),
         )
-        return linear(params["output_proj"], _merge_heads(out))
+        return row_linear(params["output_proj"], _merge_heads(out), group)
     si, ci, basis = _trig_tables(s, d, torch.float32, x.device)
     return rel_pos_attend_plain(params, q, k, v, si, ci, basis, bias, cfg)
 
@@ -223,8 +250,9 @@ def conv_module(params: Params, x: torch.Tensor, pad_mask: Optional[torch.Tensor
 
 
 def _half_ffn(params: Params, x: torch.Tensor) -> torch.Tensor:
-    h = linear(params["inner_proj"], x)
-    return linear(params["output_proj"], h * torch.sigmoid(h))
+    group = model_group()
+    h = linear(params["inner_proj"], copy_to_group(x, group))
+    return row_linear(params["output_proj"], h * torch.sigmoid(h), group)
 
 
 def conformer_block(

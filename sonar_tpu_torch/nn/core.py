@@ -8,12 +8,17 @@ layout so converted weights map one-to-one:
   "bias": [out]}``;
 - LayerNorm: ``{"weight": [d], "bias": [d]}``;
 - Embedding: ``{"weight": [V, d]}``.
+
+Under a model split (``parallel.comm.model_parallel``) ``row_linear`` sums
+a row-parallel projection over the model group before its bias, and
+``embedding_lookup`` reads a vocabulary-split table.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional
 
+from sonar_tpu_torch.parallel.comm import Group, model_group, sum_over_group
 import torch
 
 Params = Dict[str, Any]
@@ -40,6 +45,23 @@ def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def row_linear(params: Params, x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """A row-parallel projection: ``x`` holds this rank's slice of the input
+    axis and ``params`` the matching kernel rows. The partial products are
+    summed over ``group`` (int8: the int32 sums, after the row absmax is
+    agreed), then the bias is added once. ``linear`` when ``group`` is None."""
+    if group is None:
+        return linear(params, x)
+    if "kernel_q" in params:
+        from sonar_tpu_torch.ops.quantization import int8_linear
+
+        return int8_linear(params, x, group=group)
+    y = sum_over_group(torch.matmul(x, params["kernel"].to(x.dtype)), group)
+    if "bias" in params:
+        y = y + params["bias"].to(x.dtype)
+    return y
+
+
 def layer_norm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with fp32 statistics, cast back to the input dtype."""
     x32 = x.float()
@@ -51,11 +73,26 @@ def layer_norm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tens
 
 
 def embedding_lookup(
-    params: Params, ids: torch.Tensor, dtype: Optional[torch.dtype] = None
+    params: Params, ids: torch.Tensor, dtype: Optional[torch.dtype] = None,
+    vocab_size: Optional[int] = None,
 ) -> torch.Tensor:
-    # Gather first, cast after: the same values as casting the whole table,
-    # without converting all V rows on every call.
-    out = params["weight"][ids.long()]
+    """Rows ``ids`` of the table. Under a model split a table of fewer than
+    ``vocab_size`` rows is this rank's vocabulary block: the rank looks up
+    the ids in its block, writes -0.0 for the others (x + -0.0 is x) and the
+    rows are summed over the model group."""
+    weight = params["weight"]
+    group = model_group()
+    if group is not None and vocab_size is not None and weight.shape[0] < vocab_size:
+        rows = weight.shape[0]
+        local = ids.long() - group.index * rows
+        inside = (local >= 0) & (local < rows)
+        out = weight[local.clamp(0, rows - 1)]
+        out = sum_over_group(torch.where(inside[..., None], out, out.new_full((), -0.0)),
+                                group)
+    else:
+        # Gather first, cast after: the same values as casting the whole
+        # table, without converting all V rows on every call.
+        out = weight[ids.long()]
     return out if dtype is None else out.to(dtype)
 
 

@@ -2,7 +2,8 @@
 
 Scaled token embedding (x sqrt(d) unless ``no_scale``) -> positional
 encoding (sinusoidal, or learned) -> optional LayerNorm -> dropout (only when
-a ``generator`` is given: training).
+a ``generator`` is given: training). ``vocab_size`` is the table's full row
+count, by which a vocabulary-split table is known (``nn.core.embedding_lookup``).
 """
 
 from __future__ import annotations
@@ -30,8 +31,10 @@ class EmbeddingFrontend:
         legacy_pad_idx: Optional[int] = None,
         no_pos: bool = False,
         dropout_p: float = 0.1,
+        vocab_size: Optional[int] = None,
     ):
         self.model_dim = model_dim
+        self.vocab_size = vocab_size
         self.max_seq_len = max_seq_len
         self.scale = 1.0 if no_scale else float(model_dim) ** 0.5
         self.layernorm = layernorm
@@ -53,7 +56,7 @@ class EmbeddingFrontend:
         """seqs: [B, S] int token ids -> [B, S, D] embeddings; ``step`` is
         the position of the first token (incremental decoding); dropout
         draws its mask from ``generator``."""
-        x = embedding_lookup(params["embed"], seqs, dtype=dtype)
+        x = embedding_lookup(params["embed"], seqs, dtype=dtype, vocab_size=self.vocab_size)
         if self.scale != 1.0:
             # Scale in the compute dtype, as the reference multiplies by a
             # dtype-typed scalar.

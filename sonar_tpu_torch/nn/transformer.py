@@ -20,6 +20,16 @@ for CPU tensors and its CUDA kernel for CUDA tensors. The thresholds (S
 8..128, >= 2048 tokens) were tuned on a TPU; re-tuning them on the H100 is
 open work. ``encoder_stack`` / ``decoder_stack(remat=True)`` recompute each
 layer's activations in the backward pass (``torch.utils.checkpoint``).
+
+Under a model split (``parallel.comm.model_parallel``, the parameters being
+``parallel.mesh.shard_params``'s slices) each rank runs its H / model heads
+and its share of the FFN columns: *f* (``copy_to_group``) before each
+column-parallel projection, a sum over the model group after each
+row-parallel one (``nn.core.row_linear``, the bias added once). The
+kernels of #1 (short attention), #5 (flash) and #8 (beam attend) run on the
+rank's heads; the whole-block int8 kernels (#2, #3) end in the row-parallel
+projection and the residual, which need the sum first, so their gates read
+a model split as ineligible.
 """
 
 from __future__ import annotations
@@ -27,9 +37,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from sonar_tpu_torch.nn.core import Params, get_activation, layer_norm, linear, tree_leaves
+from sonar_tpu_torch.nn.core import (
+    Params,
+    get_activation,
+    layer_norm,
+    linear,
+    row_linear,
+    tree_leaves,
+)
 from sonar_tpu_torch.ops.attention import dispatch_sdpa
 from sonar_tpu_torch.ops.gates import records_grad
+from sonar_tpu_torch.parallel.comm import Group, copy_to_group, model_group
 import torch
 import torch.utils.checkpoint
 
@@ -46,6 +64,15 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
+def local_heads(num_heads: int, group: Optional[Group]) -> int:
+    """This rank's share of ``num_heads`` under a model split."""
+    if group is None:
+        return num_heads
+    if num_heads % group.size:
+        raise ValueError(f"{num_heads} heads do not split over model={group.size}")
+    return num_heads // group.size
+
+
 def _key_bias(bias: Optional[torch.Tensor]) -> bool:
     return bias is None or (bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[2] == 1)
 
@@ -58,35 +85,43 @@ def mha(
     num_heads: int,
 ) -> torch.Tensor:
     if "qkv_proj" in params and x is kv:
-        qkv = linear(params["qkv_proj"], x)
+        group = model_group()
+        heads = local_heads(num_heads, group)
+        qkv = linear(params["qkv_proj"], copy_to_group(x, group))
         if _key_bias(bias) and 8 <= qkv.shape[1] <= 128 and not records_grad(qkv):
             # Short-sequence attention straight from the fused QKV layout.
             from sonar_tpu_torch.ops.cuda.short_attn import short_qkv_attention
 
             out = short_qkv_attention(
-                qkv, None if bias is None else bias[:, 0, 0, :], num_heads
+                qkv, None if bias is None else bias[:, 0, 0, :], heads
             )
-            return linear(params["output_proj"], out)
-        q, k, v = (_split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+            return row_linear(params["output_proj"], out, group)
+        q, k, v = (_split_heads(t, heads) for t in qkv.chunk(3, dim=-1))
         out = dispatch_sdpa(q, k, v, bias=bias)
-        return linear(params["output_proj"], _merge_heads(out))
+        return row_linear(params["output_proj"], _merge_heads(out), group)
     k, v = mha_project_kv(params, kv, num_heads)
     return mha_attend(params, x, k, v, bias, num_heads)
 
 
 def mha_project_kv(params: Params, kv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, ...]:
-    """Project memory once for reuse across decode steps: -> ([B,H,S,Dh], x2)."""
-    k = _split_heads(linear(params["k_proj"], kv), num_heads)
-    v = _split_heads(linear(params["v_proj"], kv), num_heads)
+    """Project memory once for reuse across decode steps: -> ([B,H,S,Dh], x2),
+    the rank's heads under a model split."""
+    group = model_group()
+    heads = local_heads(num_heads, group)
+    kv = copy_to_group(kv, group)
+    k = _split_heads(linear(params["k_proj"], kv), heads)
+    v = _split_heads(linear(params["v_proj"], kv), heads)
     return k, v
 
 
 def mha_attend(params: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                bias: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
     """Attention with pre-projected K/V (shared by full and incremental paths)."""
-    q = _split_heads(linear(params["q_proj"], x), num_heads)
+    group = model_group()
+    q = _split_heads(linear(params["q_proj"], copy_to_group(x, group)),
+                     local_heads(num_heads, group))
     out = dispatch_sdpa(q, k, v, bias=bias)
-    return linear(params["output_proj"], _merge_heads(out))
+    return row_linear(params["output_proj"], _merge_heads(out), group)
 
 
 def fuse_qkv(params: Params, keep_split: bool = True) -> Params:
@@ -129,8 +164,10 @@ def fuse_qkv(params: Params, keep_split: bool = True) -> Params:
 def ffn(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     inner, out = params["inner_proj"], params["output_proj"]
     n_tokens = x.numel() // x.shape[-1]
+    group = model_group()
     if (
-        activation == "relu"
+        group is None
+        and activation == "relu"
         and "kernel_q" in inner
         and "kernel_q" in out
         and "bias" in inner
@@ -150,7 +187,7 @@ def ffn(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
         )
         return y.reshape(shape)
     act = get_activation(activation)
-    return linear(out, act(linear(inner, x)))
+    return row_linear(out, act(linear(inner, copy_to_group(x, group))), group)
 
 
 def _residual_block(params_ln: Params, x: torch.Tensor, fn, norm_order: str) -> torch.Tensor:
@@ -164,8 +201,10 @@ def _block_kernels_eligible(params: Params, x: torch.Tensor, bias, num_heads: in
                             activation: str, norm_order: str) -> bool:
     """Whole-block kernels: pre-LN int8 layers with a fused QKV projection,
     ReLU FFN, key-padding bias, sentence-length sequences, enough tokens,
-    and nothing that autograd records."""
+    nothing that autograd records, and no model split."""
     if norm_order != "pre" or activation != "relu" or not _key_bias(bias):
+        return False
+    if model_group() is not None:
         return False
     if records_grad(x, *tree_leaves(params)):
         return False
@@ -356,13 +395,16 @@ def init_decoder_cache(
     layer (or, for a length-1 memory, the constant ``cross_out``)."""
     n_layers = num_stacked_layers(stacked_params)
     head_dim = model_dim // num_heads
+    group = model_group()
+    heads = local_heads(num_heads, group)
     dev = memory.device
     layers = [p["encoder_decoder_attn"] for p in layer_slices(stacked_params)]
     if memory.shape[1] == 1:
+        mem = copy_to_group(memory, group)
         cross_out = torch.stack(
-            [linear(p["output_proj"], linear(p["v_proj"], memory)) for p in layers]
+            [row_linear(p["output_proj"], linear(p["v_proj"], mem), group) for p in layers]
         ).to(dtype)
-        cross_k = cross_v = torch.zeros((n_layers, batch, num_heads, 0, head_dim),
+        cross_k = cross_v = torch.zeros((n_layers, batch, heads, 0, head_dim),
                                         dtype=dtype, device=dev)
     else:
         kv = [mha_project_kv(p, memory, num_heads) for p in layers]
@@ -370,9 +412,9 @@ def init_decoder_cache(
         cross_v = torch.stack([v for _, v in kv]).to(dtype)
         cross_out = None
     if beam_size is not None:
-        shape = (n_layers, batch // beam_size, num_heads, beam_size, max_len, head_dim)
+        shape = (n_layers, batch // beam_size, heads, beam_size, max_len, head_dim)
     else:
-        shape = (n_layers, batch, num_heads, max_len, head_dim)
+        shape = (n_layers, batch, heads, max_len, head_dim)
     return DecoderCache(
         self_k=torch.zeros(shape, dtype=dtype, device=dev),
         self_v=torch.zeros(shape, dtype=dtype, device=dev),
@@ -415,14 +457,15 @@ def _beam_self_attend(
 
     b, h, k, s, dh = k_cache.shape
     n = b * beam_size
-    q = linear(params["q_proj"], x).reshape(b, beam_size, h, dh)
+    group = model_group()
+    q = linear(params["q_proj"], copy_to_group(x, group)).reshape(b, beam_size, h, dh)
     qbh = q.permute(0, 2, 1, 3).reshape(b * h, beam_size, dh).contiguous()
     out = beam_masked_attend(
         qbh, k_cache.reshape(b * h, k, s, dh), v_cache.reshape(b * h, k, s, dh),
-        anc_b, bias, num_heads,
+        anc_b, bias, local_heads(num_heads, group),
     )
     out = out.reshape(b, h, beam_size, dh).permute(0, 2, 1, 3).reshape(n, 1, h * dh)
-    return linear(params["output_proj"], out)
+    return row_linear(params["output_proj"], out, group)
 
 
 def decoder_step(
@@ -438,7 +481,8 @@ def decoder_step(
     """One incremental step of the whole stack: x [B, 1, D] at position
     ``cache.index`` -> (output [B, 1, D], the cache with index + 1).
 
-    Writes this position's K/V into the cache in place. ``ancestry``
+    Writes this position's K/V (the rank's heads under a model split) into
+    the cache in place. ``ancestry``
     [N, S_max] int32 in [0, beam_size) selects beam mode: self-attention
     reads the un-reordered cache through it (``_beam_self_attend``).
     """
@@ -462,8 +506,7 @@ def decoder_step(
     for layer, p in enumerate(layer_slices(stacked_params)):
         sk, sv = cache.self_k[layer], cache.self_v[layer]
         h = layer_norm(p["self_attn_layer_norm"], x)
-        k_new = _split_heads(linear(p["self_attn"]["k_proj"], h), num_heads)  # [N, H, 1, Dh]
-        v_new = _split_heads(linear(p["self_attn"]["v_proj"], h), num_heads)
+        k_new, v_new = mha_project_kv(p["self_attn"], h, num_heads)  # [N, H, 1, Dh]
         if anc_b is not None:
             b, hh, kk, _, dh = sk.shape
             sk[:, :, :, idx] = k_new.reshape(b, kk, hh, dh).transpose(1, 2).to(sk.dtype)

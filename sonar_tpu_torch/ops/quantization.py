@@ -59,20 +59,34 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b.contiguous())
 
 
-def int8_linear(params: Params, x: torch.Tensor) -> torch.Tensor:
+def int8_linear(params: Params, x: torch.Tensor, group: Any = None) -> torch.Tensor:
     """Dynamic-activation int8 matmul: y = (x_q @ w_q) * (sx * sw) + b.
 
     As in the JAX version: the absmax reduces the input in its own dtype,
     and rounding multiplies by the reciprocal of the scale.
+
+    ``group`` (a ``parallel.comm.Group``) marks a row-parallel projection:
+    ``x`` is this rank's slice of the input axis. Each row's absmax is then
+    the maximum over the group (a rank's slice alone would give another
+    scale, another function), and the int32 products are summed over the
+    group before they are scaled: the single-device result, exactly.
     """
     w_q = params["kernel_q"]          # [in, out] int8
     w_scale = params["scale"]         # [1, out] fp32
     absmax = x.abs().amax(dim=-1, keepdim=True).float()
+    if group is not None:
+        from sonar_tpu_torch.parallel.comm import all_max
+
+        absmax = all_max(absmax, group)
     x_scale = torch.clamp(absmax / 127.0, min=1e-12)
     inv = 1.0 / x_scale
     x_q = torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
     lead = x_q.shape[:-1]
     acc = int8_matmul(x_q.reshape(-1, x_q.shape[-1]), w_q).reshape(*lead, -1)
+    if group is not None:
+        from sonar_tpu_torch.parallel.comm import all_sum
+
+        acc = all_sum(acc, group)
     y = acc.float() * x_scale * w_scale.reshape(w_scale.shape[-1])
     if "bias" in params:
         y = y + params["bias"].float()

@@ -1,7 +1,7 @@
-"""Cosine-similarity mining and the xsim / xsim++ evaluation on one device.
+"""Cosine-similarity mining and the xsim / xsim++ evaluation.
 
-Port of ``sonar_tpu/parallel/mining.py``'s single-device functions, with
-the same names and signatures (and a ``device`` argument):
+Port of ``sonar_tpu/parallel/mining.py``, with the same names and
+signatures (and a ``device`` argument):
 
 - ``cosine_topk``: each query's k nearest bank rows by cosine, the bank
   taken in ``block_size``-row blocks with a running [N, k] merge, so the
@@ -11,14 +11,16 @@ the same names and signatures (and a ``device`` argument):
 - ``xsim`` and ``xsim_pp``: the LASER xsim error rate (%) of margin-based
   nearest-neighbour alignment, dense, and with distractor targets;
 - ``mine_bitexts``: LASER-style margin mining (forward, backward,
-  intersection, union) from both directions' top-k lists.
+  intersection, union) from both directions' top-k lists;
+- ``sharded_cosine_topk``, ``sharded_xsim``, ``sharded_xsim_pp`` and
+  ``mine_bitexts(mesh=...)``: the bank split over one axis of a
+  ``parallel.mesh.Mesh``; each rank takes the top k of its block and the
+  candidates of every block are merged in block order.
 
 The products and the selection are PyTorch calls, as the JAX package leaves
 them to XLA: no Pallas kernel is on this path. Inputs are numpy arrays or
 tensors. Like every entry point of the port these run on the GPU (``cuda``)
-unless given ``device="cpu"``. The sharded variants (``sharded_*`` and
-``mine_bitexts``'s ``mesh``) are not ported yet (``ROADMAP.md`` queue 1,
-item 7).
+unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 from sonar_tpu_torch.device import resolve_device
 from sonar_tpu_torch.ops.precision import matmul_f32_out, matmul_precision_for
 from sonar_tpu_torch.ops.quantization import int8_matmul
+from sonar_tpu_torch.parallel.comm import gather_blocks
 import torch
 
 _SELECT_KEYS = 1 << 26  # int64 selection keys made at a time (512 MB)
@@ -171,6 +174,46 @@ def cosine_topk(
     return best_s, best_i
 
 
+def sharded_cosine_topk(
+    queries: Any,
+    bank: Any,
+    k: int,
+    mesh: Any,
+    axis: str = "data",
+    dot_dtype: Any = None,
+    approx: bool = False,
+    device: Any = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cosine_topk`` with the bank split over the mesh axis ``axis``: the
+    same (scores, indices) on every rank. Every rank takes the whole bank
+    and the queries.
+
+    The bank is zero-padded to ceil(M / n) * n rows and rank i takes block
+    i. Each rank's top k come from ``cosine_topk`` on its block (with
+    ``dot_dtype`` and ``approx`` as there); a padded row's score is set to
+    -inf by its global index; the [N, k] lists of every block are gathered
+    in block order and merged by ``_top_k_exact``, so a tie goes to the
+    lower block, then the lower index: the JAX package's ``lax.top_k`` over
+    the concatenated candidates. The gather moves N * k * n scores.
+    """
+    dev = resolve_device(device)
+    group = mesh.group(axis)
+    b = _as_f32(bank, dev)
+    m = b.shape[0]
+    shard = -(-m // group.size)
+    if shard * group.size != m:
+        b = torch.cat([b, b.new_zeros((shard * group.size - m, b.shape[1]))])
+    base = group.index * shard
+    scores, idx = cosine_topk(queries, b[base:base + shard], k, dot_dtype=dot_dtype,
+                              approx=approx, device=dev)
+    idx = idx + base
+    scores = torch.where(idx < m, scores, float("-inf"))
+    cand_s = gather_blocks(scores, group, dim=1)                 # [N, n * k]
+    cand_i = gather_blocks(idx, group, dim=1)
+    top_s, pos = _top_k_exact(cand_s, k)
+    return top_s, torch.gather(cand_i, 1, pos)
+
+
 def _margin_scores(sim: torch.Tensor, avg_x: torch.Tensor, avg_y: torch.Tensor,
                    margin: str) -> torch.Tensor:
     """Dense [N, M] LASER margins (bank average broadcast over columns)."""
@@ -220,6 +263,37 @@ def xsim(x: Any, y: Any, k: int = 4, margin: str = "ratio", device: Any = None) 
     return float((pred != np.arange(len(pred))).mean() * 100.0)
 
 
+def sharded_xsim(x: Any, y: Any, mesh: Any, k: int = 4, margin: str = "ratio",
+                 axis: str = "data", dot_dtype: Any = None, approx: bool = False,
+                 device: Any = None) -> float:
+    """xsim from the sharded top-k lists alone: the [N, N] similarity never
+    exists. Both directions' top k (scores and neighbourhood averages) come
+    from ``sharded_cosine_topk``, and each query's margin is taken over its
+    cosine top-k candidates only (the LASER mining approximation, which
+    equals dense xsim on embeddings whose margin argmax lies in the top k).
+    ``dot_dtype`` / ``approx`` as in ``cosine_topk``."""
+    dev = resolve_device(device)
+    xq, yq = _as_f32(x, dev), _as_f32(y, dev)
+    k = min(k, xq.shape[0], yq.shape[0])
+    s_xy, i_xy = (t.cpu().numpy() for t in sharded_cosine_topk(
+        xq, yq, k, mesh, axis, dot_dtype=dot_dtype, approx=approx, device=dev))
+    s_yx = sharded_cosine_topk(yq, xq, k, mesh, axis, dot_dtype=dot_dtype, approx=approx,
+                               device=dev)[0].cpu().numpy()
+    m = _candidate_margins(s_xy, i_xy, s_xy.mean(axis=1), s_yx.mean(axis=1), margin)
+    pred = i_xy[np.arange(len(i_xy)), m.argmax(axis=1)]
+    return float((pred != np.arange(len(i_xy))).mean() * 100.0)
+
+
+def sharded_xsim_pp(x: Any, y: Any, y_distractors: Any, mesh: Any, k: int = 4,
+                    margin: str = "ratio", axis: str = "data", dot_dtype: Any = None,
+                    approx: bool = False, device: Any = None) -> float:
+    """``sharded_xsim`` over y with the distractors appended (xsim++)."""
+    dev = resolve_device(device)
+    y_all = torch.cat([_as_f32(y, dev), _as_f32(y_distractors, dev)], dim=0)
+    return sharded_xsim(x, y_all, mesh, k=k, margin=margin, axis=axis, dot_dtype=dot_dtype,
+                        approx=approx, device=dev)
+
+
 def xsim_pp(x: Any, y: Any, y_distractors: Any, k: int = 4, margin: str = "ratio",
             device: Any = None) -> float:
     """xsim++: the xsim protocol with distractor targets appended to y (a
@@ -257,21 +331,25 @@ def mine_bitexts(
 
     Returns ``(src_idx, tgt_idx, scores)`` (numpy) sorted by descending
     margin score, the sort stable; ``threshold`` keeps ``score >=
-    threshold``. ``mesh`` (and ``axis``) select the JAX package's sharded
-    mining, which the port does not have yet: any ``mesh`` but None raises.
+    threshold``. ``mesh`` (and ``axis``) take both directions' candidates
+    from ``sharded_cosine_topk``, the bank split over that mesh axis.
     """
     if strategy not in ("forward", "backward", "intersection", "union"):
         raise ValueError(f"unknown strategy: {strategy}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded mining (mesh=...) is not ported yet: ROADMAP.md queue 1, item 7")
     dev = resolve_device(device)
     xq, yq = _as_f32(x, dev), _as_f32(y, dev)
     k = min(k, xq.shape[0], yq.shape[0])
-    s_xy, i_xy = (t.cpu().numpy() for t in cosine_topk(xq, yq, k, dot_dtype=dot_dtype,
-                                                       approx=approx, device=dev))
-    s_yx, i_yx = (t.cpu().numpy() for t in cosine_topk(yq, xq, k, dot_dtype=dot_dtype,
-                                                       approx=approx, device=dev))
+
+    def topk(q: torch.Tensor, b: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        if mesh is None:
+            out = cosine_topk(q, b, k, dot_dtype=dot_dtype, approx=approx, device=dev)
+        else:
+            out = sharded_cosine_topk(q, b, k, mesh, axis, dot_dtype=dot_dtype,
+                                      approx=approx, device=dev)
+        return out[0].cpu().numpy(), out[1].cpu().numpy()
+
+    s_xy, i_xy = topk(xq, yq)
+    s_yx, i_yx = topk(yq, xq)
     avg_x = s_xy.mean(axis=1)                            # [Nx]
     avg_y = s_yx.mean(axis=1)                            # [Ny]
 

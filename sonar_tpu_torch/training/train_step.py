@@ -32,6 +32,22 @@ hold:
 
 A leaf that gets no gradient (a frozen encoder's) keeps its value under a
 torch optimizer, which skips it; ``optax.adamw`` would still decay it.
+
+Over a ``parallel.mesh.Mesh`` (``make_train_step(loss_fn, mesh)``, the
+state from ``init_train_state(..., mesh=mesh)``), which JAX gets from
+GSPMD, every rank takes the global batch and keeps its data coordinate's
+rows; its leaves are ``shard_params``'s slices, the layers split their heads,
+FFN columns and vocabulary over the model group (``nn.transformer``), and:
+
+- the losses are global means: their sums and counts are summed over the
+  data group (a mean of the ranks' means differs whenever the ranks hold
+  different token counts);
+- after ``backward`` each leaf's gradient (its rows' part) is summed over
+  the data group, once, before ``optimizer.step()``; a leaf without a
+  gradient (a frozen encoder's) takes part in no collective;
+- dropout draws from one generator per data coordinate, shared by its
+  model group: ranks that compute one replicated residual stream must drop
+  the same elements, and different rows must not share a stream.
 """
 
 from __future__ import annotations
@@ -42,6 +58,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from sonar_tpu_torch.nn.core import Params, tree_leaves
 from sonar_tpu_torch.ops.precision import matmul_precision_for
+from sonar_tpu_torch.parallel.comm import (
+    all_sum,
+    all_sum_coalesced,
+    data_group,
+    data_parallel,
+    model_parallel,
+    sum_over_group,
+)
+from sonar_tpu_torch.parallel.mesh import SINGLE_MESH, Mesh, data_sharding, shard_params
 import torch
 import torch.nn.functional as F
 
@@ -60,14 +85,33 @@ class TrainState:
     step: int
 
 
+def _mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """``total / max(count, 1)``, both summed over the data group in force
+    (``parallel.comm.data_parallel``): the mean over the global batch on
+    every rank, whose gradient on each rank is its own rows' part (*g*)."""
+    group = data_group()
+    if group is not None:
+        total = sum_over_group(total, group)
+        count = all_sum(count.detach(), group)
+    return total / torch.clamp(count, min=1.0)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Masked token-mean CE in fp32: logits [B, S, V], labels [B, S], mask
-    [B, S]; the mean is over max(mask.sum(), 1) tokens."""
+    [B, S]; the mean is over max(mask.sum(), 1) tokens (of the global batch
+    under a data split)."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     nll = -lp.gather(-1, labels.long()[..., None])[..., 0]
     mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return _mean((nll * mask).sum(), mask.sum())
+
+
+def _row_mean(per_row: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch's rows (the global batch under a data split)."""
+    if data_group() is None:
+        return per_row.mean()
+    return _mean(per_row.sum(), per_row.new_tensor(float(per_row.shape[0])))
 
 
 def translation_loss(encoder: Any, decoder: Any, enc_params: Params, dec_params: Params,
@@ -114,10 +158,10 @@ def distillation_loss(student_encoder: Any, params: Params, batch: Batch,
                                            **kwargs).sentence_embeddings.float()
         teacher = batch["teacher_emb"].float().detach()
         if objective == "mse":
-            return (emb - teacher).square().sum(dim=-1).mean()
+            return _row_mean((emb - teacher).square().sum(dim=-1))
         dot = (emb * teacher).sum(dim=-1)
         denom = torch.linalg.norm(emb, dim=-1) * torch.linalg.norm(teacher, dim=-1)
-        return (1.0 - dot / torch.clamp(denom, min=1e-9)).mean()
+        return _row_mean(1.0 - dot / torch.clamp(denom, min=1e-9))
 
 
 def classifier_loss(encoder: Any, head: Any, params: Params, batch: Batch,
@@ -143,25 +187,52 @@ def classifier_loss(encoder: Any, head: Any, params: Params, batch: Batch,
         logits = head.forward_with(params["head"], emb).float()
     labels = batch["labels"]
     if logits.shape[-1] == 1:
-        return F.binary_cross_entropy_with_logits(logits[:, 0], labels.float())
-    return F.cross_entropy(logits, labels.long())
+        return _row_mean(F.binary_cross_entropy_with_logits(
+            logits[:, 0], labels.float(), reduction="none"))
+    return _row_mean(F.cross_entropy(logits, labels.long(), reduction="none"))
 
 
-def make_train_step(loss_fn: LossFn) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
+def _rank_generator(generator: Optional[torch.Generator],
+                    mesh: Mesh) -> Optional[torch.Generator]:
+    """The dropout generator of this rank's data coordinate. ``generator``
+    is seeded alike on every rank; one seed is drawn from it each step, so
+    it advances alike, and mixed with the data coordinate. Under ``data=1``
+    it is used as it is (the masks of one process alone)."""
+    if generator is None or mesh.data == 1:
+        return generator
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
+    return torch.Generator(device=generator.device).manual_seed(
+        (seed * 1_000_003 + mesh.data_index) % 2 ** 63)
+
+
+def make_train_step(loss_fn: LossFn,
+                    mesh: Optional[Mesh] = None) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
     """``loss_fn(params, batch, generator) -> scalar``. Returns
     ``step(state, batch, generator=None) -> (state, loss)``: the gradients
     zeroed (set to None), the loss and its ``backward`` inside the fp32
     precision scope (every fp32 product of the step, forward and backward,
     without TF32, whatever the caller's flags), one ``optimizer.step()``;
     the parameters change in place and the returned state counts one step
-    more."""
+    more.
+
+    The batch is the global one: each tensor's leading axis is its rows,
+    which must divide by the mesh's ``data``, as JAX's sharding requires.
+    Without ``mesh`` the step runs on ``SINGLE_MESH``, this process alone;
+    over a mesh it runs as the module docstring says, and the loss returned
+    is the global batch's."""
+    mesh = SINGLE_MESH if mesh is None else mesh
 
     def step(state: TrainState, batch: Batch,
              generator: Optional[torch.Generator] = None) -> Tuple[TrainState, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        with matmul_precision_for(torch.float32):
-            loss = loss_fn(state.params, batch, generator)
+        batch = {k: v[data_sharding(mesh, v.shape[0])] for k, v in batch.items()}
+        with matmul_precision_for(torch.float32), model_parallel(mesh.model_group), \
+                data_parallel(mesh.data_group):
+            loss = loss_fn(state.params, batch, _rank_generator(generator, mesh))
             loss.backward()
+        all_sum_coalesced([leaf.grad for leaf in tree_leaves(state.params)
+                           if leaf.grad is not None], mesh.data_group)
         state.optimizer.step()
         return TrainState(state.params, state.optimizer, state.step + 1), loss.detach()
 
@@ -169,12 +240,14 @@ def make_train_step(loss_fn: LossFn) -> Callable[..., Tuple[TrainState, torch.Te
 
 
 def init_train_state(params: Params,
-                     make_optimizer: Callable[[List[torch.Tensor]], torch.optim.Optimizer]
-                     ) -> TrainState:
+                     make_optimizer: Callable[[List[torch.Tensor]], torch.optim.Optimizer],
+                     mesh: Optional[Mesh] = None) -> TrainState:
     """Mark every leaf of ``params`` as requiring grad (in place) and build
     the optimizer over them, e.g. ``lambda leaves: torch.optim.AdamW(leaves,
     lr=1e-4, weight_decay=1e-2)``. Every leaf must be floating point (an
-    int8 tree is not trained)."""
+    int8 tree is not trained). With ``mesh`` the state holds this rank's
+    slice of the whole tree ``params`` (``parallel.mesh.shard_params``)."""
+    params = shard_params(params, SINGLE_MESH if mesh is None else mesh)
     leaves = tree_leaves(params)
     for leaf in leaves:
         if not leaf.is_floating_point():

@@ -63,6 +63,12 @@ def test_pipeline_names_cover_the_reference():
     ("ops", ["dispatch_sdpa", "sdpa_xla", "FbankConfig", "batched_fbank", "additive_bias",
              "length_mask", "quantize_params_int8", "records_grad"]),
     ("models", ["ConfigRegistry", "SonarEncoderOutput", "VocabularyInfo"]),
+    ("parallel", ["l2_normalize", "cosine_topk", "xsim", "xsim_pp", "mine_bitexts",
+                  "sharded_cosine_topk", "sharded_xsim", "sharded_xsim_pp", "Mesh", "SINGLE_MESH",
+                  "make_mesh",
+                  "param_shardings", "shard_params", "replicate", "data_sharding",
+                  "initialize", "shard_for_host", "host_batch_sharding",
+                  "global_batch_from_local"]),
     ("training", ["TrainState", "cross_entropy", "translation_loss", "distillation_loss",
                   "classifier_loss", "make_train_step", "init_train_state",
                   "save_train_state", "restore_train_state"]),

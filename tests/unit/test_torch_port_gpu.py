@@ -1159,3 +1159,45 @@ def test_relpos_after_a_step_on_the_card(dev, monkeypatch):
         monkeypatch.setattr(conformer, "_use_relpos_kernel", lambda *a: False)
         want = model(fb, lens).sentence_embeddings
     _assert_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+def test_world_one_nccl_mesh_encode_is_the_mesh_free_encode(dev, tmp_path, quantize):
+    """``TorchTextEncoder(mesh=make_mesh(1, 1))`` in a one-rank NCCL group
+    gives the mesh-free encode bit for bit, with the same kernel launches
+    (D 128, 2 heads, FFN 512; [32, 64] tokens reach #1 or #2 and #3)."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from sonar_tpu_torch.assets.convert import init_text_encoder_params, text_encoder_from_numpy
+    from sonar_tpu_torch.data.collate import SequenceBatch
+    from sonar_tpu_torch.inference_pipelines.text import TorchTextEncoder
+    from sonar_tpu_torch.models.sonar_text import sonar_text_encoder_archs
+    from sonar_tpu_torch.parallel import initialize, make_mesh
+
+    cfg = dataclasses.replace(sonar_text_encoder_archs.get("toy"), model_dim=128,
+                              num_encoder_attn_heads=2, ffn_inner_dim=512)
+    model = text_encoder_from_numpy(init_text_encoder_params(cfg, 0), cfg, torch.bfloat16, dev)
+    rng = np.random.default_rng(0)
+    seqs = rng.integers(4, cfg.vocab_info.size, (32, 64)).astype(np.int32)
+    lens = rng.integers(1, 65, (32,)).astype(np.int32)
+    batch = SequenceBatch(seqs=seqs, seq_lens=lens, true_batch=32)
+    counters = (short_attn, "LAUNCHES"), (attn_block, "LAUNCHES"), (ffn, "LAUNCHES")
+
+    def run(mesh):
+        before = [getattr(m, c) for m, c in counters]
+        out = TorchTextEncoder(model, quantize=quantize, device=dev, mesh=mesh).encode_batch(batch)
+        torch.cuda.synchronize()
+        return out, [getattr(m, c) - b for (m, c), b in zip(counters, before)]
+
+    want, want_launches = run(None)
+    initialize(f"file://{tmp_path / 'rendezvous'}", rank=0, world_size=1, backend="nccl")
+    try:
+        got, launches = run(make_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+    assert sum(want_launches) > 0 and launches == want_launches
+    np.testing.assert_array_equal(got, want)

@@ -208,8 +208,10 @@ def test_mine_bitexts_int8_approx_matches_jax():
 
 def test_mine_bitexts_rejects_what_it_does_not_have():
     x, y, _ = _parallel(n=8, extra=0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tm.mine_bitexts(x, y, mesh=object(), device="cpu")
+    from sonar_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        tm.mine_bitexts(x, y, mesh=make_mesh(1, 1), axis="rows", device="cpu")
     with pytest.raises(ValueError, match="unknown strategy"):
         tm.mine_bitexts(x, y, strategy="both", device="cpu")
     with pytest.raises(ValueError, match="unknown margin"):

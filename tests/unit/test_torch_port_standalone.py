@@ -5,8 +5,9 @@
   of ``sonar_tpu_torch`` and runs text, speech, decode (beam, sampling,
   int8), speech -> text and MuTox ``predict``, the three heads, mining,
   packed encoding, the HF batch layer on plain dicts, one ``/embed``
-  request through the server and its client, and one training step with a
-  checkpoint round trip on the CPU at toy size;
+  request through the server and its client, one training step with a
+  checkpoint round trip, and a world-1 gloo mesh encode and sharded top-k
+  (each equal to the mesh-free result) on the CPU at toy size;
 - no file of the port, and not ``chip_smoke.py``, imports ``sonar_tpu`` or
   ``jax`` (an ``ast`` scan);
 - with no GPU, every entry point given ``device=None`` raises instead of
@@ -162,6 +163,20 @@ state, loss = step(state, tb, torch.Generator().manual_seed(0))
 assert state.step == 1 and bool(torch.isfinite(loss))
 save_train_state(Path(sys.argv[1]) / "train.pt", state)
 assert restore_train_state(Path(sys.argv[1]) / "train.pt", state).step == 1
+
+import torch.distributed as dist
+from sonar_tpu_torch.inference_pipelines.text import TorchTextEncoder
+from sonar_tpu_torch.parallel import initialize, make_mesh, sharded_cosine_topk
+initialize("file://" + str(Path(sys.argv[1]) / "rendezvous"), rank=0, world_size=1, backend="gloo")
+mesh = make_mesh(1, 1)
+memb = TextToEmbeddingModelPipeline(TorchTextEncoder(enc, device="cpu", mesh=mesh), tok,
+                                    device="cpu").predict(["hello world", "the cat sat"],
+                                                          source_lang="eng_Latn")
+assert np.array_equal(memb, emb), (memb, emb)
+want = cosine_topk(bank[:8], bank, 3, dot_dtype="int8", device="cpu")
+got = sharded_cosine_topk(bank[:8], bank, 3, mesh, dot_dtype="int8", device="cpu")
+assert all(torch.equal(a, b) for a, b in zip(got, want))
+dist.destroy_process_group()
 
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "sonar_tpu", "datasets")
                 and sys.modules[m] is not None)
