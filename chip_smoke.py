@@ -224,8 +224,29 @@ Phases, each printing ``#`` lines:
     sentences, equal to (d) bit for bit; one DP = 2 step of (k4)'s model
     against the single-rank step within (k4)'s limits.
 
+(m) pipeline and sequence parallelism, in one pair of child processes
+    (``--scaleout-child m``, started with (l)'s three: the five run at
+    once) sharing the card over gloo, on a (data 1,
+    stage 2) and a (data 1, seq 2) mesh, each check timed: (m1)
+    ``pipeline_text_encode`` with the ``basic`` encoder (12 layers a stage)
+    over (d)'s 3000 sentences in (d)'s static batches of 8192 tokens, int8
+    and bf16, 2 microbatches a batch: equal bit for bit to the single
+    rank's stack run microbatch by microbatch, cosine >= 0.999 per
+    sentence against (d), #2 and #3 (int8), #1 and #5 (bf16) launched on
+    each rank; ``pipeline_speech_encode`` with the ``english`` Conformer in
+    bf16 over (e)'s 32 clips of 3-40 s (S up to 1999) in (e)'s batches of
+    8: the same checks against (e), #6 launched; (m2)
+    ``sequence_speech_encode`` in bf16 and fp32 on 4 of (e)'s clips, two of
+    45-50 s, at S 2500 (1250 frames a rank), against the single-rank encode
+    (cosine >= 0.999 per clip in bf16, max-abs <= 1e-3 of the scale in
+    fp32), each rank's peak device memory beside the single rank's; (m3)
+    one fp32 backward of each (the text and speech encoders cut to 2
+    layers, full width; the sum of the squared embeddings) against the
+    single rank's: the loss within 1e-5, every leaf the rank holds within
+    (k4)'s 2e-3 of its scale, no launch.
+
 A kernel's ``launches`` in the JSON record is the sum of its counts over
-(d) to (l), (l)'s summed over its children; the kernels that no path calls (``relpos_flash_attention``,
+(d) to (m), (l)'s and (m)'s summed over their children; the kernels that no path calls (``relpos_flash_attention``,
 ``beam_diag_attend``, ``beam_reorder_attend``,
 ``fused_bf16_ffn_ln_residual``) must read 0. Prints that record on the
 line before the last, and as the last line ``{"ok": true, "device":
@@ -1361,6 +1382,7 @@ def run_speech(torch, card, handoff):
         if emb.shape != (len(clips), cfg.model_dim) or not np.isfinite(emb).all():
             raise AssertionError(f"speech {mode}: embeddings of shape {emb.shape}, finite "
                                  f"{bool(np.isfinite(emb).all())}")
+        handoff.setdefault("speech_embeddings", {})[mode] = emb  # phase (m) reads bf16's
         log(f"speech {mode}: {len(clips)} clips ({audio_s:.1f} s of audio) in {dt:.2f} s = "
             f"{len(clips) / dt:.2f} clips/s, RTFx {audio_s / dt:.1f} through predict, on {card}")
         log(f"speech {mode}: launches {counts}, plain-path rel-pos calls {plain}; peak "
@@ -2900,14 +2922,14 @@ def _k4_step(torch, handoff, device, mesh=None):
     return float(loss), [t.grad.cpu() for t in tree_leaves(state.params)], paths
 
 
-def _grad_errors(paths, got, want):
+def _grad_errors(paths, got, want, zero=ZERO_GRAD):
     """{path: error / scale} over the gradient leaves (the scale: the
     reference's max-abs, floored at a thousandth of the largest leaf's); the
-    ZERO_GRAD leaves by their max-abs over the largest leaf's."""
+    ``zero`` leaves by their max-abs over the largest leaf's."""
     top = max(w.abs().max().item() for w in want)
     out = {}
     for path, g, w in zip(paths, got, want):
-        if any(z in path for z in ZERO_GRAD):
+        if any(z in path for z in zero):
             out[path] = max(g.abs().max().item(), w.abs().max().item()) / top
         else:
             out[path] = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-3 * top)
@@ -2983,10 +3005,11 @@ class _Checks:
         self.rows.append({"name": name, "ok": bool(ok), "s": round(dt, 3), "detail": detail})
 
 
-def _scaleout_handoff(torch, workdir):
+def _scaleout_handoff(torch, workdir, decoder=True):
     """What (d), (f) and (k4) drew from their seeds, drawn again: the
     tokenizer (written into ``workdir``, the child's own, since the children
-    run at once), the corpus and both models' numpy weights."""
+    run at once), the corpus and both models' numpy weights (the encoder's
+    alone without ``decoder``)."""
     import numpy as np
 
     from sonar_tpu_torch.assets.convert import init_text_decoder_params, init_text_encoder_params
@@ -2995,10 +3018,13 @@ def _scaleout_handoff(torch, workdir):
     rng = np.random.default_rng(0)
     workdir.mkdir(parents=True, exist_ok=True)
     tokenizer, words = _tokenizer(workdir, rng)
-    return {"tokenizer": tokenizer, "corpus": _corpus(rng, words, N_SENTENCES),
-            "text_params": init_text_encoder_params(sonar_text_encoder_archs.get("basic"), seed=0),
-            "decoder_params": init_text_decoder_params(sonar_text_decoder_archs.get("basic"),
+    handoff = {"tokenizer": tokenizer, "corpus": _corpus(rng, words, N_SENTENCES),
+               "text_params": init_text_encoder_params(sonar_text_encoder_archs.get("basic"),
                                                        seed=0)}
+    if decoder:
+        handoff["decoder_params"] = init_text_decoder_params(
+            sonar_text_decoder_archs.get("basic"), seed=0)
+    return handoff
 
 
 def _text_pipeline(torch, handoff, dtype, quantize, mesh):
@@ -3264,8 +3290,8 @@ def _scaleout_l2(torch, checks, ref, handoff, launches):
 
 
 def scaleout_child(torch, card, name, rank, world):
-    """One rank of (l1) or (l2): joins its group, runs its checks and prints
-    one JSON line ``{"scaleout": name, "rank", "launches", "checks"}``."""
+    """One rank of (l1), (l2) or (m): joins its group, runs its checks and
+    prints one JSON line ``{"scaleout": name, "rank", "launches", "checks"}``."""
     import numpy as np
 
     from sonar_tpu_torch.ops import _build
@@ -3274,18 +3300,23 @@ def scaleout_child(torch, card, name, rank, world):
     _build.build()  # the parent's library: no compile
     initialize(f"file://{SCALEOUT_DIR / f'rendezvous_{name}'}", rank=rank, world_size=world,
                backend="nccl" if name == "l1" else "gloo")
-    with np.load(SCALEOUT_DIR / "ref.npz") as f:
+    with np.load(SCALEOUT_DIR / ("ref_m.npz" if name == "m" else "ref.npz")) as f:
         ref = {k: f[k] for k in f.files}
-    config = json.loads((SCALEOUT_DIR / "ref.json").read_text())
-    ref.update(config)
-    ref["f_beam"] = [tuple(ref[f"f_beam_{i}_{j}"] for j in range(3))
-                     for i in range(config["f_calls"])]
     t0 = time.perf_counter()
-    handoff = _scaleout_handoff(torch, SCALEOUT_DIR / f"{name}_{rank}")
-    log(f"(l) {name} rank {rank}: tokenizer, corpus and weights drawn in "
+    if name == "m":
+        handoff = _pipeline_handoff(torch, SCALEOUT_DIR / f"{name}_{rank}")
+        run = _scaleout_m
+    else:
+        config = json.loads((SCALEOUT_DIR / "ref.json").read_text())
+        ref.update(config)
+        ref["f_beam"] = [tuple(ref[f"f_beam_{i}_{j}"] for j in range(3))
+                         for i in range(config["f_calls"])]
+        handoff = _scaleout_handoff(torch, SCALEOUT_DIR / f"{name}_{rank}")
+        run = _scaleout_l1 if name == "l1" else _scaleout_l2
+    log(f"({name[0]}) {name} rank {rank}: tokenizer, corpus and weights drawn in "
         f"{time.perf_counter() - t0:.1f} s")
     checks, launches = _Checks(card), dict.fromkeys(KERNELS, 0)
-    (_scaleout_l1 if name == "l1" else _scaleout_l2)(torch, checks, ref, handoff, launches)
+    run(torch, checks, ref, handoff, launches)
     import torch.distributed as dist
 
     dist.barrier()
@@ -3295,12 +3326,13 @@ def scaleout_child(torch, card, name, rank, world):
     return 0
 
 
-def _children():
-    """Start (l1)'s rank and (l2)'s two ranks together: -> [(name, rank, process)]."""
+def _children(specs):
+    """Start every rank of each (name, world) of ``specs`` together:
+    -> [(name, rank, process)]."""
     return [(name, rank, subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--scaleout-child", name, str(rank),
          str(world)], cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name, world in (("l1", 1), ("l2", 2)) for rank in range(world)]
+        for name, world in specs for rank in range(world)]
 
 
 def _collect(children):
@@ -3313,7 +3345,7 @@ def _collect(children):
             try:
                 out = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0]
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"(l) {name} rank {rank} did not finish in "
+                raise AssertionError(f"({name[0]}) {name} rank {rank} did not finish in "
                                      f"{SCALEOUT_TIMEOUT} s")
             lines = out.splitlines()
             for line in lines:
@@ -3322,8 +3354,8 @@ def _collect(children):
             rows = [json.loads(x) for x in lines if x.startswith('{"scaleout"')]
             if p.returncode != 0 or not rows:
                 tail = "\n".join(x for x in lines[-40:] if not x.startswith("#"))
-                raise AssertionError(f"(l) {name} rank {rank} failed (exit {p.returncode}):\n"
-                                     f"{tail}")
+                raise AssertionError(f"({name[0]}) {name} rank {rank} failed (exit "
+                                     f"{p.returncode}):\n{tail}")
             results.append(rows[-1])
     finally:
         for _, _, p in children:
@@ -3334,11 +3366,12 @@ def _collect(children):
 
 
 def run_scaleout(torch, card, handoff):
-    """Phase (l): the mesh runtimes, sharded mining and mesh training in
-    child processes (the main process never joins a process group), all
-    three at once. (l1): world 1 over NCCL, bit for bit against (d), (f),
-    (i) and (k4); (l2): two ranks sharing the card over gloo, model 2 and
-    data 2. Returns the launch counts summed over the children's driven
+    """Phases (l) and (m) in child processes (the main process never joins a
+    process group), all five at once. (l): the mesh runtimes, sharded mining
+    and mesh training; (l1) world 1 over NCCL, bit for bit against (d), (f),
+    (i) and (k4); (l2) two ranks sharing the card over gloo, model 2 and
+    data 2. (m): pipeline and sequence parallelism on two more ranks over
+    gloo. Returns the launch counts summed over the children's driven
     runs."""
     import numpy as np
 
@@ -3352,22 +3385,372 @@ def run_scaleout(torch, card, handoff):
     (SCALEOUT_DIR / "ref.json").write_text(json.dumps({
         "k4_loss": handoff["k4_loss"], "f_calls": len(beam),
         **{f"d_launches_{m}": handoff["static_launches"][m] for m in ("int8", "bf16")}}))
+    pipeline_refs(handoff)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return _run_children(card, (("l1", 1), ("l2", 2), ("m", 2)), "(l) and (m)")
+
+
+def _run_children(card, specs, label):
+    """Run the ranks of ``specs`` ((name, world) pairs) at once; -> their
+    launch counts summed. Raises if a check of any child failed."""
     launches = dict.fromkeys(KERNELS, 0)
     failed = []
     t0 = time.perf_counter()
-    for row in _collect(_children()):
+    for row in _collect(_children(specs)):
         for n in KERNELS:
             launches[n] += row["launches"][n]
         failed += [f"{row['scaleout']} rank {row['rank']}: {c['name']}" for c in row["checks"]
                    if not c["ok"]]
-    log(f"(l) (l1)'s rank and (l2)'s two ranks, run at once, in {time.perf_counter() - t0:.1f} "
-        f"s, on {card}")
-    log(f"(l) launches over the children's driven runs: {launches}")
+    log(f"{label} {', '.join(f'{name} x {world}' for name, world in specs)} ranks, run at "
+        f"once, in {time.perf_counter() - t0:.1f} s, on {card}")
+    log(f"{label} launches over the children's driven runs: {launches}")
     if failed:
-        raise AssertionError(f"scale-out checks failed: {failed}")
+        raise AssertionError(f"{label} checks failed: {failed}")
     return launches
+
+
+# -- (m) pipeline and sequence parallelism, in child processes ----------------------
+
+PP_MICROBATCHES = 2  # (m1): m; a microbatch of an 8192-token batch holds 4096 tokens
+PP_COS = 0.999  # (m1): cosine per sentence or clip against (d) / (e)
+SP_COS, SP_F32_LIMIT = 0.999, 1e-3  # (m2): bf16 cosine per clip; fp32 max-abs x the scale
+
+
+def _microbatched(torch, stack, m):
+    """A ``stack_fn`` that runs ``stack(layers, x, *aux)`` on ``m`` equal row
+    chunks in turn: the plain stack microbatch by microbatch, the function
+    each pipeline stage runs."""
+    def run(layers, x, *aux):
+        parts = [[None] * m if a is None else a.chunk(m) for a in aux]
+        return torch.cat([stack(layers, xc, *(p[i] for p in parts))
+                          for i, xc in enumerate(x.chunk(m))])
+    return run
+
+
+def _fbank_batch(torch, fbank_config, waves, even=False):
+    """``TorchSpeechEncoder.encode_waveforms``' features of one batch: the
+    rows padded to a power of two, the waves to their bucket; with ``even``
+    two zero frames more where the frame count would give an odd S.
+    -> (features, frame counts) on the card."""
+    import numpy as np
+
+    from sonar_tpu_torch.data.collate import round_up_pow2
+    from sonar_tpu_torch.inference_pipelines.speech import _bucket_len
+    from sonar_tpu_torch.ops.fbank import batched_fbank, num_frames
+
+    max_t = _bucket_len(max(w.shape[0] for w in waves))
+    batch = np.zeros((round_up_pow2(len(waves)), max_t), np.float32)
+    lens = np.zeros((batch.shape[0],), np.int32)
+    for i, w in enumerate(waves):
+        batch[i, :w.shape[0]], lens[i] = w, w.shape[0]
+    frames = num_frames(max_t, fbank_config)
+    with torch.inference_mode():
+        feats, frame_lens = batched_fbank(torch.from_numpy(batch).to(DEVICE),
+                                          torch.from_numpy(lens).to(DEVICE), frames,
+                                          fbank_config)
+    if even and (frames // 2) % 2:
+        feats = torch.nn.functional.pad(feats, (0, 0, 0, 2))
+    return feats, frame_lens
+
+
+def _pipeline_handoff(torch, workdir):
+    """(m)'s draws: (d)'s tokenizer, corpus and weights, as (l) draws them,
+    and (e)'s weights and clips."""
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_speech_encoder_params
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+
+    handoff = _scaleout_handoff(torch, workdir, decoder=False)
+    handoff["speech_params"] = init_speech_encoder_params(
+        sonar_speech_encoder_archs.get("english"), seed=0)
+    handoff["speech_clips"] = _speech_traffic(np.random.default_rng(0))
+    return handoff
+
+
+def _m1_text(torch, checks, ref, handoff, launches, mesh):
+    """(m1), text: the ``basic`` encoder (24 layers, 12 a stage) over (d)'s
+    static batches through ``pipeline_text_encode``, int8 and bf16."""
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import text_encoder_from_numpy
+    from sonar_tpu_torch.data.batcher import StaticShapeBatcher
+    from sonar_tpu_torch.inference_pipelines.text import TorchTextEncoder, _static_len_buckets_for
+    from sonar_tpu_torch.models.sonar_text import sonar_text_encoder_archs
+    from sonar_tpu_torch.nn.transformer import encoder_stack
+    from sonar_tpu_torch.ops.precision import matmul_precision_for
+    from sonar_tpu_torch.parallel import pipeline_shard_params, pipeline_text_encode
+
+    cfg = sonar_text_encoder_archs.get("basic")
+    corpus, tokenizer = handoff["corpus"], handoff["tokenizer"]
+    want = {"int8": ("fused_attn_block", "fused_int8_ffn"),
+            "bf16": ("short_qkv_attention", "flash_attention")}
+    for mode in ("int8", "bf16"):
+        enc = TorchTextEncoder(text_encoder_from_numpy(handoff["text_params"], cfg,
+                                                       torch.bfloat16, DEVICE),
+                               fuse_qkv=True, quantize=mode == "int8", device=DEVICE)
+        model, tree = enc.model, enc.model.params.tree()
+        if mode == "int8":  # (d)'s static batches, as predict(batching="static") makes them
+            encode = tokenizer.create_encoder(lang="eng_Latn")
+            max_len = model.max_source_len
+            batcher = StaticShapeBatcher(pad_value=tokenizer.vocab_info.pad_idx,
+                                         len_buckets=_static_len_buckets_for(max_len),
+                                         tokens_per_batch=8192)
+            batches = [(torch.from_numpy(b.seqs).to(DEVICE), torch.from_numpy(b.seq_lens).to(
+                DEVICE), b.true_batch, pos) for b, pos in batcher.batches(
+                [list(encode(t))[:max_len] for t in corpus], yield_indices=True)]
+        placed = pipeline_shard_params(tree, mesh)
+        stack = _microbatched(torch, lambda p, x, b: encoder_stack(
+            p, x, b, cfg.num_encoder_attn_heads, cfg.activation_fn, "pre"), PP_MICROBATCHES)
+
+        def run(pipelined):
+            out = []
+            with torch.inference_mode(), matmul_precision_for(torch.bfloat16):
+                for seqs, lens, n, _ in batches:
+                    emb = (pipeline_text_encode(model, placed, seqs, lens, mesh=mesh,
+                                                num_microbatches=PP_MICROBATCHES)
+                           if pipelined else
+                           model.forward_with(tree, seqs, lens, stack_fn=stack).sentence_embeddings)
+                    out.append(emb[:n])
+            return out
+
+        run(True)  # warm: kernels, allocator, the links' first transfers
+        t0 = time.perf_counter()
+        got, counts = _counted(torch, launches, lambda: run(True))
+        pp_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        plain = run(False)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t1
+        same = all(torch.equal(a, b) for a, b in zip(got, plain))
+        emb = np.zeros((len(corpus), cfg.model_dim), np.float32)
+        for (_, _, _, pos), e in zip(batches, got):
+            emb[pos] = e.float().cpu().numpy()
+        cos = _cos(emb, ref[f"d_{mode}"])
+        ok = same and cos.min() >= PP_COS and all(counts[k] > 0 for k in want[mode])
+        checks.add(f"(m1) {mode} text encoder, stage 2 (rank {mesh.model_index}), "
+                   f"{len(corpus)} sentences in {len(batches)} static batches, m "
+                   f"{PP_MICROBATCHES}", ok,
+                   f"equal to the single-rank stack run microbatch by microbatch bit for bit: "
+                   f"{same}; min cosine against (d) {cos.min():.6f} (>= {PP_COS}), max-abs "
+                   f"{np.abs(emb - ref[f'd_{mode}']).max():.3e}; launches "
+                   f"{ {k: counts[k] for k in want[mode]} } (> 0); pipelined {pp_s:.2f} s, the "
+                   f"single rank microbatched {ref_s:.2f} s", t0)
+        del enc, model, tree, placed, got, plain
+        torch.cuda.empty_cache()
+
+
+def _m1_speech(torch, checks, ref, handoff, launches, mesh):
+    """(m1), speech: the ``english`` Conformer (24 layers, 12 a stage) in
+    bf16 over (e)'s 3-40 s clips (S 299-1999) through
+    ``pipeline_speech_encode``, in (e)'s length-sorted batches of 8."""
+    from sonar_tpu_torch.assets.convert import speech_encoder_from_numpy
+    from sonar_tpu_torch.inference_pipelines.speech import TorchSpeechEncoder
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.nn.conformer import conformer_stack
+    from sonar_tpu_torch.ops.precision import matmul_precision_for
+    from sonar_tpu_torch.parallel import pipeline_shard_params, pipeline_speech_encode
+
+    cfg = sonar_speech_encoder_archs.get("english")
+    clips = handoff["speech_clips"]
+    enc = TorchSpeechEncoder(speech_encoder_from_numpy(handoff["speech_params"], cfg,
+                                                       torch.bfloat16, DEVICE), device=DEVICE)
+    model, tree = enc.model, enc.model.params.tree()
+    placed = pipeline_shard_params(tree, mesh)
+    order = sorted((i for i, w in enumerate(clips) if 3 * 16000 <= w.shape[0] <= 40 * 16000),
+                   key=lambda i: clips[i].shape[0])
+    batches = [order[k:k + 8] for k in range(0, len(order), 8)]
+    feats = [_fbank_batch(torch, enc.fbank_config, [clips[i] for i in b]) for b in batches]
+    stack = _microbatched(torch, lambda p, x, b, mk: conformer_stack(p, x, b, mk, cfg.conformer),
+                          PP_MICROBATCHES)
+
+    def run(pipelined):
+        out = []
+        with torch.inference_mode(), matmul_precision_for(torch.bfloat16):
+            for b, (f, n) in zip(batches, feats):
+                res = (pipeline_speech_encode(model, placed, f, n, mesh=mesh,
+                                              num_microbatches=PP_MICROBATCHES)
+                       if pipelined else model.forward_with(tree, f, n, stack_fn=stack))
+                out.append(res.sentence_embeddings[:len(b)])
+        return out
+
+    run(True)
+    t0 = time.perf_counter()
+    got, counts = _counted(torch, launches, lambda: run(True))
+    pp_s = time.perf_counter() - t0
+    plain = run(False)
+    same = all(torch.equal(a, b) for a, b in zip(got, plain))
+    emb = torch.cat(got).float().cpu().numpy()
+    cos = _cos(emb, ref["e_bf16"][[i for b in batches for i in b]])
+    s_max = max(int(f.shape[1]) // 2 for f, _ in feats)
+    ok = same and cos.min() >= PP_COS and counts["relpos_flash_attention_v2"] > 0
+    checks.add(f"(m1) bf16 speech encoder, stage 2 (rank {mesh.model_index}), {len(order)} clips "
+               f"in {len(batches)} batches of 8, S up to {s_max}, m {PP_MICROBATCHES}", ok,
+               f"equal to the single-rank stack run microbatch by microbatch bit for bit: {same}; "
+               f"min cosine against (e) {cos.min():.6f} (>= {PP_COS}); launches #6 "
+               f"{counts['relpos_flash_attention_v2']} (> 0); pipelined {pp_s:.2f} s", t0)
+
+
+def _m2(torch, checks, ref, handoff, launches, mesh):
+    """(m2): the ``english`` Conformer with its frames split over ``seq`` 2,
+    bf16 and fp32, on one batch of (e)'s clips: two of 45-50 s (S 2499,
+    padded to 2500) and two of 25-40 s, against the single-rank encode of
+    the same batch (which takes the plain rel-pos path too: S > 2048)."""
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import speech_encoder_from_numpy
+    from sonar_tpu_torch.inference_pipelines.speech import TorchSpeechEncoder
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.nn import conformer
+    from sonar_tpu_torch.ops.precision import matmul_precision_for
+    from sonar_tpu_torch.parallel import sequence_speech_encode
+
+    cfg = sonar_speech_encoder_archs.get("english")
+    clips = handoff["speech_clips"]
+    longest = [i for i, w in enumerate(clips) if w.shape[0] >= 45 * 16000][:2]
+    middle = [i for i, w in enumerate(clips) if 25 * 16000 <= w.shape[0] <= 40 * 16000][:2]
+    waves = [clips[i] for i in longest + middle]
+    for mode, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        enc = TorchSpeechEncoder(speech_encoder_from_numpy(handoff["speech_params"], cfg, dtype,
+                                                           DEVICE), device=DEVICE)
+        model, tree = enc.model, enc.model.params.tree()
+        feats, frame_lens = _fbank_batch(torch, enc.fbank_config, waves, even=True)
+        s = feats.shape[1] // 2
+        with torch.inference_mode(), matmul_precision_for(dtype):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            one = model.forward_with(tree, feats, frame_lens).sentence_embeddings.float()
+            torch.cuda.synchronize()
+            one_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            conformer.PLAIN_CALLS = 0
+            t0 = time.perf_counter()
+            got, counts = _counted(torch, launches, lambda: sequence_speech_encode(
+                model, tree, feats, frame_lens, mesh=mesh).sentence_embeddings.float())
+            sp_s = time.perf_counter() - t0
+            sp_peak, plain = torch.cuda.max_memory_allocated(), conformer.PLAIN_CALLS
+        got, one = got[:len(waves)].cpu().numpy(), one[:len(waves)].cpu().numpy()
+        cos, err = _cos(got, one), float(np.abs(got - one).max())
+        scale = float(np.abs(one).max())
+        ok = (np.isfinite(got).all() and plain > 0
+              and (cos.min() >= SP_COS if mode == "bf16" else err <= SP_F32_LIMIT * scale))
+        checks.add(f"(m2) {mode} speech encoder, seq 2 (rank {mesh.model_index}), "
+                   f"{len(waves)} clips at S {s} ({s // 2} frames a rank)", ok,
+                   f"against the single-rank encode: min cosine {cos.min():.6f}, max-abs "
+                   f"{err:.3e} of the scale {scale:.3g} ({'cos >= ' + str(SP_COS) if mode == 'bf16' else f'<= {SP_F32_LIMIT:g} x the scale'}); "
+                   f"plain rel-pos calls {plain}, launches {sum(counts.values())}; peak device "
+                   f"memory {(sp_peak - base) / 2**30:.3f} GiB over the {base / 2**30:.3f} GiB "
+                   f"held before, against the single rank's {(one_peak - base) / 2**30:.3f} GiB; "
+                   f"{sp_s:.2f} s", t0)
+        del enc, model, tree, feats
+        torch.cuda.empty_cache()
+
+
+def _m3(torch, checks, ref, handoff, launches, stages, seqs):
+    """(m3): one fp32 backward each of ``pipeline_text_encode`` (stage 2) and
+    ``sequence_speech_encode`` (seq 2) on (k4)'s cut models (2 layers, full
+    width) against the single-rank backward of the same loss (the sum of the
+    squared embeddings); every leaf the rank holds within (k4)'s limit of
+    its scale."""
+    import dataclasses
+
+    from sonar_tpu_torch.models.sonar_speech import SonarSpeechEncoder, sonar_speech_encoder_archs
+    from sonar_tpu_torch.models.sonar_text import SonarTextEncoder, sonar_text_encoder_archs
+    from sonar_tpu_torch.nn.core import tree_leaves
+    from sonar_tpu_torch.ops.fbank import FbankConfig
+    from sonar_tpu_torch.ops.precision import matmul_precision_for
+    from sonar_tpu_torch.parallel import pipeline_text_encode, sequence_speech_encode
+
+    def grads(tree, loss_fn):
+        leaves = tree_leaves(tree)
+        for leaf in leaves:
+            leaf.grad = None
+            leaf.requires_grad_(True)
+        with matmul_precision_for(torch.float32):
+            loss = loss_fn()
+            loss.backward()
+        return float(loss), [leaf.grad.detach().clone().cpu() for leaf in leaves]
+
+    tcfg = dataclasses.replace(sonar_text_encoder_archs.get("basic"), num_encoder_layers=2)
+    tree = _card_tree(torch, _first_layers(handoff["text_params"], 2))
+    text = SonarTextEncoder(tcfg, tree)
+    batch = _translation_batch(torch, handoff, K4_ROWS, DEVICE)
+    src, lens = batch["src_tokens"], batch["src_lens"]
+    scfg = sonar_speech_encoder_archs.get("english")
+    scfg = dataclasses.replace(scfg, conformer=dataclasses.replace(scfg.conformer, num_layers=2))
+    stree = _card_tree(torch, _first_layers(handoff["speech_params"], 2))
+    speech = SonarSpeechEncoder(scfg, stree)
+
+    waves = [w for w in handoff["speech_clips"] if 5 * 16000 <= w.shape[0] <= 10 * 16000][:2]
+    feats, frame_lens = _fbank_batch(
+        torch, FbankConfig(num_mel_bins=scfg.frontend.num_fbank_channels), waves, even=True)
+    cases = (
+        ("text", stages, tree, lambda: (pipeline_text_encode(
+            text, tree, src, lens, mesh=stages) ** 2).sum(),
+         lambda: (text.forward_with(tree, src, lens).sentence_embeddings ** 2).sum()),
+        ("speech", seqs, stree, lambda: (sequence_speech_encode(
+            speech, stree, feats, frame_lens, mesh=seqs).sentence_embeddings ** 2).sum(),
+         lambda: (speech.forward_with(stree, feats, frame_lens).sentence_embeddings ** 2).sum()),
+    )
+    for name, mesh, params, split, whole in cases:
+        t0 = time.perf_counter()
+        (loss, got), counts = _counted(torch, launches, lambda: grads(params, split))
+        base_loss, want = grads(params, whole)
+        paths = _leaf_paths(params)
+        if name == "text":  # the rank holds its stage's layer of each stacked leaf
+            def held(t, p):
+                return t[mesh.model_index:mesh.model_index + 1] if "/layers/" in p else t
+            got = [held(g, p) for g, p in zip(got, paths)]
+            want = [held(w, p) for w, p in zip(want, paths)]
+        # No ZERO_GRAD leaf here: the speech pooler's cross-attention reads
+        # every frame, so its q and k projections take real gradients.
+        err = _grad_errors(paths, got, want, zero=())
+        worst = sorted(err.items(), key=lambda kv: -kv[1])[:3]
+        loss_err = abs(loss - base_loss) / abs(base_loss)
+        ok = max(err.values()) <= TRAIN_GRAD_LIMIT and loss_err <= TRAIN_LOSS_LIMIT and not any(
+            counts.values())
+        checks.add(f"(m3) fp32 backward of {name} encode, "
+                   f"{'stage' if name == 'text' else 'seq'} 2 (rank {mesh.model_index}), 2 "
+                   f"layers at full width", ok,
+                   f"loss {loss:.6f} against the single rank's {base_loss:.6f} (rel "
+                   f"{loss_err:.3e} <= {TRAIN_LOSS_LIMIT:g}); {len(paths)} leaves, worst "
+                   f"{[(p, f'{e:.3e}') for p, e in worst]} of the scale (<= "
+                   f"{TRAIN_GRAD_LIMIT:g}); launches {sum(counts.values())} (0: autograd "
+                   f"records)", t0)
+    del tree, stree, text, speech
+    torch.cuda.empty_cache()
+
+
+def _scaleout_m(torch, checks, ref, handoff, launches):
+    """(m): two ranks sharing the card over gloo; the (data 1, stage 2) and
+    (data 1, seq 2) meshes made in that order on both."""
+    from sonar_tpu_torch.parallel import make_pipeline_mesh, make_seq_mesh
+
+    stages, seqs = make_pipeline_mesh(2, 1), make_seq_mesh(2, 1)
+    for label, part in (("(m1) text", lambda: _m1_text(torch, checks, ref, handoff, launches,
+                                                        stages)),
+                        ("(m1) speech", lambda: _m1_speech(torch, checks, ref, handoff,
+                                                           launches, stages)),
+                        ("(m2)", lambda: _m2(torch, checks, ref, handoff, launches, seqs)),
+                        ("(m3)", lambda: _m3(torch, checks, ref, handoff, launches, stages,
+                                             seqs))):
+        t0 = time.perf_counter()
+        part()
+        torch.cuda.empty_cache()
+        log(f"(m) part {label} took {time.perf_counter() - t0:.1f} s")
+
+
+def pipeline_refs(handoff):
+    """What (m)'s children read: (d)'s static embeddings and (e)'s bf16 ones
+    (``ref_m.npz``)."""
+    import numpy as np
+
+    SCALEOUT_DIR.mkdir(parents=True, exist_ok=True)
+    np.savez(SCALEOUT_DIR / "ref_m.npz", d_int8=handoff["static_embeddings"]["int8"],
+             d_bf16=handoff["static_embeddings"]["bf16"],
+             e_bf16=handoff["speech_embeddings"]["bf16"])
 
 
 # -- --compare: this checkout against others, in turns, on one card ------------------
@@ -3572,7 +3955,7 @@ def main() -> int:
     mined = phase("(i)", run_mining, torch, card)
     served = phase("(j)", run_serving, torch, card, handoff)
     trained = phase("(k)", run_training, torch, card, handoff)
-    scaled = phase("(l)", run_scaleout, torch, card, handoff)
+    scaled = phase("(l) and (m)", run_scaleout, torch, card, handoff)
     launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest, mined, served,
                                                  trained, scaled))
                 for name in KERNELS}

@@ -15,7 +15,7 @@ in the backward pass (training).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 from sonar_tpu_torch.models.common import ParamTree, SonarEncoderOutput
 from sonar_tpu_torch.models.sonar_speech.config import SonarSpeechEncoderConfig
@@ -61,8 +61,13 @@ class SonarSpeechEncoder(nn.Module):
         return x, torch.div(frame_lens, stride, rounding_mode="floor")
 
     def forward_with(self, params: Params, fbank: torch.Tensor,
-                     frame_lens: Optional[torch.Tensor] = None) -> SonarEncoderOutput:
-        """fbank [B, T, num_mel] float; frame_lens [B] valid frame counts."""
+                     frame_lens: Optional[torch.Tensor] = None,
+                     stack_fn: Optional[Callable] = None) -> SonarEncoderOutput:
+        """fbank [B, T, num_mel] float; frame_lens [B] valid frame counts.
+
+        ``stack_fn(stacked_layer_params, x, attn_bias, pad_mask) -> x``
+        replaces the Conformer stack when given: the seam
+        ``parallel.pipeline`` and ``parallel.sequence`` plug into."""
         cfg = self.config
         if frame_lens is None:
             frame_lens = torch.full((fbank.shape[0],), fbank.shape[1], dtype=torch.int32,
@@ -70,8 +75,11 @@ class SonarSpeechEncoder(nn.Module):
         x, seq_lens = self.frontend(params["encoder_frontend"], fbank, frame_lens)
         mask = length_mask(seq_lens, x.shape[1])
         bias = additive_bias(mask)[:, None, None, :]
-        x = conformer_stack(params["encoder"]["layers"], x, bias, mask, cfg.conformer,
-                            remat=self.remat)
+        if stack_fn is not None:
+            x = stack_fn(params["encoder"]["layers"], x, bias, mask)
+        else:
+            x = conformer_stack(params["encoder"]["layers"], x, bias, mask, cfg.conformer,
+                                remat=self.remat)
         encoded = layer_norm(params["layer_norm"], x)
         pooled = attention_pool(
             params["encoder_pooler"], self.pooler_frontend, encoded, seq_lens,

@@ -20,7 +20,7 @@ leading L axis), so ``state_dict()`` names follow the checkpoint layout.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 from sonar_tpu_torch.models.common import ParamTree, SonarEncoderOutput
 from sonar_tpu_torch.models.sonar_text.config import SonarTextEncoderConfig
@@ -79,22 +79,29 @@ class SonarTextEncoder(nn.Module):
 
     def forward_with(self, params: Params, seqs: torch.Tensor,
                      seq_lens: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None) -> SonarEncoderOutput:
+                     generator: Optional[torch.Generator] = None,
+                     stack_fn: Optional[Callable] = None) -> SonarEncoderOutput:
         """seqs: [B, S] int token ids; seq_lens: [B] or None; ``generator``
         turns the frontend's dropout on (training). The attention pooler's
         frontend gets none: the JAX model splits its key in two but passes
-        the pooler neither half, so its pooler never drops."""
+        the pooler neither half, so its pooler never drops.
+
+        ``stack_fn(stacked_layer_params, x, bias) -> x`` replaces the layer
+        stack when given: the seam ``parallel.pipeline`` plugs into."""
         cfg = self.config
         bias = None
         if seq_lens is not None:
             bias = additive_bias(length_mask(seq_lens, seqs.shape[1]))[:, None, None, :]
         x = self.frontend(params["encoder_frontend"], seqs, dtype=self.dtype,
                           generator=generator)
-        x = encoder_stack(
-            params["encoder"]["layers"], x, bias,
-            cfg.num_encoder_attn_heads, cfg.activation_fn, norm_order="pre",
-            remat=self.remat,
-        )
+        if stack_fn is not None:
+            x = stack_fn(params["encoder"]["layers"], x, bias)
+        else:
+            x = encoder_stack(
+                params["encoder"]["layers"], x, bias,
+                cfg.num_encoder_attn_heads, cfg.activation_fn, norm_order="pre",
+                remat=self.remat,
+            )
         if "layer_norm" in params["encoder"]:
             x = layer_norm(params["encoder"]["layer_norm"], x)
         encoded = layer_norm(params["layer_norm"], x)

@@ -35,7 +35,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 from sonar_tpu_torch.nn.core import Params, layer_norm, linear, row_linear
@@ -221,20 +221,32 @@ def rel_pos_attention(
 # -- convolution module --------------------------------------------------------
 
 
-def conv_module(params: Params, x: torch.Tensor, pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+def conv_halo(params: Params) -> Tuple[int, int]:
+    """The depthwise conv's frames of context before and after a frame:
+    (K - 1) // 2 and the rest."""
+    ksize = params["depthwise_conv"]["kernel"].shape[0]
+    return (ksize - 1) // 2, ksize - 1 - (ksize - 1) // 2
+
+
+def conv_module(params: Params, x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                extend: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """[B, S, D] -> [B, S, D]: pointwise (2D) + GLU -> depthwise conv (groups
     D, zero padding (K - 1) // 2 before and the rest after) -> inference
     batch-norm in fp32 -> SiLU -> pointwise. Padded positions are zeroed
-    first, so nothing leaks across the padding boundary."""
+    first, so nothing leaks across the padding boundary. ``extend(y)``
+    replaces the zero padding of the GLU's output [B, S, D] by the
+    ``conv_halo`` frames it returns around y (``parallel.sequence``: the
+    neighbouring shards' frames)."""
     if pad_mask is not None:
         x = torch.where(pad_mask[..., None], x, x.new_zeros(()))
     y = linear(params["pointwise_conv1"], x)
     a, g = y.chunk(2, dim=-1)
     y = a * torch.sigmoid(g)                                             # GLU
     kernel = params["depthwise_conv"]["kernel"].to(x.dtype)              # [K, 1, D]
-    ksize = kernel.shape[0]
-    pad = (ksize - 1) // 2
-    y = torch.nn.functional.pad(y.transpose(1, 2), (pad, ksize - 1 - pad))
+    if extend is None:
+        y = torch.nn.functional.pad(y.transpose(1, 2), conv_halo(params))
+    else:
+        y = extend(y).transpose(1, 2)
     y = torch.nn.functional.conv1d(y, kernel.permute(2, 1, 0), groups=y.shape[1])
     y = y.transpose(1, 2)
     bn = params["batch_norm"]

@@ -6,10 +6,13 @@ port issues them itself, each on a named ``Group`` (one axis of a
 ``parallel.mesh.Mesh``):
 
 - ``all_sum`` / ``all_max``: an ``all_reduce`` of a copy;
-- ``broadcast_from``: the first rank's tensor to every rank of the group;
+- ``broadcast_from``: one rank's tensor to every rank of the group (the
+  first by default); on a group of two it is a point-to-point send, the
+  pipeline's stage-to-stage transfer (``parallel.pipeline``);
 - ``gather_blocks``: each rank's equal block, concatenated in rank order,
   written as a sum into a buffer of ``-0.0`` (x + -0.0 is x for every float
   x, -0.0 included, so the gather is exact to the bit);
+- ``take_block``: this rank's equal block of a tensor every rank holds;
 - ``any_over``: one host boolean agreed across the group.
 
 Every collective is an ``all_reduce`` or a ``broadcast``: gloo takes CUDA
@@ -31,6 +34,24 @@ the same gradient, and that backward would multiply it by the group size.
   and, on the data group, on the losses' sums (every data rank reads the
   global loss; each one's gradient is its own rows' part).
 
+The pipeline and sequence-parallel functions (``parallel.pipeline``,
+``parallel.sequence``) give every rank the global input and return the
+global output on every rank; a backward of a loss that every rank computes
+alike then leaves each rank with the single-device gradient of the input and
+of every leaf it holds. That fixes the backward of each gather and split:
+
+- ``take_block`` (the rank's rows or frames out of the input): the
+  gradient's blocks gathered, so every rank holds the whole input gradient;
+- ``gather_blocks`` of an output (``sum_grad=False``): the rank's slice of
+  the gradient alone. Every rank already holds the same whole gradient, and
+  a sum would multiply it by the group size;
+- ``gather_blocks`` inside a layer (``sum_grad=True``: the sequence-parallel
+  K and V, the depthwise convolution's halo): the gradient summed over the
+  group, then sliced. Rank j's K block takes gradient from every rank's
+  queries;
+- ``copy_to_group`` on each leaf that several ranks hold and use on
+  different rows or frames: their partial gradients summed.
+
 ``model_parallel(group)`` / ``data_parallel(group)`` name the groups that
 the layers and the losses reduce over (context variables, so each thread
 of a server sets its own); outside them both are None.
@@ -43,6 +64,7 @@ import contextvars
 from dataclasses import dataclass
 from typing import Any, Iterator, Optional, Sequence, Tuple
 
+from sonar_tpu_torch.ops.gates import records_grad
 import torch
 import torch.distributed as dist
 
@@ -82,18 +104,15 @@ def all_max(x: torch.Tensor, group: Group) -> torch.Tensor:
     return y
 
 
-def broadcast_from(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """The group's first rank's ``x`` on every rank (in place)."""
+def broadcast_from(x: torch.Tensor, group: Group, index: int = 0) -> torch.Tensor:
+    """The ``x`` of the group's rank ``index`` (the first by default) on
+    every rank (in place: the others pass a buffer of its shape)."""
     if group.size > 1:
-        dist.broadcast(x, src=group.ranks[0], group=group.pg)
+        dist.broadcast(x, src=group.ranks[index], group=group.pg)
     return x
 
 
-def gather_blocks(block: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``block`` (equal shapes) concatenated along ``dim`` in
-    rank order, bit for bit."""
-    if group.size == 1:
-        return block
+def _gather(block: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     shape = list(block.shape)
     n = shape[dim]
     shape[dim] = n * group.size
@@ -102,6 +121,63 @@ def gather_blocks(block: torch.Tensor, group: Group, dim: int = 0) -> torch.Tens
     out.narrow(dim, group.index * n, n).copy_(block)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group.pg)
     return out
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: Any, block: torch.Tensor, group: Group, dim: int,
+                sum_grad: bool) -> torch.Tensor:
+        ctx.group, ctx.dim, ctx.sum_grad, ctx.n = group, dim, sum_grad, block.shape[dim]
+        return _gather(block, group, dim)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
+        if ctx.sum_grad:
+            grad = all_sum(grad.contiguous(), ctx.group)
+        return grad.narrow(ctx.dim, ctx.group.index * ctx.n, ctx.n), None, None, None
+
+
+def gather_blocks(block: torch.Tensor, group: Group, dim: int = 0,
+                  sum_grad: bool = False) -> torch.Tensor:
+    """Every rank's ``block`` (equal shapes) concatenated along ``dim`` in
+    rank order, bit for bit. Under autograd the block's gradient is the
+    rank's slice of the output's, summed over the group first when
+    ``sum_grad`` (a gather inside a layer; the module docstring says which
+    site takes which)."""
+    if group.size == 1:
+        return block
+    if records_grad(block):
+        return _GatherBlocks.apply(block, group, dim, sum_grad)
+    return _gather(block, group, dim)
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // group.size
+        return x.narrow(dim, group.index * n, n).clone()
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
+        return _gather(grad.contiguous(), ctx.group, ctx.dim), None, None
+
+
+def take_block(x: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``, which every rank holds
+    whole: the ``group.index``-th of ``group.size`` equal blocks. Under
+    autograd its gradient is the blocks' gradients gathered (so every rank
+    holds the whole gradient of ``x``). Raises when ``dim`` does not
+    divide."""
+    if x.shape[dim] % group.size:
+        raise ValueError(f"{x.shape[dim]} rows or frames do not split over a group of "
+                         f"{group.size} ranks")
+    if group.size == 1:
+        return x
+    if records_grad(x):
+        return _TakeBlock.apply(x, group, dim)
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, group.index * n, n)
 
 
 def any_over(flag: bool, group: Group, device: Any) -> bool:

@@ -8,6 +8,14 @@ and its two subgroups: ``data_group`` (the ranks of its model column, which
 hold the same weights and different rows) and ``model_group`` (the ranks of
 its data row, which hold the same rows and different slices of the weights).
 
+The second axis carries a name: ``model`` (``make_mesh``, tensor
+parallelism: the runtimes, the train step and ``shard_params`` take only
+this one), ``stage`` (``parallel.pipeline.make_pipeline_mesh``, whose mesh
+also holds the two-rank groups that link each stage to its neighbours) or
+``seq`` (``parallel.sequence.make_seq_mesh``), in the same rank order;
+``mesh.group(name)`` is its group either way, and ``expect_axis`` refuses a
+mesh of another kind.
+
 The split rules are the JAX package's (``_spec_for_path``), with its
 fallback to a whole copy when a dimension does not divide:
 
@@ -36,7 +44,7 @@ whole, as in JAX: the frontends and the tied projection know the full size.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from sonar_tpu_torch.ops.quantization import column_major, is_column_major
 from sonar_tpu_torch.parallel.comm import SINGLE, Group, broadcast_from
@@ -50,8 +58,11 @@ _ROW = ("output_proj",)
 
 @dataclass(frozen=True)
 class Mesh:
-    """A (data, model) grid over the world; ``rank`` is the global rank and
-    ``data_index`` / ``model_index`` its coordinates."""
+    """A (data, ``axis``) grid over the world; ``rank`` is the global rank
+    and ``data_index`` / ``model_index`` its coordinates. ``model`` is the
+    size of the second axis, whatever its name; ``links`` are a pipeline
+    mesh's groups of this rank with the previous and the next stage (None at
+    either end, and on other meshes)."""
 
     data: int
     model: int
@@ -59,6 +70,8 @@ class Mesh:
     data_group: Group
     model_group: Group
     world: Group
+    axis: str = "model"
+    links: Tuple[Optional[Group], Optional[Group]] = (None, None)
 
     @property
     def data_index(self) -> int:
@@ -68,8 +81,13 @@ class Mesh:
     def model_index(self) -> int:
         return self.rank % self.model
 
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Each axis's size by name (JAX's ``Mesh.shape``)."""
+        return {"data": self.data, self.axis: self.model}
+
     def group(self, axis: str) -> Group:
-        if axis not in ("data", "model"):
+        if axis not in ("data", self.axis):
             raise ValueError(f"unknown mesh axis: {axis!r}")
         return self.data_group if axis == "data" else self.model_group
 
@@ -77,6 +95,15 @@ class Mesh:
 # The mesh of one process alone: the runtimes and the train step given no
 # mesh run on it (every group of one rank, so no collective is issued).
 SINGLE_MESH = Mesh(data=1, model=1, rank=0, data_group=SINGLE, model_group=SINGLE, world=SINGLE)
+
+
+def expect_axis(mesh: Mesh, axis: str) -> None:
+    """Raise ``ValueError`` unless ``mesh``'s second axis is ``axis``: a
+    runtime's ``mesh=`` takes a (data, model) mesh, the pipeline functions a
+    (data, stage) one and the sequence-parallel ones a (data, seq) one."""
+    if mesh.axis != axis:
+        raise ValueError(f"this function takes a (data, {axis}) mesh, not a "
+                         f"(data, {mesh.axis}) one")
 
 
 def _group(ranks: Tuple[int, ...], rank: int, pgs: Dict[Tuple[int, ...], Any]) -> Group:
@@ -88,34 +115,45 @@ def make_mesh(data: int = -1, model: int = 1) -> Mesh:
     every rank not taken by ``model``). Without a process group the world is
     this one process, and only a 1 x 1 mesh exists. Every rank must call it,
     in the same order as its other group creations."""
+    return make_axis_mesh("model", model, data)
+
+
+def make_axis_mesh(axis: str, size: int, data: int = -1) -> Mesh:
+    """``make_mesh`` with the second axis named ``axis`` (``model``,
+    ``stage`` or ``seq``) of ``size`` ranks. A ``stage`` mesh also creates
+    the two-rank group of each pair of neighbouring stages."""
     if dist.is_available() and dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
     else:
         world, rank = 1, 0
-    if model < 1 or world % model:
-        raise ValueError(f"model={model} does not divide the world of {world} ranks")
+    if size < 1 or world % size:
+        raise ValueError(f"{axis}={size} does not divide the world of {world} ranks")
     if data == -1:
-        data = world // model
-    if data * model != world:
+        data = world // size
+    if data * size != world:
         raise ValueError(
-            f"a {data} x {model} mesh needs {data * model} ranks, the world has {world}"
+            f"a {data} x {size} mesh needs {data * size} ranks, the world has {world}"
             + ("" if world > 1 else ": initialize a process group first "
                "(parallel.multihost.initialize)"))
-    columns = [tuple(d * model + m for d in range(data)) for m in range(model)]
-    rows = [tuple(d * model + m for m in range(model)) for d in range(data)]
+    columns = [tuple(d * size + m for d in range(data)) for m in range(size)]
+    rows = [tuple(d * size + m for m in range(size)) for d in range(data)]
+    pairs = [row[i:i + 2] for row in rows for i in range(size - 1)] if axis == "stage" else []
     pgs: Dict[Tuple[int, ...], Any] = {}
     if world > 1:
         # new_group is collective: every rank creates every group, in order.
-        for ranks in columns + rows:
-            if len(ranks) > 1:
+        for ranks in columns + rows + pairs:
+            if len(ranks) > 1 and ranks not in pgs:
                 pgs[ranks] = dist.new_group(list(ranks))
         pgs[tuple(range(world))] = dist.group.WORLD
-    mine = rank % model, rank // model
+    mine = rank % size, rank // size
+    links = tuple(_group(pair, rank, pgs) if pair in pairs else None
+                  for pair in ((rank - 1, rank), (rank, rank + 1)))
     return Mesh(
-        data=data, model=model, rank=rank,
+        data=data, model=size, rank=rank,
         data_group=_group(columns[mine[0]], rank, pgs),
         model_group=_group(rows[mine[1]], rank, pgs),
         world=_group(tuple(range(world)), rank, pgs) if world > 1 else SINGLE,
+        axis=axis, links=links,
     )
 
 
@@ -206,7 +244,9 @@ def _local(path: str, leaf: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tenso
 def shard_params(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """This rank's slice of every leaf of ``params`` (the whole tree, the same
     on every rank) under the split rules; leaves kept whole are returned as
-    they are. Raises when an attention or FFN leaf does not divide."""
+    they are. Raises when an attention or FFN leaf does not divide, or for a
+    mesh whose second axis is not ``model``."""
+    expect_axis(mesh, "model")
     if mesh.model == 1:
         return params
     specs = dict(_walk(param_shardings(params, mesh)))

@@ -66,7 +66,13 @@ from sonar_tpu_torch.parallel.comm import (
     model_parallel,
     sum_over_group,
 )
-from sonar_tpu_torch.parallel.mesh import SINGLE_MESH, Mesh, data_sharding, shard_params
+from sonar_tpu_torch.parallel.mesh import (
+    SINGLE_MESH,
+    Mesh,
+    data_sharding,
+    expect_axis,
+    shard_params,
+)
 import torch
 import torch.nn.functional as F
 
@@ -220,8 +226,10 @@ def make_train_step(loss_fn: LossFn,
     which must divide by the mesh's ``data``, as JAX's sharding requires.
     Without ``mesh`` the step runs on ``SINGLE_MESH``, this process alone;
     over a mesh it runs as the module docstring says, and the loss returned
-    is the global batch's."""
+    is the global batch's. A mesh whose second axis is not ``model``
+    raises ``ValueError``."""
     mesh = SINGLE_MESH if mesh is None else mesh
+    expect_axis(mesh, "model")
 
     def step(state: TrainState, batch: Batch,
              generator: Optional[torch.Generator] = None) -> Tuple[TrainState, torch.Tensor]:

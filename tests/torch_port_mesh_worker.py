@@ -1,6 +1,7 @@
 """Ranks of a small gloo world for the port's scale-out tests.
 
-``run_world(suite, world, workdir)`` starts ``world`` copies of this module
+``run_world(suite, world, workdir)`` (or ``start_world`` and then
+``finish_world``) starts ``world`` copies of this module
 as subprocesses, each ``python torch_port_mesh_worker.py SUITE RANK WORLD
 WORKDIR``. Each joins a gloo process group through a file in ``workdir``
 (``init_method="file://..."``, so that concurrent test workers never fight
@@ -31,15 +32,21 @@ LAYOUTS = ((2, 2), (4, 1), (1, 4))  # the (data, model) meshes of a world of 4
 # -- the launcher (run by the tests) ------------------------------------------
 
 
-def run_world(suite: str, world: int, workdir: Path, timeout: float = 150.0) -> List[Dict]:
-    """Run ``suite`` on ``world`` ranks; -> each rank's outputs (a tree)."""
+def start_world(suite: str, world: int, workdir: Path) -> List[subprocess.Popen]:
+    """Start ``suite`` on ``world`` ranks; ``finish_world`` collects them
+    (the test computes its references meanwhile)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     env.pop("XLA_FLAGS", None)
-    procs = [subprocess.Popen([sys.executable, __file__, suite, str(r), str(world), str(workdir)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              env=env, cwd=str(workdir))
-             for r in range(world)]
+    return [subprocess.Popen([sys.executable, __file__, suite, str(r), str(world), str(workdir)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             env=env, cwd=str(workdir))
+            for r in range(world)]
+
+
+def finish_world(procs: List[subprocess.Popen], suite: str, workdir: Path,
+                 timeout: float = 150.0) -> List[Dict]:
+    """Wait for the ranks of ``start_world``; -> each rank's outputs (a tree)."""
     outs = []
     try:
         for rank, p in enumerate(procs):
@@ -55,7 +62,21 @@ def run_world(suite: str, world: int, workdir: Path, timeout: float = 150.0) -> 
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"MESH_WORKER_OK {rank}" in out, (
             f"rank {rank} of {suite} failed (exit {p.returncode}):\n{out[-4000:]}")
-    return [load_params(workdir / f"out_{r}.npz") for r in range(world)]
+    return [load_params(workdir / f"out_{r}.npz") for r in range(len(procs))]
+
+
+def run_world(suite: str, world: int, workdir: Path, timeout: float = 150.0) -> List[Dict]:
+    """Run ``suite`` on ``world`` ranks; -> each rank's outputs (a tree)."""
+    return finish_world(start_world(suite, world, workdir), suite, workdir, timeout)
+
+
+def grad_error(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray]) -> float:
+    """The largest error of the gradient leaves ``got`` against ``want`` (by
+    path), each over its leaf's scale: the leaf's max-abs, floored at a
+    thousandth of the largest leaf's (``test_torch_port_mesh_training.py``'s
+    form; <= 1e-4 passes there)."""
+    floor = 1e-3 * max(np.abs(w).max() for w in want.values())
+    return max(np.abs(got[p] - w).max() / max(np.abs(w).max(), floor) for p, w in want.items())
 
 
 # -- the suites (run in the ranks) --------------------------------------------
@@ -344,9 +365,162 @@ def suite_multihost(inp: Dict[str, Any], workdir: Path) -> Dict[str, Any]:
             "mine": {"src": src, "tgt": tgt, "sc": sc}}
 
 
+PP_CASES = ((4, 2, 4), (4, 2, 2), (2, 4, 3), (8, 1, 8))  # (stage, data, microbatches)
+SP_CASES = ((4, 2, 24), (2, 4, 16), (8, 1, 32))  # (seq, data, S)
+
+
+def _torch(tree: Dict[str, Any], dtype: Any = None) -> Dict[str, Any]:
+    import torch
+
+    def leaf(a: np.ndarray) -> Any:
+        t = torch.tensor(np.array(a))
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+    return {k: _torch(v, dtype) if isinstance(v, dict) else leaf(v) for k, v in tree.items()}
+
+
+def _refusal(fn: Callable[[], Any]) -> np.ndarray:
+    """The message of the ValueError ``fn`` raises ("" when it returns)."""
+    try:
+        fn()
+    except ValueError as err:
+        return np.array(str(err))
+    return np.array("")
+
+
+def _loss_grads(fn: Callable, tree: Dict[str, Any], x: Any) -> Dict[str, Any]:
+    """The gradients of sum(fn(tree, x) ** 2) over every leaf of ``tree``
+    and over ``x``."""
+    import torch
+    from sonar_tpu_torch.assets.checkpoint import unflatten_params
+
+    leaves = {k: torch.tensor(v, requires_grad=True) for k, v in flatten_params(tree).items()}
+    x = x.clone().requires_grad_(True)
+    (fn(unflatten_params(leaves), x) ** 2).sum().backward()
+    return {"params": unflatten_params({k: _np(v.grad) for k, v in leaves.items()}),
+            "x": _np(x.grad)}
+
+
+def suite_pipeline(inp: Dict[str, Any], workdir: Path) -> Dict[str, Any]:
+    import dataclasses
+
+    import torch
+    from sonar_tpu_torch.assets.convert import speech_encoder_from_numpy, text_encoder_from_numpy
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.models.sonar_text import sonar_text_encoder_archs
+    from sonar_tpu_torch.nn.conformer import ConformerConfig
+    from sonar_tpu_torch.ops.quantization import is_column_major, quantize_params_int8
+    from sonar_tpu_torch.parallel import pipeline as pp
+
+    data = inp["data"]
+    meshes = {(s, d): pp.make_pipeline_mesh(s, d) for s, d in ((4, 2), (2, 4), (8, 1))}
+    cfg = dataclasses.replace(sonar_text_encoder_archs.get("toy"), model_dim=64,
+                              ffn_inner_dim=256, num_encoder_attn_heads=4, num_encoder_layers=4)
+    heads, act = cfg.num_encoder_attn_heads, cfg.activation_fn
+    t = {k: torch.from_numpy(v) for k, v in data.items() if k != "conformer_cfg"}
+    out: Dict[str, Any] = {}
+    for stage, d, m in PP_CASES:
+        layers = _torch(inp[f"layers{8 if stage == 8 else 4}"])
+        out[f"stack_{stage}x{d}x{m}"] = pp.pipeline_encoder_stack(
+            layers, t[f"x_{stage}x{d}x{m}"], t[f"bias_{stage}x{d}x{m}"], heads, act,
+            meshes[stage, d], num_microbatches=m)
+    layers = _torch(inp["layers4"])
+    out["nobias"] = pp.pipeline_encoder_stack(layers, t["x_nobias"], None, heads, act,
+                                              meshes[4, 2], num_microbatches=4)
+    bf16 = _torch(inp["layers4"], torch.bfloat16)
+    out["bf16"] = pp.pipeline_encoder_stack(bf16, t["x_bf16"].to(torch.bfloat16), None, heads,
+                                            act, meshes[4, 2], num_microbatches=4)
+    int8 = quantize_params_int8(layers)
+    out["int8"] = pp.pipeline_encoder_stack(int8, t["x_int8"], None, heads, act, meshes[4, 2],
+                                            num_microbatches=4)
+    placed = pp.pipeline_shard_params({"encoder": {"layers": int8}}, meshes[4, 2])
+    out["int8_placed"] = pp.pipeline_encoder_stack(placed["encoder"]["layers"], t["x_int8"],
+                                                   None, heads, act, meshes[4, 2],
+                                                   num_microbatches=4)
+    kernels = [v for k, v in _flat_torch(placed).items() if k.endswith("kernel_q")]
+    out["int8_column_major"] = np.array([is_column_major(k) for k in kernels])
+    for remat in (False, True):
+        out[f"grads_remat{int(remat)}"] = _loss_grads(
+            lambda p, x: pp.pipeline_encoder_stack(p, x, None, heads, act, meshes[4, 2],
+                                                   num_microbatches=4, remat=remat),
+            inp["layers4"], t["x_grads"])
+    out["refusal"] = _refusal(lambda: pp.pipeline_encoder_stack(
+        layers, torch.zeros(8, 4, 64), None, heads, act, meshes[8, 1]))
+
+    text = text_encoder_from_numpy(inp["text"], cfg)
+    placed = pp.pipeline_shard_params(text.params.tree(), meshes[4, 2])
+    out["text_encode"] = pp.pipeline_text_encode(text, placed, t["seqs"], t["lens"],
+                                                 mesh=meshes[4, 2], num_microbatches=4)
+    placed = pp.pipeline_shard_params(text.params.tree(), meshes[2, 4])
+    out["default_m"] = pp.pipeline_text_encode(text, placed, t["seqs8"], t["lens8"],
+                                               mesh=meshes[2, 4])
+
+    ccfg = ConformerConfig(**{k: int(v) for k, v in data["conformer_cfg"].items()})
+    out["conformer"] = pp.pipeline_conformer_stack(
+        _torch(inp["conformer"]), t["cx"], t["cbias"], t["cmask"], ccfg, meshes[4, 2],
+        num_microbatches=4)
+    speech = speech_encoder_from_numpy(inp["speech"], sonar_speech_encoder_archs.get("toy"))
+    got = pp.pipeline_speech_encode(speech, pp.pipeline_shard_params(
+        speech.params.tree(), meshes[2, 4]), t["fbank"], t["frame_lens"], mesh=meshes[2, 4],
+        num_microbatches=2)
+    out["speech_emb"], out["speech_encoded"] = got.sentence_embeddings, got.encoded_seqs
+    return out
+
+
+def _flat_torch(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat_torch(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def suite_sequence(inp: Dict[str, Any], workdir: Path) -> Dict[str, Any]:
+    import torch
+    from sonar_tpu_torch.assets.convert import speech_encoder_from_numpy
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.nn.conformer import ConformerConfig
+    from sonar_tpu_torch.parallel import sequence as sp
+
+    data = inp["data"]
+    meshes = {(n, d): sp.make_seq_mesh(n, d) for n, d in ((4, 2), (2, 4), (8, 1), (1, 8))}
+    cfg = ConformerConfig(**{k: int(v) for k, v in data["conformer_cfg"].items()})
+    one = ConformerConfig(**{**{k: int(v) for k, v in data["conformer_cfg"].items()},
+                             "num_layers": 1})
+    t = {k: torch.from_numpy(v) for k, v in data.items() if k != "conformer_cfg"}
+    stack2, stack1 = _torch(inp["conformer2"]), _torch(inp["conformer1"])
+    out: Dict[str, Any] = {}
+    for n, d, s in SP_CASES:
+        key = f"{n}x{d}x{s}"
+        out[f"stack_{key}"] = sp.sequence_conformer_stack(
+            stack2, t[f"x_{key}"], t[f"bias_{key}"], t[f"mask_{key}"], cfg, meshes[n, d])
+    out["halo"] = sp.sequence_conformer_stack(stack1, t["x_halo"], t["bias_halo"],
+                                              t["mask_halo"], one, meshes[8, 1])
+    out["nomask"] = sp.sequence_conformer_stack(stack2, t["x_nomask"], None, None, cfg,
+                                                meshes[4, 2])
+    speech = speech_encoder_from_numpy(inp["speech"], sonar_speech_encoder_archs.get("toy"))
+    got = sp.sequence_speech_encode(speech, speech.params.tree(), t["fbank"], t["frame_lens"],
+                                    mesh=meshes[4, 2])
+    out["speech_emb"], out["speech_encoded"] = got.sentence_embeddings, got.encoded_seqs
+    out["refuse_indivisible"] = _refusal(lambda: sp.sequence_conformer_stack(
+        stack2, t["x_30"], t["bias_30"], t["mask_30"], cfg, meshes[4, 2]))
+    out["refuse_bias"] = _refusal(lambda: sp.sequence_conformer_stack(
+        stack2, t["x_32"], t["bad_bias"], t["mask_32"], cfg, meshes[4, 2]))
+    out["refuse_halo"] = _refusal(lambda: sp.sequence_conformer_stack(
+        stack2, t["x_16"], t["bias_16"], t["mask_16"], cfg, meshes[8, 1]))
+    out["grads"] = _loss_grads(
+        lambda p, x: sp.sequence_conformer_stack(p, x, t["bias_grads"], t["mask_grads"], cfg,
+                                                 meshes[4, 2]),
+        inp["conformer2"], t["x_grads"])
+    out["seq1"] = sp.sequence_conformer_stack(stack2, t["x_seq1"], t["bias_seq1"],
+                                              t["mask_seq1"], cfg, meshes[1, 8])
+    return out
+
+
 SUITES: Dict[str, Callable] = {
     "encode": suite_encode, "decode": suite_decode, "train": suite_train,
-    "mining": suite_mining, "multihost": suite_multihost,
+    "mining": suite_mining, "multihost": suite_multihost, "pipeline": suite_pipeline,
+    "sequence": suite_sequence,
 }
 
 

@@ -14,6 +14,8 @@ pytest.importorskip("torch")
 import sonar_tpu  # noqa: E402
 import sonar_tpu.huggingface  # noqa: E402
 import sonar_tpu.inference_pipelines  # noqa: E402
+import sonar_tpu.parallel.pipeline  # noqa: E402
+import sonar_tpu.parallel.sequence  # noqa: E402
 import sonar_tpu_torch  # noqa: E402
 import sonar_tpu_torch.huggingface  # noqa: E402
 import sonar_tpu_torch.inference_pipelines  # noqa: E402
@@ -81,6 +83,27 @@ def test_subpackage_names_resolve(sub, names):
         assert getattr(mod, name) is not None
     with pytest.raises(AttributeError):
         getattr(mod, "no_such_name")
+
+
+def _module_functions(mod):
+    """A module's ``__all__``, or else the public functions it defines."""
+    if hasattr(mod, "__all__"):
+        return sorted(mod.__all__)
+    return sorted(n for n, v in vars(mod).items() if not n.startswith("_") and callable(v)
+                  and getattr(v, "__module__", None) == mod.__name__)
+
+
+@pytest.mark.parametrize("name", _module_functions(sonar_tpu.parallel.pipeline)
+                         + _module_functions(sonar_tpu.parallel.sequence))
+def test_pipeline_and_sequence_names_resolve(name):
+    """Every public name of the JAX package's ``parallel.pipeline`` and
+    ``parallel.sequence`` is the port's own on ``sonar_tpu_torch.parallel``."""
+    import sonar_tpu_torch.parallel
+
+    got = getattr(sonar_tpu_torch.parallel, name)
+    assert got.__name__ == name
+    assert got.__module__ in ("sonar_tpu_torch.parallel.pipeline",
+                              "sonar_tpu_torch.parallel.sequence")
 
 
 def test_import_stays_light():

@@ -176,6 +176,17 @@ assert np.array_equal(memb, emb), (memb, emb)
 want = cosine_topk(bank[:8], bank, 3, dot_dtype="int8", device="cpu")
 got = sharded_cosine_topk(bank[:8], bank, 3, mesh, dot_dtype="int8", device="cpu")
 assert all(torch.equal(a, b) for a, b in zip(got, want))
+from sonar_tpu_torch.parallel import (
+    make_pipeline_mesh, make_seq_mesh, pipeline_text_encode, sequence_speech_encode)
+with torch.no_grad():
+    lens = torch.tensor([4, 2])
+    assert torch.equal(pipeline_text_encode(enc, enc.params.tree(), ids, lens,
+                                            mesh=make_pipeline_mesh(1)),
+                       enc(ids, lens).sentence_embeddings)
+    fb, fl = torch.from_numpy(rng.standard_normal((2, 40, 8)).astype(np.float32)), torch.tensor([40, 30])
+    assert torch.equal(sequence_speech_encode(senc, senc.params.tree(), fb, fl,
+                                              mesh=make_seq_mesh(1)).sentence_embeddings,
+                       senc(fb, fl).sentence_embeddings)
 dist.destroy_process_group()
 
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "sonar_tpu", "datasets")
