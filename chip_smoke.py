@@ -102,19 +102,38 @@ Phases, each printing ``#`` lines:
     ``TextToTextModelPipeline.predict`` on 16 sentences of (d)'s corpus with
     (d)'s bf16 encoder (batch 8). Sentences/s, generated tokens/s, ms per
     decode step, peak device memory; ``beam_masked_attend`` must launch
-    exactly 24 times per decode step (prefix steps included), the diagonal
-    and reorder kernels never. The device busy share over one bf16 batch
+    exactly 24 times per step the card ran (prefix steps included), the
+    diagonal and reorder kernels never. The device busy share over one bf16 batch
     comes from torch.profiler. Four embeddings are decoded on the CPU port
     too: the fp32 best hypotheses must agree (a tie within 1e-5 in score is
     printed, not failed) and the teacher-forced logits agree to 1e-3 of
     their scale in fp32, row cosine >= 0.999 in bf16.
 
+(f2) the captured beam program: beam decode runs as CUDA graphs (the
+    search's setup, then one step looped on the card by a conditional WHILE
+    node until the device's exit flag says done: ``ops.cuda.graph_loop``);
+    it is held against the same search run eagerly on the card
+    (``_beam_eager``) on the 64 embeddings in bf16, fp32 and int8
+    (``quantize=True``): tokens and lengths identical, scores bit for bit
+    (or within 1e-5, the gap printed). Each path's sentences/s, ms per
+    decode step and the steps the card ran (the eager body's gated steps
+    included); the first call of a new key (max_gen_len 45: its capture)
+    against the next, with the memory the graph holds; both bf16 busy
+    shares over a batch of 32 (torch.profiler), whose trace of the graph
+    path must show 24 ``beam_masked_attend`` launches a step the card ran;
+    text -> text on 256 sentences of (d)'s corpus (batch 32): sequential
+    ``batch_translate``, ``translate_stream`` with windows 1 and 2 and
+    ``TextToTextModelPipeline.predict`` equal, each timed twice in turns.
+    Every beam path of (f)-(l) launches ``beam_masked_attend`` 24 times per
+    step the card ran (a replay's counted by ``ops.cuda.add_launches``).
 (g) speech -> text: the ``english`` encoder and the ``basic`` decoder in
     bf16 behind ``SpeechToTextModelPipeline.predict(batch_size=8)`` on 16
     synthetic clips (8 of 3-20 s, 8 of 25-40 s: S 299-1999, the v2
-    kernel), beam 5, max_gen_len 48. Clips/s, sentences/s, ms per decode
-    step; v2 must launch and ``beam_masked_attend`` exactly 24 times per
-    decode step. Two short clips in fp32: the card's and the CPU's
+    kernel), beam 5, max_gen_len 48, two batches in flight. Clips/s,
+    sentences/s, ms per decode step; v2 must launch and
+    ``beam_masked_attend`` exactly 24 times per step the card ran. The
+    window against batch by batch on the clips twice over (32), equal, each
+    timed twice in turns. Two short clips in fp32: the card's and the CPU's
     embeddings within 1e-3 of their scale, and the same best hypotheses.
 (h) sampling, int8 decode and the heads: top-p 0.9 and top-k 10 sampling
     with the ``basic`` decoder in bf16 and fp32 on (d)'s 64 embeddings
@@ -1441,49 +1460,68 @@ def _device_profile(torch, fn):
 def _busy_share(torch, card, label, dec, fn, top=8):
     """The device busy share of ``fn`` (one decode batch on ``dec``): the
     device time of its kernels (torch.profiler) over its wall time without
-    the profiler, per decode step, with the device operations a step, the
-    time the host is blocked in the loop's per-step exit-test read (what
-    that test costs at most: the host cannot run ahead of the device) and
-    the ``top`` operations by device time."""
-    dec.decode_steps = 0
+    the profiler, per decode step (the search's steps; the card's, gated
+    ones included, beside them), with the device operations a step the card
+    ran, the host's time blocked in device-to-host scalar reads (under the
+    profiler) and the ``top`` operations by device time. -> (busy share,
+    ms per decode step, {device operation: (ms, calls)} of the profiled
+    run, the steps the card ran in it), or None where the profiler saw no
+    device time. ``fn`` runs once first, untimed (a new shape's capture)."""
+    fn()
+    _zero_steps(dec)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    steps = dec.decode_steps
+    steps, ran = dec.decode_steps, dec.device_steps
+    _zero_steps(dec)
     t0 = time.perf_counter()
     ops, prof_wall, (read_ms, n_reads) = _device_profile(torch, fn)
+    prof_ran = dec.device_steps
     log(f"{label}: profiled and read in {time.perf_counter() - t0:.1f} s")
     if not ops:
         log(f"{label} busy share: the profiler saw no device time (not measured)")
-        return
+        return None
     busy = sum(ms for ms, _ in ops.values())
-    log(f"{label}, {steps} steps: device busy {busy:.2f} ms of {wall:.2f} ms wall "
-        f"({prof_wall:.2f} ms under the profiler) = {busy / wall:.3f} busy share; "
-        f"{busy / steps:.3f} ms device and {(wall - busy) / steps:.3f} ms idle per step; "
-        f"{sum(n for _, n in ops.values()) / steps:.0f} device ops per step; on {card}")
-    log(f"{label} exit test: the host is blocked {read_ms:.3f} ms in {n_reads} device-to-host "
-        f"scalar reads (aten::_local_scalar_dense, under the profiler) = "
-        f"{read_ms / steps:.4f} ms per step, {100 * read_ms / prof_wall:.2f}% of the profiled "
-        f"wall; on {card}")
+    log(f"{label}, {steps} decode steps ({ran} run by the card): device busy {busy:.2f} ms of "
+        f"{wall:.2f} ms wall ({prof_wall:.2f} ms under the profiler) = {busy / wall:.3f} busy "
+        f"share; {wall / steps:.3f} ms wall, {busy / ran:.3f} ms device a step the card ran and "
+        f"{(wall - busy) / steps:.3f} ms idle per decode step; "
+        f"{sum(n for _, n in ops.values()) / ran:.0f} device ops a step the card ran; on {card}")
+    log(f"{label} host reads: under the profiler {read_ms:.3f} ms blocked in {n_reads} "
+        f"device-to-host scalar reads (aten::_local_scalar_dense), "
+        f"{100 * read_ms / prof_wall:.2f}% of the profiled wall; on {card}")
     for name, (ms, n) in sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"{label} device time: {ms:9.3f} ms {100 * ms / busy:5.1f}% {n:6d} calls "
             f"{name[:90]}")
+    return busy / wall, wall / steps, ops, prof_ran
 
 
 def _recording(dec):
-    """Wrap ``dec.generate_beam`` to keep each call's (tokens, scores, lens)."""
+    """Wrap ``dec.materialize_beam``, where every beam decode ends (the
+    async pair, ``generate_beam`` and the converters), to keep each call's
+    (tokens, scores, lens); ``del dec.materialize_beam`` drops the wrapper."""
     outs = []
-    generate = dec.generate_beam
+    materialize = dec.materialize_beam
 
-    def generate_beam(*args, **kwargs):
-        out = generate(*args, **kwargs)
+    def materialize_beam(handle):
+        out = materialize(handle)
         outs.append(out)
         return out
 
-    dec.generate_beam = generate_beam
+    dec.materialize_beam = materialize_beam
     return outs
+
+
+def _zero_steps(dec):
+    dec.decode_steps = dec.device_steps = 0
+
+
+def _steps_line(dec):
+    """The decoder's step counts since ``_zero_steps``, as a log phrase."""
+    return (f"{dec.decode_steps} decode steps (the card ran {dec.device_steps}: "
+            f"{dec.device_steps - dec.decode_steps} gated after the exit or before a capture)")
 
 
 def _same_best(label, card, cpu, tol=1e-5):
@@ -1534,7 +1572,7 @@ def run_decode(torch, card, handoff):
 
     def drive(label, dec, fn, n_sentences):
         outs = handoff.setdefault("beam_outputs", {})[label] = _recording(dec)
-        dec.decode_steps = 0
+        _zero_steps(dec)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
@@ -1543,32 +1581,35 @@ def run_decode(torch, card, handoff):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_launches()
-        del dec.generate_beam  # drop the recording wrapper
-        steps, n_tok = dec.decode_steps, int(sum(o[2][:, 0].sum() for o in outs))
+        del dec.materialize_beam  # drop the recording wrapper
+        steps, ran = dec.decode_steps, dec.device_steps
+        n_tok = int(sum(o[2][:, 0].sum() for o in outs))
         for name in KERNELS:
             launches[name] += counts[name]
         log(f"decode {label}: {n_sentences} sentences in {dt:.3f} s = {n_sentences / dt:.2f} "
             f"sentences/s, {n_tok / dt:.1f} generated tokens/s ({n_tok} tokens of the best "
-            f"hypotheses), {steps} decode steps = {dt * 1e3 / steps:.3f} ms per step; peak device "
-            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+            f"hypotheses), {_steps_line(dec)}, {dt * 1e3 / steps:.3f} ms per decode step; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
         log(f"decode {label}: launches {counts}")
-        if not (counts["beam_masked_attend"] == n_layers * steps > 0
+        if not (counts["beam_masked_attend"] == n_layers * ran > 0
                 and counts["beam_diag_attend"] == 0 and counts["beam_reorder_attend"] == 0):
             raise AssertionError(f"decode {label}: beam_masked_attend launched "
-                                 f"{counts['beam_masked_attend']} times over {steps} steps of "
-                                 f"{n_layers} layers; diag / reorder must read 0")
+                                 f"{counts['beam_masked_attend']} times over the card's {ran} steps "
+                                 f"of {n_layers} layers; diag / reorder must read 0")
         if len(out) != n_sentences or not all(isinstance(t, str) for t in out):
             raise AssertionError(f"decode {label}: {len(out)} outputs for {n_sentences} inputs")
         return out
 
     for mode in ("bf16", "fp32"):
         pipe = EmbeddingToTextModelPipeline(decoders[mode], tok)
-        pipe.predict(emb[:32], target_lang="eng_Latn", batch_size=32, beam_size=5,
-                     max_gen_len=4)  # warm: allocator, cuBLAS handles
+        # Warm: the allocator, cuBLAS handles, the captured beam program.
+        pipe.predict(emb[:32], target_lang="eng_Latn", batch_size=32, **DECODE_KW)
         drive(f"{mode} {EMB_TO_TEXT}", decoders[mode], lambda: pipe.predict(
             emb, target_lang="eng_Latn", batch_size=32, **DECODE_KW), len(emb))
     texts = handoff["corpus"][:16]
     t2t = TextToTextModelPipeline(handoff["encoder"], decoders["bf16"], tok)
+    t2t.predict(texts[:8], source_lang="eng_Latn", target_lang="eng_Latn", batch_size=8,
+                **DECODE_KW)  # warm: the batch of 8's beam program
     drive("bf16 text->text (16 sentences, batch 8, beam 5, max_gen_len 48)", decoders["bf16"],
           lambda: t2t.predict(texts, source_lang="eng_Latn", target_lang="eng_Latn",
                               batch_size=8, **DECODE_KW), len(texts))
@@ -1615,6 +1656,185 @@ def run_decode(torch, card, handoff):
     return launches
 
 
+# -- (f2) the captured beam program against the eager body ---------------------------------
+
+
+STREAM_TEXTS = 256  # (f2)'s text -> text at real size: 8 batches of 32 of (d)'s corpus
+NEW_KEY_GEN_LEN = 45  # (f2): a limit no earlier call used, so its first call captures
+# The #8 kernel as torch.profiler names it, by dtype (bf16's long caches add
+# a combining launch, which is not counted).
+MASKED_KERNEL = {"bf16": "beam_masked_kernel", "fp32": "beam_attend_kernel"}
+
+
+def run_graph_vs_eager(torch, card, handoff):
+    """(f2): beam decode through the captured CUDA graphs and the loop on
+    the card (``generate_beam``) against the same search run eagerly on the
+    card (``_beam_eager``, the same body, setup and tail, the same padded
+    batch), on (f)'s 64 embeddings in batches of 32, in bf16, fp32 and int8
+    (``quantize=True``, bf16 activations): tokens and lengths identical,
+    scores bit for bit (or within 1e-5, the gap printed, where cuBLAS picks
+    another algorithm under capture); each path's sentences/s, ms per
+    decode step and the steps the card ran. Then, in bf16: the first call
+    of a new key (its capture) timed against the next (a replay), with the
+    memory it holds; each path's busy share over one batch, and the graph
+    path's #8 launches counted in its torch.profiler trace, which must be 24
+    x the steps the card ran; text -> text at real size (256 sentences of
+    (d)'s corpus, batch 32): sequential ``batch_translate``,
+    ``translate_stream`` with windows 1 and 2 (in turns: each twice) and
+    ``TextToTextModelPipeline.predict``, all equal."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.text_converter import TextTranslator
+    from sonar_tpu_torch.inference_pipelines.text import TextToTextModelPipeline
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+
+    n_layers = sonar_text_decoder_archs.get("basic").num_decoder_layers
+    tok, emb, decoders = handoff["tokenizer"], handoff["embeddings"], handoff["decoders"]
+    prefix = list(tok.create_encoder(lang="eng_Latn", mode="target").prefix_indices)
+    gen_cfg = BeamSearchConfig(**DECODE_KW)
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(fn):
+        zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for name in KERNELS:
+            launches[name] += counts[name]
+        return out, counts
+
+    int8 = TorchTextDecoder(decoders["bf16"].model, quantize=True)
+    for mode, dec in (("bf16", decoders["bf16"]), ("fp32", decoders["fp32"]), ("int8", int8)):
+        search = dec._search_config(gen_cfg, len(prefix))
+        dec.generate_beam(emb[:32, None, :], prefix, gen_cfg)  # warm: int8's capture
+        outs = {}
+        for path in ("graph", "eager"):
+            def run():
+                res = []
+                for i in range(0, len(emb), 32):
+                    mem = emb[i:i + 32, None, :]
+                    res.append(dec.generate_beam(mem, prefix, gen_cfg) if path == "graph" else
+                               dec._beam_eager(torch.as_tensor(mem, device=DEVICE), prefix,
+                                               search))
+                return res
+
+            _zero_steps(dec)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[path], counts = counted(run)
+            dt = time.perf_counter() - t0
+            log(f"(f2) {mode} {path}: {len(emb)} sentences in {dt:.3f} s = {len(emb) / dt:.2f} "
+                f"sentences/s, {dt * 1e3 / dec.decode_steps:.3f} ms per decode step; "
+                f"{_steps_line(dec)}; on {card}")
+            if counts["beam_masked_attend"] != n_layers * dec.device_steps:
+                raise AssertionError(f"(f2) {mode} {path}: beam_masked_attend launched "
+                                     f"{counts['beam_masked_attend']} times over the card's "
+                                     f"{dec.device_steps} steps")
+        graph, eager = outs["graph"], outs["eager"]
+        same_hyp = all(np.array_equal(g[j], e[j]) for g, e in zip(graph, eager) for j in (0, 2))
+        gap = max(float(np.abs(g[1] - e[1]).max()) for g, e in zip(graph, eager))
+        bits = same_hyp and gap == 0.0
+        ok = same_hyp and gap <= 1e-5
+        log(f"(f2) {mode} graph vs eager body on {len(emb)} embeddings: tokens and lengths "
+            f"{'identical' if same_hyp else 'DIFFER'}, scores max gap {gap:.3e} "
+            f"({'bit for bit' if bits else 'not bit for bit; limit 1e-5'}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"(f2) {mode}: the captured program disagrees with the eager body")
+    del int8
+    torch.cuda.empty_cache()
+
+    # The cost of a capture: the first call of a new key against the next.
+    dec = decoders["bf16"]
+    new_key = dataclasses.replace(gen_cfg, max_gen_len=NEW_KEY_GEN_LEN)
+    mem = emb[:32, None, :]
+    ms, got = [], []
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    for _ in range(2):
+        _zero_steps(dec)
+        t0 = time.perf_counter()
+        got.append(dec.generate_beam(mem, prefix, new_key))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if len(ms) == 1:
+            held = (torch.cuda.memory_allocated() - held[0],
+                    torch.cuda.memory_reserved() - held[1])
+    line = _steps_line(dec)
+    eager = dec._beam_eager(torch.as_tensor(mem, device=DEVICE), prefix,
+                            dec._search_config(new_key, len(prefix)))
+    same = all(np.array_equal(g, e) for out in got for g, e in zip(out, eager))
+    log(f"(f2) bf16 max_gen_len {NEW_KEY_GEN_LEN}, batch of 32 (a new key): first call "
+        f"{ms[0]:.1f} ms (the capture: an eager setup and step, the setup and the step "
+        f"captured, the loop instantiated; then the decode), the next {ms[1]:.1f} ms (a replay, "
+        f"{line}): the capture costs {ms[0] - ms[1]:.1f} ms; the new graph holds "
+        f"{held[0] / 2**30:.3f} GiB allocated, {held[1] / 2**30:.3f} GiB more reserved; both "
+        f"calls equal to the eager body bit for bit {same} {'ok' if same else 'FAIL'}; on {card}")
+    if not same:
+        raise AssertionError("(f2): a new key's captured program disagrees with the eager body")
+
+    search = dec._search_config(gen_cfg, len(prefix))
+    for path, fn in (("graph", lambda: dec.generate_beam(mem, prefix, gen_cfg)),
+                     ("eager body", lambda: dec._beam_eager(torch.as_tensor(mem, device=DEVICE),
+                                                            prefix, search))):
+        res = _busy_share(torch, card, f"(f2) decode bf16 batch of 32, {path}", dec, fn, top=5)
+        if path != "graph":
+            continue
+        if res is None:
+            raise AssertionError("(f2): the profiler saw no device time on the graph path")
+        _, _, ops, ran = res
+        seen = sum(n for name, (_, n) in ops.items() if MASKED_KERNEL["bf16"] in name)
+        ok = seen == n_layers * ran > 0
+        log(f"(f2) graph path under torch.profiler: {seen} {MASKED_KERNEL['bf16']} launches "
+            f"traced over the {ran} steps the card ran ({n_layers} x {ran} = {n_layers * ran}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("(f2): the trace does not show 24 #8 launches a step the card "
+                                 "ran on the graph path")
+
+    texts = handoff["corpus"][:STREAM_TEXTS]
+    chunks = [texts[i:i + 32] for i in range(0, len(texts), 32)]
+    translator = TextTranslator(handoff["encoder"], dec, tok, "eng_Latn", "eng_Latn", gen_cfg)
+    translator.batch_translate(chunks[0])  # warm: the encoder's buckets of a batch of 32
+    runs = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = counted(fn)
+        runs.setdefault(label, []).append(time.perf_counter() - t0)
+        return out
+
+    want = timed("sequential", lambda: [translator.batch_translate(c) for c in chunks])
+    for window in (1, 2, 2, 1):
+        got = timed(f"window {window}",
+                    lambda: list(translator.translate_stream(iter(chunks), window=window)))
+        if got != want:
+            raise AssertionError(f"(f2) translate_stream window {window} differs from "
+                                 f"sequential batch_translate")
+    if timed("sequential", lambda: [translator.batch_translate(c) for c in chunks]) != want:
+        raise AssertionError("(f2) sequential batch_translate is not repeatable")
+    t2t = TextToTextModelPipeline(handoff["encoder"], dec, tok)
+    for _ in range(2):
+        got = timed("predict", lambda: t2t.predict(texts, source_lang="eng_Latn",
+                                                   target_lang="eng_Latn", batch_size=32,
+                                                   **DECODE_KW))
+        if got != [t for c in want for t in c]:
+            raise AssertionError("(f2) TextToTextModelPipeline.predict differs from sequential "
+                                 "batch_translate")
+    rates = {k: [round(len(texts) / t, 2) for t in v] for k, v in runs.items()}
+    log(f"(f2) text->text bf16 at real size ({len(texts)} sentences of (d)'s corpus, "
+        f"{len(chunks)} batches of 32, beam 5, max_gen_len 48): translate_stream windows 1 and 2 "
+        f"and predict (window 2) equal to sequential batch_translate; sentences/s of each run "
+        f"(run in the order sequential, window 1, 2, 2, 1, sequential, predict, predict): "
+        f"{rates}; on {card}")
+    return launches
+
+
 # -- (g) speech -> text ------------------------------------------------------------------
 
 
@@ -1630,6 +1850,7 @@ def run_speech_to_text(torch, card, handoff):
     from sonar_tpu_torch.assets.convert import speech_encoder_from_numpy, text_decoder_from_numpy
     from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
     from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.text_converter import EmbeddingToTextConverter
     from sonar_tpu_torch.inference_pipelines.speech import (
         SpeechToTextModelPipeline,
         TorchSpeechEncoder,
@@ -1653,7 +1874,7 @@ def run_speech_to_text(torch, card, handoff):
                                                        torch.bfloat16, DEVICE))
     pipe = SpeechToTextModelPipeline(enc, dec, tok)
     pipe.predict(clips[:2], target_lang="eng_Latn", batch_size=8, beam_size=5,
-                 max_gen_len=4)  # warm
+                 max_gen_len=4)  # warm the encoder (the decoder's batch of 8 is (f)'s)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(0, len(clips), 8):  # the encoder alone on the same batches
@@ -1662,7 +1883,7 @@ def run_speech_to_text(torch, card, handoff):
     encode_s = time.perf_counter() - t0
 
     outs = _recording(dec)
-    dec.decode_steps = 0
+    _zero_steps(dec)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
@@ -1670,21 +1891,48 @@ def run_speech_to_text(torch, card, handoff):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_launches()
-    del dec.generate_beam
-    steps, n_tok = dec.decode_steps, int(sum(o[2][:, 0].sum() for o in outs))
-    log(f"speech->text bf16: {len(clips)} clips ({audio_s:.1f} s of audio) in {dt:.3f} s = "
-        f"{len(clips) / dt:.2f} clips/s = {len(out) / dt:.2f} sentences/s, RTFx "
-        f"{audio_s / dt:.1f}, {n_tok} generated tokens; encoder alone {encode_s:.3f} s, so "
-        f"{(dt - encode_s) * 1e3 / steps:.3f} ms per decode step over {steps} steps; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+    del dec.materialize_beam
+    steps, ran = dec.decode_steps, dec.device_steps
+    n_tok = int(sum(o[2][:, 0].sum() for o in outs))
+    log(f"speech->text bf16 (2 batches in flight): {len(clips)} clips ({audio_s:.1f} s of "
+        f"audio) in {dt:.3f} s = {len(clips) / dt:.2f} clips/s = {len(out) / dt:.2f} "
+        f"sentences/s, RTFx {audio_s / dt:.1f}, {n_tok} generated tokens; encoder alone "
+        f"{encode_s:.3f} s; {_steps_line(dec)}; (wall - encoder) / steps "
+        f"{(dt - encode_s) * 1e3 / steps:.3f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
     log(f"speech->text bf16: launches {counts}")
     if not (counts["relpos_flash_attention_v2"] > 0
-            and counts["beam_masked_attend"] == n_layers * steps > 0):
+            and counts["beam_masked_attend"] == n_layers * ran > 0):
         raise AssertionError(f"speech->text: v2 launched {counts['relpos_flash_attention_v2']} "
                              f"times, beam_masked_attend {counts['beam_masked_attend']} over "
-                             f"{steps} steps of {n_layers} layers")
+                             f"the card's {ran} steps of {n_layers} layers")
     if len(out) != len(clips) or not all(isinstance(t, str) for t in out):
         raise AssertionError(f"speech->text: {len(out)} outputs for {len(clips)} clips")
+
+    # The window of two against batch by batch (each batch's audio, encode
+    # and decode done before the next batch starts), on the 16 clips twice
+    # over (4 batches of 8), in turns.
+    more = clips + clips
+    converter = EmbeddingToTextConverter(dec, tok, "eng_Latn", BeamSearchConfig(**DECODE_KW))
+
+    def batch_by_batch():
+        return [t for i in range(0, len(more), 8) for t in converter.batch_convert(
+            enc.encode_waveforms([pipe._decode_audio(c) for c in more[i:i + 8]],
+                                 materialize=False))]
+
+    runs, results = {}, {}
+    for label in ("window 2", "batch by batch", "batch by batch", "window 2"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[label] = (pipe.predict(more, target_lang="eng_Latn", batch_size=8, **DECODE_KW)
+                          if label == "window 2" else batch_by_batch())
+        torch.cuda.synchronize()
+        runs.setdefault(label, []).append(round(len(more) / (time.perf_counter() - t0), 2))
+    same = results["window 2"] == results["batch by batch"]
+    log(f"speech->text bf16, {len(more)} clips in batches of 8: predict (window 2) equal to batch "
+        f"by batch {same} {'ok' if same else 'FAIL'}; clips/s by run {runs}; on {card}")
+    if not same:
+        raise AssertionError("speech->text: the window of two differs from batch by batch")
     del pipe, enc
     torch.cuda.empty_cache()
 
@@ -1754,7 +2002,7 @@ def run_sampling_int8_heads(torch, card, handoff):
     launches = dict.fromkeys(KERNELS, 0)
 
     def drive(label, dec, fn, n_items, beam=False):
-        dec.decode_steps = 0
+        _zero_steps(dec)
         torch.cuda.synchronize()
         zero_launches()
         t0 = time.perf_counter()
@@ -1764,13 +2012,14 @@ def run_sampling_int8_heads(torch, card, handoff):
         counts = read_launches()
         for name in KERNELS:
             launches[name] += counts[name]
-        steps = dec.decode_steps
+        steps, ran = dec.decode_steps, dec.device_steps
         log(f"{label}: {n_items} sentences in {dt:.3f} s = {n_items / dt:.2f} sentences/s, "
-            f"{steps} decode steps = {dt * 1e3 / steps:.3f} ms per step; launches "
+            f"{_steps_line(dec)}, {dt * 1e3 / steps:.3f} ms per decode step; launches "
             f"{ {k: v for k, v in counts.items() if v} }; on {card}")
-        if beam and counts["beam_masked_attend"] != n_layers * steps:
+        if beam and counts["beam_masked_attend"] != n_layers * ran:
             raise AssertionError(f"{label}: beam_masked_attend launched "
-                                 f"{counts['beam_masked_attend']} times over {steps} steps")
+                                 f"{counts['beam_masked_attend']} times over the card's {ran} "
+                                 f"steps")
         if len(out) != n_items or not all(isinstance(t, str) for t in out):
             raise AssertionError(f"{label}: {len(out)} outputs for {n_items} inputs")
         return out
@@ -1826,7 +2075,7 @@ def run_sampling_int8_heads(torch, card, handoff):
     # below 17 rows, beside bf16 at the same batch); the checks in fp32.
     q_bf16 = TorchTextDecoder(decoders["bf16"].model, quantize=True)
     q_pipe = EmbeddingToTextModelPipeline(q_bf16, tok)
-    q_pipe.predict(emb[:32], target_lang="eng_Latn", batch_size=32, beam_size=5, max_gen_len=4)
+    q_pipe.predict(emb[:32], target_lang="eng_Latn", batch_size=32, **DECODE_KW)  # warm
     drive("int8 decode bf16 (64 embeddings, batch 32, beam 5, max_gen_len 48)", q_bf16,
           lambda: q_pipe.predict(emb, target_lang="eng_Latn", batch_size=32, **DECODE_KW),
           len(emb), beam=True)
@@ -3076,8 +3325,8 @@ def _scaleout_l1(torch, checks, ref, handoff, launches):
                                                    torch.bfloat16, DEVICE),
                            device=DEVICE, mesh=mesh)
     pipe = EmbeddingToTextModelPipeline(dec, handoff["tokenizer"])
-    pipe.predict(ref["f_memory"][:32], target_lang="eng_Latn", batch_size=32, beam_size=5,
-                 max_gen_len=4)  # warm, as (f)
+    pipe.predict(ref["f_memory"][:32], target_lang="eng_Latn", batch_size=32,
+                 **DECODE_KW)  # warm, as (f)
     outs = _recording(dec)
     t0 = time.perf_counter()
     _counted(torch, launches, lambda: pipe.predict(ref["f_memory"], target_lang="eng_Latn",
@@ -3950,14 +4199,15 @@ def main() -> int:
     text, _, handoff = phase("(d)", run_slice, torch, card)
     speech = phase("(e)", run_speech, torch, card, handoff)
     decode = phase("(f)", run_decode, torch, card, handoff)
+    graphs = phase("(f2)", run_graph_vs_eager, torch, card, handoff)
     s2t = phase("(g)", run_speech_to_text, torch, card, handoff)
     rest = phase("(h)", run_sampling_int8_heads, torch, card, handoff)
     mined = phase("(i)", run_mining, torch, card)
     served = phase("(j)", run_serving, torch, card, handoff)
     trained = phase("(k)", run_training, torch, card, handoff)
     scaled = phase("(l) and (m)", run_scaleout, torch, card, handoff)
-    launches = {name: sum(run[name] for run in (text, speech, decode, s2t, rest, mined, served,
-                                                 trained, scaled))
+    launches = {name: sum(run[name] for run in (text, speech, decode, graphs, s2t, rest, mined,
+                                                 served, trained, scaled))
                 for name in KERNELS}
     launched = [name for name in NO_PATH if launches[name] != 0]
     if launched:

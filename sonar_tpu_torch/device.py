@@ -23,3 +23,13 @@ def resolve_device(device: Any = None) -> torch.device:
             "the CPU (pass device='cpu' for its plain PyTorch path)"
         )
     return dev
+
+
+def upload(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``. A host tensor bound for a GPU goes through
+    pinned memory without blocking: a copy from pageable memory waits until
+    the device has run everything queued before it, which would stop a
+    caller from queuing the next batch while this one computes."""
+    if device.type == "cuda" and x.device.type == "cpu":
+        x = x.pin_memory()
+    return x.to(device, non_blocking=True)

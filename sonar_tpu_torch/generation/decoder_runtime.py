@@ -2,28 +2,58 @@
 
 ``TorchTextDecoder`` is the counterpart of ``JitTextDecoder``
 (``sonar_tpu.generation.decoder_runtime``): teacher-forced ``score``,
-beam-search ``generate_beam`` and top-p / top-k ``generate_sample``, in
-floating point or, with ``quantize=True``, with int8 weights. PyTorch runs
-eagerly, so there is no program per shape and the batch is decoded as
-given, without the JAX package's power-of-two padding, unless its rows are
-split over a mesh's ``data`` axis: then, as in the JAX runtime, the batch is
-padded to a power of two and to a multiple of ``data``. Over a mesh each
-rank decodes its data coordinate's rows with its share of the heads (and
-vocabulary), every rank takes the same number of steps (the exit test is
-agreed across the world), and the rows are gathered over the data group.
+beam-search ``generate_beam`` / ``generate_beam_async`` +
+``materialize_beam`` and top-p / top-k ``generate_sample``, in floating
+point or, with ``quantize=True``, with int8 weights.
+
+Beam decoding pads the batch to a power of two with zero rows, as the JAX
+runtime does, and runs one device program per batch, as JAX's
+``lax.while_loop`` does: on a CUDA device the search's setup (the cache and
+the prefix steps) and one step of its body (``generation.beam_search.
+beam_step``, which reads nothing back to the host) are captured as CUDA
+graphs (``torch.cuda.CUDAGraph``) once per (padded batch, prefix length,
+static config), and a decode replays the setup, then loops the step on the
+card until its exit flag says done (a conditional WHILE node,
+``ops.cuda.graph_loop``). ``generate_beam_async`` queues that, the tail and
+the outputs' copies to pinned host memory on the caller's stream and
+returns without blocking: a caller encodes and dispatches the next batch
+while this one decodes (``TextTranslator.translate_stream``). A capture or
+launch that fails raises; nothing falls back to the eager loop. On the CPU
+the same body runs eagerly, its exit flag read once per chunk of steps.
+
+Over a mesh of several ranks the rows are split over its ``data`` axis
+(padded to a multiple of ``data`` too), each rank decodes its rows with its
+share of the heads (and vocabulary), every rank takes the same number of
+steps (the exit test is agreed across the world once per chunk: gloo's
+collectives cannot be captured, so this path runs eagerly and its handle
+is resolved before it is returned), and the rows are gathered over the
+data group.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import threading
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 from sonar_tpu_torch.data.collate import round_up_pow2
-from sonar_tpu_torch.device import resolve_device
-from sonar_tpu_torch.generation.beam_search import BeamSearchConfig, beam_search_lax
+from sonar_tpu_torch.device import resolve_device, upload
+from sonar_tpu_torch.generation.beam_search import (
+    CHUNK_STEPS,
+    BeamSearchConfig,
+    beam_finish,
+    beam_knobs,
+    beam_setup,
+    beam_step,
+    run_chunks,
+)
 from sonar_tpu_torch.generation.sampling import gumbel, sample_lax
 from sonar_tpu_torch.nn.conditional_decoder import ConditionalTransformerDecoder
+from sonar_tpu_torch.ops import cuda as kernels
+from sonar_tpu_torch.ops.cuda.graph_loop import WhileGraph
 from sonar_tpu_torch.ops.precision import matmul_precision_for
 from sonar_tpu_torch.parallel.comm import any_over, gather_blocks, model_parallel
 from sonar_tpu_torch.parallel.mesh import (
@@ -35,11 +65,99 @@ from sonar_tpu_torch.parallel.mesh import (
 )
 import torch
 
+# Captured beam programs a runtime keeps (least recently used first out):
+# the padded batch sizes 1, 2, 4, ..., 128 of one prefix length and config,
+# which the pipelines' warmups capture for a batch_size of up to 128. Each
+# holds its static KV cache, 2 x L x B x H x K x S x Dh values of the model
+# dtype (the basic decoder in bf16 at B 32, K 5, S 51: 0.8 GB; fp32 twice
+# that), its state and the [B*K, V] fp32 logits (164 MB at B 32, K 5, V
+# 256,206), so the sizes up to B hold about twice what B's alone does; the
+# intermediates of all of a runtime's graphs share one memory pool.
+MAX_GRAPHS = 8
+
+
+class _BeamHandle:
+    """In-flight beam decode (``TorchTextDecoder.generate_beam_async``): the
+    host outputs (tokens, scores, lens; padded), the CUDA event behind their
+    copies from the card (None once on the host), the true batch size, and
+    ``settle``, which counts the decode's steps and launches once its step
+    count is on the host (None on the CPU). Resolve with
+    ``TorchTextDecoder.materialize_beam``."""
+
+    __slots__ = ("outs", "copied", "b", "settle")
+
+    def __init__(self, outs: Tuple[Any, ...], copied: Any, b: int,
+                 settle: Optional[Callable[[], None]] = None):
+        self.outs, self.copied, self.b, self.settle = outs, copied, b, settle
+
+
+def _static_config(config: BeamSearchConfig) -> BeamSearchConfig:
+    """The fields a captured program depends on (JAX's ``_beam_static_key``):
+    the penalties and ``min_gen_len`` are device scalars filled at each
+    call, and only the unk penalty's being nonzero changes the program."""
+    return dataclasses.replace(config, len_penalty=1.0, min_gen_len=1, normalize_scores=True,
+                               unk_penalty=0.0 if config.unk_penalty == 0 else 1.0)
+
+
+class _BeamGraph:
+    """The captured beam search of one key: static inputs (memory [B, 1, D],
+    prefix [B, P], the penalties), the setup graph, whose outputs are the
+    cache and the ``BeamState``, and ``loop``, which steps that state in
+    place on the card until it is done. ``setup_launches`` /
+    ``step_launches``: the kernels one replay of the setup and one step
+    launch, by ``ops.cuda`` counter."""
+
+    def __init__(self, runtime: "TorchTextDecoder", b_pad: int, prefix_len: int,
+                 config: BeamSearchConfig, pool: Any):
+        dev = runtime.device
+        d = runtime.model.config.model_dim
+        self.mem = torch.zeros((b_pad, 1, d), dtype=torch.float32, device=dev)
+        self.prefix = torch.full((b_pad, prefix_len), runtime.vocab_info.eos_idx,
+                                 dtype=torch.long, device=dev)
+        self.knobs = beam_knobs(config, dev)
+        start, step = runtime._beam_program(config, prefix_len, self.knobs)
+
+        # One eager setup and step first, on a side stream: they build the
+        # kernels, fill the tilings' cache and set up the libraries' handles
+        # and workspaces, none of which may happen under capture.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step(start(self.mem, self.prefix))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        runtime.device_steps += prefix_len + 1
+
+        self.setup = torch.cuda.CUDAGraph()
+        with kernels.captured_launches() as self.setup_launches, \
+                torch.cuda.graph(self.setup, pool=pool, capture_error_mode="thread_local"):
+            self.state = start(self.mem, self.prefix)
+        body = torch.cuda.CUDAGraph(keep_graph=True)
+        with kernels.captured_launches() as self.step_launches, \
+                torch.cuda.graph(body, pool=pool, capture_error_mode="thread_local"):
+            step(self.state)
+        self.loop = WhileGraph(body, self.state.done)
+
+    def load(self, mem: torch.Tensor, prefix_ids: Sequence[int], config: BeamSearchConfig) -> None:
+        """Copy one call's inputs into the static buffers (zero rows past
+        ``mem``'s, as the JAX runtime pads)."""
+        b = mem.shape[0]
+        self.mem[:b].copy_(mem)
+        self.mem[b:].zero_()
+        for j, tok in enumerate(prefix_ids):
+            self.prefix[:, j].fill_(int(tok))
+        for knob, value in zip(self.knobs, (config.len_penalty, config.unk_penalty,
+                                            config.min_gen_len)):
+            knob.fill_(value)
+
 
 class TorchTextDecoder:
     """A ``ConditionalTransformerDecoder`` on one device (``device=None``
-    means the GPU). ``decode_steps`` counts the decoder steps run (prefix
-    steps included), each of which goes through every layer once.
+    means the GPU). ``decode_steps`` counts the decoder steps the searches
+    took (prefix steps included; a beam search's are read from its device
+    step counter), each of which goes through every layer once;
+    ``device_steps`` counts the decoder steps the device ran, which add the
+    gated steps of the eager loop's last chunk and the eager steps that
+    precede a capture.
 
     ``quantize`` stores every projection of the decoder layers as int8 with
     per-output-channel scales (a runtime copy; ``nn.core.linear`` then runs
@@ -57,6 +175,8 @@ class TorchTextDecoder:
     def __init__(self, model: ConditionalTransformerDecoder, quantize: bool = False,
                  device: Any = None, mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.mesh = SINGLE_MESH if mesh is None else mesh
         params = model.params.tree()
         if quantize:
@@ -70,6 +190,11 @@ class TorchTextDecoder:
             model.config, params, dtype=model.dtype
         ).to(self.device)
         self.decode_steps = 0
+        self.device_steps = 0
+        self._graphs: "collections.OrderedDict[Any, _BeamGraph]" = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self._pool: Any = None
+        self._free: Any = None  # the event after the last captured decode's copies
 
     @property
     def dtype(self) -> torch.dtype:
@@ -84,17 +209,21 @@ class TorchTextDecoder:
         return self.model.config.vocab_info
 
     def _tensor(self, x: Any, dtype: torch.dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                               dtype=dtype).to(self.device)
+        """``x`` on the device, without blocking (``device.upload``)."""
+        return upload(torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, dtype=dtype),
+                      self.device)
 
-    def _rows(self, x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    def _rows(self, x: torch.Tensor, pad: bool = False) -> Tuple[torch.Tensor, int]:
         """This rank's rows of a global batch padded as the JAX runtime pads
-        it over a data split (zeros, to a power of two and a multiple of
-        ``data``), and the padded row count; ``x`` itself under ``data=1``."""
-        if self.mesh.data == 1:
+        it (zeros, to a power of two and a multiple of ``data``) and the
+        padded row count; ``x`` itself under ``data=1`` unless ``pad``."""
+        if self.mesh.data == 1 and not pad:
             return x, x.shape[0]
         b_pad = pad_rows(round_up_pow2(x.shape[0]), self.mesh)
-        x = torch.cat([x, x.new_zeros((b_pad - x.shape[0],) + tuple(x.shape[1:]))])
+        if b_pad != x.shape[0]:
+            x = torch.cat([x, x.new_zeros((b_pad - x.shape[0],) + tuple(x.shape[1:]))])
+        if self.mesh.data == 1:
+            return x, b_pad
         return x[data_sharding(self.mesh, b_pad)], b_pad
 
     def _scope(self) -> Any:
@@ -139,7 +268,8 @@ class TorchTextDecoder:
     def warmup(self, config: BeamSearchConfig, prefix_len: int = 2,
                batch_sizes: Sequence[int] = (32,)) -> int:
         """Run one beam decode per batch size (this builds the CUDA kernels
-        on first use); returns the number of batch sizes."""
+        and captures the beam program of each padded batch); returns the
+        number of batch sizes."""
         eos = self.vocab_info.eos_idx
         d = self.model.config.model_dim
         for b in batch_sizes:
@@ -150,33 +280,130 @@ class TorchTextDecoder:
                       config: BeamSearchConfig) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """memory: [B, 1, D] (numpy or a tensor, which may stay on the
         device); returns (tokens [B, K, T], scores [B, K], lens [B, K])."""
-        config = self._cap_gen_len(config, len(prefix_ids))
-        mem = self._tensor(memory, torch.float32)
-        b = mem.shape[0]
-        mem, _ = self._rows(mem)
-        prefix = torch.tensor(list(prefix_ids), dtype=torch.long, device=self.device)
-        prefix = prefix[None, :].expand(mem.shape[0], -1)
-        vocab = self.vocab_info
+        return self.materialize_beam(self.generate_beam_async(memory, prefix_ids, config))
+
+    def _search_config(self, config: BeamSearchConfig, prefix_len: int) -> BeamSearchConfig:
         # normalize_scores=False is len_penalty 0, as in the JAX runtime.
-        config = dataclasses.replace(
+        config = self._cap_gen_len(config, prefix_len)
+        return dataclasses.replace(
             config, normalize_scores=True,
             len_penalty=config.len_penalty if config.normalize_scores else 0.0)
-        k = config.beam_size
-        cache_len = len(prefix_ids) + config.max_gen_len + 1
+
+    def _beam_program(self, config: BeamSearchConfig, prefix_len: int,
+                      knobs: Optional[Tuple[torch.Tensor, ...]] = None
+                      ) -> Tuple[Callable, Callable]:
+        """(start(memory [B, 1, D], prefix [B, P]) -> BeamState,
+        step(state)): the search's setup and one step of its body on this
+        decoder."""
+        vocab, k = self.vocab_info, config.beam_size
+        cache_len = prefix_len + config.max_gen_len + 1
+        unk = vocab.unk_idx if config.unk_penalty else None
 
         def step_fn(tokens, cache, ancestry):
-            self.decode_steps += 1
             return self.model.step(tokens, cache, ancestry=ancestry, beam_size=k)
 
+        def start(mem, prefix):
+            mem = mem[:, None].expand(-1, k, -1, -1).reshape(-1, *mem.shape[1:])
+            cache = self.model.init_cache(mem, cache_len, beam_size=k)
+            return beam_setup(step_fn, cache, prefix, vocab.eos_idx, vocab.size, config,
+                              pad_idx=vocab.pad_idx or 0, cache_len=cache_len, knobs=knobs)
+
+        def step(state):
+            beam_step(state, step_fn, vocab.eos_idx, vocab.size, config, unk)
+
+        return start, step
+
+    def _beam_eager(self, mem: torch.Tensor, prefix_ids: Sequence[int],
+                    config: BeamSearchConfig, chunk: int = CHUNK_STEPS
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The search run eagerly in this thread (the CPU; a mesh of several
+        ranks, whose exit test is agreed once a chunk; and, to compare it
+        with the captured program, on a card): the same setup, body and
+        tail, the exit flag read after every ``chunk`` steps."""
+        b = mem.shape[0]
+        mem, _ = self._rows(mem, pad=True)
+        prefix = torch.tensor(list(prefix_ids), dtype=torch.long, device=self.device)
+        prefix = prefix[None, :].expand(mem.shape[0], -1)
+        agree = self._agree if self.mesh.world.size > 1 else None
         with torch.inference_mode(), matmul_precision_for(self.dtype), self._scope():
-            cache = self.model.init_cache(mem.repeat_interleave(k, dim=0), cache_len, beam_size=k)
-            tokens, scores, lens = beam_search_lax(
-                step_fn, cache, prefix, vocab.eos_idx, vocab.size, config,
-                pad_idx=vocab.pad_idx or 0,
-                unk_idx=vocab.unk_idx if config.unk_penalty else None,
-                cache_len=cache_len, agree=self._agree,
-            )
-            return self._gathered(tokens, scores, lens, rows=b)
+            start, step = self._beam_program(config, len(prefix_ids))
+            state = start(mem, prefix)
+            ran = run_chunks(state, step, chunk, agree)
+            outs = self._gathered(*beam_finish(state, self.vocab_info.eos_idx, config), rows=b)
+            self.decode_steps += len(prefix_ids) + int(state.step)
+            self.device_steps += len(prefix_ids) + ran
+            return outs
+
+    def generate_beam_async(self, memory: Any, prefix_ids: Sequence[int],
+                            config: BeamSearchConfig) -> _BeamHandle:
+        """Dispatch a beam decode and return without blocking: on a card the
+        captured program of this batch's key (captured here first if it is
+        new) is queued on the caller's stream, behind the work queued there
+        so far and this runtime's previous decode, with the tail and the
+        outputs' copies to pinned host memory behind a CUDA event. Pipelined
+        callers (``TextTranslator.translate_stream``) dispatch batch i + 1
+        before materializing batch i. On the CPU, or over a mesh of several
+        ranks, the decode runs here and the handle comes back resolved."""
+        config = self._search_config(config, len(prefix_ids))
+        mem = self._tensor(memory, torch.float32)
+        b = mem.shape[0]
+        if self.device.type != "cuda" or self.mesh.world.size > 1:
+            return _BeamHandle(self._beam_eager(mem, prefix_ids, config), None, b)
+        b_pad = round_up_pow2(b)
+        key = (b_pad, len(prefix_ids), _static_config(config))
+        stream = torch.cuda.current_stream(self.device)
+        with self._lock, torch.inference_mode(), matmul_precision_for(self.dtype), \
+                self._scope():
+            # The graphs share their static buffers' pool: one decode at a
+            # time, whatever stream each caller queues on.
+            if self._free is not None:
+                stream.wait_event(self._free)
+            graph = self._graph(key, b_pad, len(prefix_ids), config)
+            graph.load(mem, prefix_ids, config)
+            graph.setup.replay()
+            graph.loop.launch(stream)
+            outs = beam_finish(graph.state, self.vocab_info.eos_idx, config) + (graph.state.step,)
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         .copy_(t, non_blocking=True) for t in outs)
+            self._free = torch.cuda.Event()
+            self._free.record(stream)
+            settle = functools.partial(self._settle, graph, len(prefix_ids), host[3])
+            return _BeamHandle(host[:3], self._free, b, settle)
+
+    def _graph(self, key: Any, b_pad: int, prefix_len: int,
+               config: BeamSearchConfig) -> _BeamGraph:
+        """The captured program of ``key``, captured now if it is new."""
+        if key in self._graphs:
+            self._graphs.move_to_end(key)
+            return self._graphs[key]
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = _BeamGraph(self, b_pad, prefix_len, config, self._pool)
+        self._graphs[key] = graph
+        while len(self._graphs) > MAX_GRAPHS:
+            self._graphs.popitem(last=False)
+        return graph
+
+    def _settle(self, graph: _BeamGraph, prefix_len: int, step: torch.Tensor) -> None:
+        """Count a captured decode once its step count is on the host: the
+        steps, and the launches of one setup and of ``step`` body steps."""
+        steps = int(step)
+        with self._lock:
+            self.decode_steps += prefix_len + steps
+            self.device_steps += prefix_len + steps
+            kernels.add_launches(graph.setup_launches)
+            kernels.add_launches(graph.step_launches, steps)
+
+    @staticmethod
+    def materialize_beam(handle: _BeamHandle) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Block on a ``generate_beam_async`` handle -> host (tokens, scores,
+        lens), padding rows trimmed."""
+        if handle.copied is not None:
+            handle.copied.synchronize()
+        settle, handle.settle = handle.settle, None
+        if settle is not None:
+            settle()
+        return tuple(np.array(np.asarray(t)[: handle.b]) for t in handle.outs)
 
     # -- sampling ---------------------------------------------------------------
 
@@ -220,6 +447,7 @@ class TorchTextDecoder:
 
         def step_fn(tokens, cache):
             self.decode_steps += 1
+            self.device_steps += 1
             logits, cache = self.model.step(tokens, cache)
             return torch.log_softmax(logits.float(), dim=-1), cache
 

@@ -3,15 +3,17 @@
 
 The NLLB decoder prompt is ``[</s>, <target_lang>]`` (the tokenizer's
 target-mode prefix); the best hypothesis of each row is cut at its length
-and SentencePiece-decoded with control tokens filtered. The port decodes
-each batch in one call: its beam and sampling loops sync with the host
-every step, so the JAX package's dispatch-ahead pipelining has nothing to
-overlap.
+and SentencePiece-decoded with control tokens filtered.
+
+As in the JAX package, a batch's decode can be dispatched and resolved
+later (``dispatch_convert`` / ``finish_convert``, ``dispatch_translate``),
+and ``translate_stream`` keeps a window of batches in flight.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Sequence
+from collections import deque
+from typing import Any, Deque, Iterable, Iterator, List, Sequence
 
 import numpy as np
 from sonar_tpu_torch.data.collate import Collater, DEFAULT_LEN_BUCKETS
@@ -43,6 +45,13 @@ class EmbeddingToTextConverter:
     def batch_convert(self, embeddings: Any) -> List[str]:
         """[B, D] sentence embeddings (numpy, or a tensor that may stay on
         the device) -> B decoded strings."""
+        return self.finish_convert(self.dispatch_convert(embeddings))
+
+    def dispatch_convert(self, embeddings: Any) -> Any:
+        """Start decoding a batch without blocking; resolve the returned
+        handle with ``finish_convert``. Beam decode dispatches
+        (``generate_beam_async``); sampling runs its loop here and returns
+        the strings, as the JAX package's does."""
         if torch.is_tensor(embeddings):
             memory = embeddings.float()[:, None, :]
         else:
@@ -52,8 +61,27 @@ class EmbeddingToTextConverter:
                 memory, self.prefix_ids, self.sampler, max_gen_len=self.gen_config.max_gen_len,
                 min_gen_len=self.gen_config.min_gen_len, seed=self.seed)
             return _decode_hypotheses(self.tokenizer, tokens, lens)
-        tokens, _, lens = self.decoder.generate_beam(memory, self.prefix_ids, self.gen_config)
+        return self.decoder.generate_beam_async(memory, self.prefix_ids, self.gen_config)
+
+    def finish_convert(self, handle: Any) -> List[str]:
+        """Materialize a ``dispatch_convert`` handle -> decoded strings."""
+        if isinstance(handle, list):  # sampling's strings
+            return handle
+        tokens, _, lens = self.decoder.materialize_beam(handle)
         return _decode_hypotheses(self.tokenizer, tokens[:, 0], lens[:, 0])
+
+
+def stream_in_window(handles: Iterable[Any], finish: Any, window: int = 2) -> Iterator[Any]:
+    """``finish`` of each handle, in order, keeping up to ``window``
+    dispatched beyond the one being finished: the dispatch of batch i + 1
+    (pulled from ``handles``) runs before batch i is finished."""
+    pending: Deque[Any] = deque()
+    for handle in handles:
+        pending.append(handle)
+        if len(pending) > window:
+            yield finish(pending.popleft())
+    while pending:
+        yield finish(pending.popleft())
 
 
 class TextTranslator:
@@ -67,6 +95,11 @@ class TextTranslator:
         self.collater = Collater(tokenizer.vocab_info.pad_idx, len_buckets=DEFAULT_LEN_BUCKETS)
 
     def batch_translate(self, texts: Sequence[str]) -> List[str]:
+        return self.converter.finish_convert(self.dispatch_translate(texts))
+
+    def dispatch_translate(self, texts: Sequence[str]) -> Any:
+        """Tokenize, collate and dispatch the encode and the decode ->
+        an in-flight handle (resolve with ``converter.finish_convert``)."""
         encode_batch = getattr(self.source_encoder, "encode_batch", None)
         if encode_batch is not None:  # one native call for the batch
             token_lists = encode_batch(texts)
@@ -76,4 +109,14 @@ class TextTranslator:
         batch = self.collater([ids[:max_len] for ids in token_lists])
         # The embeddings stay on the device into the decoder.
         embeddings = self.encoder.encode_batch(batch, materialize=False)
-        return self.converter.batch_convert(embeddings)
+        return self.converter.dispatch_convert(embeddings)
+
+    def translate_stream(self, chunks: Iterable[Sequence[str]],
+                         window: int = 2) -> Iterator[List[str]]:
+        """Translations of each chunk of texts, in order, with up to
+        ``window`` batches in flight: batch i + 1's tokenizing, encode and
+        decode dispatch run while batch i decodes, and batch i's
+        materialize and detokenizing while batch i + 1 computes. The same
+        results as ``batch_translate`` chunk by chunk."""
+        return stream_in_window((self.dispatch_translate(t) for t in chunks),
+                                self.converter.finish_convert, window)

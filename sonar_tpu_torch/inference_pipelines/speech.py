@@ -30,7 +30,7 @@ import numpy as np
 from sonar_tpu_torch.data.audio import AudioDecoder, FileMapper
 from sonar_tpu_torch.data.collate import round_up_pow2
 from sonar_tpu_torch.data.pipeline import DataPipelineBuilder, read_sequence, read_text
-from sonar_tpu_torch.device import resolve_device
+from sonar_tpu_torch.device import resolve_device, upload
 from sonar_tpu_torch.inference_pipelines.utils import add_progress_bar
 from sonar_tpu_torch.models.sonar_speech.model import SonarSpeechEncoder
 from sonar_tpu_torch.ops.fbank import FbankConfig, batched_fbank, num_frames
@@ -143,8 +143,8 @@ class TorchSpeechEncoder:
             batch[i, : w.shape[0]] = w
             lens[i] = w.shape[0]
         rows = data_sharding(mesh, b_pad)
-        waves_t = torch.from_numpy(batch[rows]).to(self.device)
-        lens_t = torch.from_numpy(lens[rows]).to(self.device)
+        waves_t = upload(torch.from_numpy(batch[rows]), self.device)
+        lens_t = upload(torch.from_numpy(lens[rows]), self.device)
         with torch.inference_mode(), matmul_precision_for(self.dtype), \
                 model_parallel(mesh.model_group):
             feats, frame_lens = batched_fbank(
@@ -276,31 +276,35 @@ class SpeechToTextModelPipeline(SpeechModelPipelineInterface):
     ) -> List[str]:
         """Clips in arrival order, ``batch_size`` at a time: each batch is
         encoded and its embeddings go, still on the device, into the beam
-        search. The batches are decoded one after the other: the beam loop
-        syncs with the host every step, so the JAX package's window of
-        batches in flight has nothing to overlap."""
+        search, with up to 2 batches in flight (``text_converter.
+        stream_in_window``): batch i + 1's fbank, encode and decode dispatch
+        run while batch i decodes."""
         from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
-        from sonar_tpu_torch.generation.text_converter import EmbeddingToTextConverter
+        from sonar_tpu_torch.generation.text_converter import (
+            EmbeddingToTextConverter,
+            stream_in_window,
+        )
 
         gen_config = BeamSearchConfig.from_kwargs(self.decoder.max_target_len,
                                                   **generator_kwargs)
         converter = EmbeddingToTextConverter(self.decoder, self.tokenizer, target_lang,
                                              gen_config)
 
-        def translate(waves: List[np.ndarray]) -> List[str]:
-            return converter.batch_convert(self.model.encode_waveforms(waves, materialize=False))
+        def dispatch(waves: List[np.ndarray]) -> Any:
+            return converter.dispatch_convert(self.model.encode_waveforms(waves,
+                                                                          materialize=False))
 
         pipeline = (
             read_sequence(list(input))
             .map(self._decode_audio, num_parallel_calls=n_parallel)
             .bucket(batch_size)
             .prefetch(n_prefetched_batches)
-            .map(translate)
+            .map(dispatch)
             .and_return()
         )
-        iterable = pipeline
+        iterable = stream_in_window(iter(pipeline), converter.finish_convert)
         if progress_bar:
-            iterable = add_progress_bar(pipeline, inputs=input, batch_size=batch_size)
+            iterable = add_progress_bar(iterable, inputs=input, batch_size=batch_size)
         return [x for y in iterable for x in y]
 
 

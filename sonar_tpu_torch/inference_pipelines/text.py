@@ -32,9 +32,14 @@ import warnings
 
 import numpy as np
 from sonar_tpu_torch.data.batcher import StaticShapeBatcher
-from sonar_tpu_torch.data.collate import Collater, DEFAULT_LEN_BUCKETS, SequenceBatch
+from sonar_tpu_torch.data.collate import (
+    Collater,
+    DEFAULT_LEN_BUCKETS,
+    SequenceBatch,
+    round_up_pow2,
+)
 from sonar_tpu_torch.data.pipeline import read_iterator, read_sequence, read_text
-from sonar_tpu_torch.device import resolve_device
+from sonar_tpu_torch.device import resolve_device, upload
 from sonar_tpu_torch.inference_pipelines.utils import add_progress_bar
 from sonar_tpu_torch.models.sonar_text.model import SonarTextEncoder
 from sonar_tpu_torch.nn.core import Params
@@ -155,8 +160,8 @@ class TorchTextEncoder:
             seqs = np.pad(seqs, ((0, pad), (0, 0)), constant_values=1)
             lens = np.pad(lens, (0, pad))
         rows = data_sharding(mesh, len(seqs))
-        seqs_t = torch.from_numpy(np.ascontiguousarray(seqs[rows], np.int32)).to(self.device)
-        lens_t = torch.from_numpy(np.ascontiguousarray(lens[rows], np.int32)).to(self.device)
+        seqs_t = upload(torch.from_numpy(np.ascontiguousarray(seqs[rows], np.int32)), self.device)
+        lens_t = upload(torch.from_numpy(np.ascontiguousarray(lens[rows], np.int32)), self.device)
         with torch.inference_mode(), matmul_precision_for(self.dtype), \
                 model_parallel(mesh.model_group):
             emb = self.model(seqs_t, lens_t).sentence_embeddings
@@ -391,9 +396,9 @@ class TextToTextModelPipeline:
     def warmup(self, batch_size: int = 5, target_lang: Optional[str] = None,
                **generator_kwargs: Any) -> int:
         """Run the encoder at every length bucket of ``predict``'s padded
-        batch and one beam decode at ``batch_size`` (this builds the CUDA
-        kernels); returns the number of shapes run."""
-        from sonar_tpu_torch.data.collate import round_up_pow2
+        batch and one beam decode at each padded batch size up to
+        ``batch_size``'s (this builds the CUDA kernels and captures each
+        size's beam program); returns the number of shapes run."""
         from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
 
         gen_config = BeamSearchConfig.from_kwargs(self.decoder.max_target_len,
@@ -411,7 +416,7 @@ class TextToTextModelPipeline:
             n += 1
         return n + self.decoder.warmup(gen_config, prefix_len=_prefix_len(self.tokenizer,
                                                                            target_lang),
-                                       batch_sizes=(batch_size,))
+                                       batch_sizes=_padded_sizes(batch_size))
 
     def predict(self, input: Union[str, Path, Sequence[str]], source_lang: str,
                 target_lang: str, batch_size: int = 5, progress_bar: bool = False,
@@ -425,10 +430,12 @@ class TextToTextModelPipeline:
                                     target_lang, gen_config)
         builder = (read_text(Path(input)) if isinstance(input, (str, Path))
                    else read_sequence(list(input)))
-        pipeline = builder.bucket(batch_size).map(translator.batch_translate).and_return()
-        iterable = pipeline
+        # Up to 2 batches in flight: batch i + 1's tokenizing and dispatches
+        # overlap batch i's decode, and batch i's materialize and
+        # detokenizing batch i + 1's compute.
+        iterable = translator.translate_stream(iter(builder.bucket(batch_size).and_return()))
         if progress_bar:
-            iterable = add_progress_bar(pipeline, inputs=input, batch_size=batch_size)
+            iterable = add_progress_bar(iterable, inputs=input, batch_size=batch_size)
         return [x for y in iterable for x in y]
 
 
@@ -442,13 +449,14 @@ class EmbeddingToTextModelPipeline:
 
     def warmup(self, batch_size: int = 5, target_lang: Optional[str] = None,
                **generator_kwargs: Any) -> int:
-        """One beam decode at ``batch_size`` and this generator config."""
+        """One beam decode at each padded batch size up to ``batch_size``'s
+        and this generator config."""
         from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
 
         gen_config = BeamSearchConfig.from_kwargs(self.decoder.max_target_len,
                                                   **generator_kwargs)
         return self.decoder.warmup(gen_config, prefix_len=_prefix_len(self.tokenizer, target_lang),
-                                   batch_sizes=(batch_size,))
+                                   batch_sizes=_padded_sizes(batch_size))
 
     def predict(self, inputs: Any, target_lang: str, batch_size: int = 5,
                 progress_bar: bool = False, sampler: Any = None,
@@ -469,6 +477,13 @@ class EmbeddingToTextModelPipeline:
         if progress_bar:
             iterable = add_progress_bar(pipeline, inputs=inputs, batch_size=batch_size)
         return [x for y in iterable for x in y]
+
+
+def _padded_sizes(batch_size: int) -> tuple:
+    """The batch sizes a decode of batches of up to ``batch_size`` rows pads
+    to (powers of two: the tail batch may be any size), one decoder program
+    each."""
+    return tuple(1 << i for i in range(round_up_pow2(batch_size).bit_length()))
 
 
 def _prefix_len(tokenizer: Any, target_lang: Optional[str]) -> int:

@@ -154,8 +154,10 @@ class ConditionalTransformerDecoder(nn.Module):
              memory_bias: Optional[torch.Tensor] = None,
              ancestry: Optional[torch.Tensor] = None,
              beam_size: Optional[int] = None) -> Tuple[torch.Tensor, DecoderCache]:
-        """One decode step: tokens [B] at position cache.index -> ([B, V]
-        fp32 logits, cache). ``ancestry`` / ``beam_size`` select beam mode
+        """One decode step: tokens [B] at position cache.index (a 0-d device
+        tensor, which the frontend's position encoder and the cache write
+        read on the device) -> ([B, V] fp32 logits, the cache advanced in
+        place). ``ancestry`` / ``beam_size`` select beam mode
         (``nn.transformer.decoder_step``)."""
         params = self.params.tree()
         cfg = self.config

@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import Optional
 
 from sonar_tpu_torch.nn.core import Params, dropout, embedding_lookup, layer_norm
-from sonar_tpu_torch.nn.position import LearnedPositionEncoder, SinusoidalPositionEncoder
+from sonar_tpu_torch.nn.position import LearnedPositionEncoder, SinusoidalPositionEncoder, Step
 import torch
 
 
@@ -51,10 +51,11 @@ class EmbeddingFrontend:
 
     def __call__(
         self, params: Params, seqs: torch.Tensor, dtype: torch.dtype = torch.float32,
-        step: int = 0, generator: Optional[torch.Generator] = None,
+        step: Step = 0, generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """seqs: [B, S] int token ids -> [B, S, D] embeddings; ``step`` is
-        the position of the first token (incremental decoding); dropout
+        the position of the first token (incremental decoding: a host int,
+        or the decoder cache's 0-d index tensor, ``nn.position``); dropout
         draws its mask from ``generator``."""
         x = embedding_lookup(params["embed"], seqs, dtype=dtype, vocab_size=self.vocab_size)
         if self.scale != 1.0:

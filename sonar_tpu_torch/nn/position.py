@@ -6,15 +6,36 @@ the half-split layout with fairseq1's (half - 1) denominator. With a legacy
 pad index, sequence position t reads table row ``t + pad_idx + 1``.
 Learned: a [max_seq_len, D] parameter (``{"weight": ...}`` in the tree),
 read from row 0 with no offset.
+
+The incremental ``step`` is a host int or a 0-d integer tensor on the
+device (the decoder cache's write position): a device step selects its rows
+with ``index_select`` and reads nothing back to the host, so its range
+cannot be checked there; like JAX's ``dynamic_slice`` it is clamped to the
+table. A host step past the table raises.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
+
+Step = Union[int, torch.Tensor]
+
+
+def _rows(table: torch.Tensor, start: Step, seq_len: int, limit: int) -> torch.Tensor:
+    """``table[start : start + seq_len]``; ``limit`` is the table's usable
+    row count. A device ``start`` is clamped to [0, limit - seq_len]."""
+    if torch.is_tensor(start):
+        first = start.reshape(1).clamp(0, limit - seq_len)
+        rows = first + torch.arange(seq_len, device=first.device) if seq_len > 1 else first
+        return table.index_select(0, rows)
+    if start + seq_len > limit:
+        raise ValueError(f"positions up to {start + seq_len} exceed the {limit}-row position "
+                         f"table")
+    return table[start:start + seq_len]
 
 
 def sinusoidal_table(max_len: int, dim: int) -> torch.Tensor:
@@ -53,15 +74,11 @@ class SinusoidalPositionEncoder:
             self._cache[key] = self._table.to(device=device, dtype=dtype)
         return self._cache[key]
 
-    def __call__(self, seqs: torch.Tensor, step: int = 0) -> torch.Tensor:
+    def __call__(self, seqs: torch.Tensor, step: Step = 0) -> torch.Tensor:
         """seqs: [B, S, D]; returns seqs + PE[offset + step : offset + step + S]
         (``step`` is the position of an incremental decode step)."""
-        seq_len = seqs.shape[1]
-        start = self.offset + step
-        if start + seq_len > self.max_seq_len:
-            raise ValueError(f"positions up to {start + seq_len} exceed the "
-                             f"{self.max_seq_len}-row position table")
-        pe = self.table(seqs.device, seqs.dtype)[start:start + seq_len]
+        pe = _rows(self.table(seqs.device, seqs.dtype), self.offset + step, seqs.shape[1],
+                   self.max_seq_len)
         return seqs + pe[None, :, :]
 
 
@@ -73,11 +90,7 @@ class LearnedPositionEncoder:
         self.dim = dim
         self.max_seq_len = max_seq_len
 
-    def __call__(self, params: dict, seqs: torch.Tensor, step: int = 0) -> torch.Tensor:
+    def __call__(self, params: dict, seqs: torch.Tensor, step: Step = 0) -> torch.Tensor:
         """seqs: [B, S, D]; returns seqs + weight[step : step + S]."""
-        seq_len = seqs.shape[1]
-        if step + seq_len > self.max_seq_len:
-            raise ValueError(f"positions up to {step + seq_len} exceed the "
-                             f"{self.max_seq_len}-row position table")
-        pe = params["weight"][step:step + seq_len].to(seqs.dtype)
+        pe = _rows(params["weight"], step, seqs.shape[1], self.max_seq_len).to(seqs.dtype)
         return seqs + pe[None, :, :]

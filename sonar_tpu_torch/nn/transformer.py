@@ -370,14 +370,16 @@ class DecoderCache:
     SONAR embedding bottleneck) the cross-attention block is exactly
     ``output_proj(v_proj(memory))`` (softmax over one position is 1), so
     it is precomputed and cross_k / cross_v are empty.
-    index: the next write position, a host integer.
+    index: the next write position, a 0-d int64 tensor on the cache's
+    device that ``decoder_step`` advances in place, so that a step reads
+    nothing back to the host and can be captured in a CUDA graph.
     """
 
     self_k: torch.Tensor
     self_v: torch.Tensor
     cross_k: torch.Tensor
     cross_v: torch.Tensor
-    index: int
+    index: torch.Tensor
     cross_out: Optional[torch.Tensor] = None
 
 
@@ -391,8 +393,9 @@ def init_decoder_cache(
     dtype: torch.dtype,
     beam_size: Optional[int] = None,
 ) -> DecoderCache:
-    """Allocate the cache and project the cross-attention K/V of every
-    layer (or, for a length-1 memory, the constant ``cross_out``)."""
+    """Allocate the cache (its index a 0-d tensor on ``memory.device``) and
+    project the cross-attention K/V of every layer (or, for a length-1
+    memory, the constant ``cross_out``)."""
     n_layers = num_stacked_layers(stacked_params)
     head_dim = model_dim // num_heads
     group = model_group()
@@ -420,14 +423,14 @@ def init_decoder_cache(
         self_v=torch.zeros(shape, dtype=dtype, device=dev),
         cross_k=cross_k,
         cross_v=cross_v,
-        index=0,
+        index=torch.zeros((), dtype=torch.long, device=dev),
         cross_out=cross_out,
     )
 
 
-def valid_bias(max_len: int, idx: int, device: Any) -> torch.Tensor:
-    """[S_max] fp32: 0 at positions <= idx, -1e30 after (the beam kernels'
-    additive position mask)."""
+def valid_bias(max_len: int, idx: Any, device: Any) -> torch.Tensor:
+    """[S_max] fp32: 0 at positions <= idx (a host int or a 0-d tensor), -1e30
+    after (the beam kernels' additive position mask)."""
     pos = torch.arange(max_len, device=device)
     return torch.where(pos <= idx, 0.0, -1e30).float()
 
@@ -479,15 +482,21 @@ def decoder_step(
     beam_size: Optional[int] = None,
 ) -> Tuple[torch.Tensor, DecoderCache]:
     """One incremental step of the whole stack: x [B, 1, D] at position
-    ``cache.index`` -> (output [B, 1, D], the cache with index + 1).
+    ``cache.index`` -> (output [B, 1, D], the same cache, its index advanced
+    by one in place).
 
     Writes this position's K/V (the rank's heads under a model split) into
-    the cache in place. ``ancestry``
+    the cache in place, at the device index (``index_copy_``): nothing is
+    read back to the host. As JAX's ``dynamic_update_slice`` does, a write
+    position past the cache is clamped to its last slot (a step that beam
+    search takes after its exit test, whose outputs it discards, may land
+    there). ``ancestry``
     [N, S_max] int32 in [0, beam_size) selects beam mode: self-attention
     reads the un-reordered cache through it (``_beam_self_attend``).
     """
     idx = cache.index
     max_len = cache.self_k.shape[-2]
+    at = idx.clamp(max=max_len - 1).reshape(1)
     if ancestry is None:
         pos = torch.arange(max_len, device=x.device)
         self_bias = torch.where(pos <= idx, 0.0, F32_MIN).float()[None, None, None, :]
@@ -509,13 +518,14 @@ def decoder_step(
         k_new, v_new = mha_project_kv(p["self_attn"], h, num_heads)  # [N, H, 1, Dh]
         if anc_b is not None:
             b, hh, kk, _, dh = sk.shape
-            sk[:, :, :, idx] = k_new.reshape(b, kk, hh, dh).transpose(1, 2).to(sk.dtype)
-            sv[:, :, :, idx] = v_new.reshape(b, kk, hh, dh).transpose(1, 2).to(sv.dtype)
+            for cache_t, new_t in ((sk, k_new), (sv, v_new)):
+                cache_t.index_copy_(3, at, new_t.reshape(b, kk, hh, 1, dh).transpose(1, 2)
+                                    .to(cache_t.dtype))
             y = x + _beam_self_attend(p["self_attn"], h, sk, sv, anc_b, beam_bias,
                                       num_heads, beam_size)
         else:
-            sk[:, :, idx] = k_new[:, :, 0].to(sk.dtype)
-            sv[:, :, idx] = v_new[:, :, 0].to(sv.dtype)
+            sk.index_copy_(2, at, k_new.to(sk.dtype))
+            sv.index_copy_(2, at, v_new.to(sv.dtype))
             y = x + mha_attend(p["self_attn"], h, sk, sv, self_bias, num_heads)
         if cache.cross_out is not None:
             y = y + cache.cross_out[layer]
@@ -525,7 +535,5 @@ def decoder_step(
                                cache.cross_v[layer], memory_bias, num_heads)
         h = layer_norm(p["ffn_layer_norm"], y)
         x = y + ffn(p["ffn"], h, activation)
-    return x, DecoderCache(
-        self_k=cache.self_k, self_v=cache.self_v, cross_k=cache.cross_k,
-        cross_v=cache.cross_v, index=idx + 1, cross_out=cache.cross_out,
-    )
+    cache.index.add_(1)
+    return x, cache

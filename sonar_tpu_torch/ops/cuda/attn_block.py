@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 from sonar_tpu_torch.ops import _build
+from sonar_tpu_torch.ops.cuda import launched
 from sonar_tpu_torch.ops.cuda.int8_blocks import (
     check_cuda,
     f32,
@@ -65,7 +66,6 @@ def fused_attn_block(
     if not x.is_cuda:
         return fused_attn_block_plain(x, bias, ln_scale, ln_bias, wqkv_q, sqkv,
                                       bqkv, wo_q, so, bo, num_heads)
-    global LAUNCHES
     require(x.dim() == 3 and x.dtype in _KIND, "x must be [B, S, D] fp32 or bf16")
     b, s, d = x.shape
     dh = d // num_heads
@@ -102,5 +102,5 @@ def fused_attn_block(
         ),
         "fused_attn_block",
     )
-    LAUNCHES += 1
+    launched("attn_block", "LAUNCHES")
     return out

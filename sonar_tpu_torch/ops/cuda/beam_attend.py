@@ -29,10 +29,13 @@ import functools
 from typing import Tuple
 
 from sonar_tpu_torch.ops import _build
+from sonar_tpu_torch.ops.cuda import launched
 from sonar_tpu_torch.ops.attention import softmax
 from sonar_tpu_torch.ops.cuda.int8_blocks import check_cuda, require
 import torch
 
+# Launch counts. A captured beam step launches the masked attend at each
+# replay too: the runtime adds those (``ops.cuda.add_launches``).
 MASKED_LAUNCHES = 0
 DIAG_LAUNCHES = 0
 REORDER_LAUNCHES = 0
@@ -104,7 +107,8 @@ def masked_tiles(bh: int, s: int) -> Tuple[int, int]:
     """(positions a block, blocks a (sentence, head)) of the bf16 masked
     attend kernel at B*H = ``bh`` and a cache of ``s`` positions: more than
     one block a head means fp32 partials in a workspace and a combining
-    launch."""
+    launch. A captured beam step finds its shape here already: the runtime
+    runs one step eagerly before it captures."""
     tile, nsplit = ctypes.c_int(), ctypes.c_int()
     _build.check(_build.library().sonar_beam_masked_tiles(bh, s, ctypes.byref(tile),
                                                            ctypes.byref(nsplit)),
@@ -123,7 +127,6 @@ def beam_masked_attend(
     """Ancestry-masked beam self-attend -> [B*H, K, Dh] in q's dtype."""
     if not q.is_cuda:
         return beam_masked_attend_plain(q, k_cache, v_cache, anc, valid_bias, num_heads)
-    global MASKED_LAUNCHES
     bh, beam, dh = q.shape
     require(k_cache.dim() == 4 and k_cache.shape[0] == bh and k_cache.shape[-1] == dh,
             f"k_cache must be [{bh}, C, S, {dh}], got {tuple(k_cache.shape)}")
@@ -148,7 +151,7 @@ def beam_masked_attend(
         ),
         "beam_masked_attend",
     )
-    MASKED_LAUNCHES += 1
+    launched("beam_attend", "MASKED_LAUNCHES")
     return out
 
 
@@ -161,7 +164,6 @@ def beam_diag_attend(
     """Diagonal attend (beam row k attends its own cache row) -> [B, K, H, Dh]."""
     if not q.is_cuda:
         return beam_diag_attend_plain(q, k_cache, v_cache, valid_bias)
-    global DIAG_LAUNCHES
     b, beam, h, dh = q.shape
     require(beam <= 16, f"at most 16 beams, got {beam}")
     require(k_cache.dim() == 5 and tuple(k_cache.shape[:3]) == (b, h, beam),
@@ -179,7 +181,7 @@ def beam_diag_attend(
         ),
         "beam_diag_attend",
     )
-    DIAG_LAUNCHES += 1
+    launched("beam_attend", "DIAG_LAUNCHES")
     return out
 
 
@@ -197,7 +199,6 @@ def beam_reorder_attend(
     if not q.is_cuda:
         return beam_reorder_attend_plain(q, k_new, v_new, k_cache, v_cache, sel, valid_bias,
                                          write_onehot)
-    global REORDER_LAUNCHES
     b, beam, h, dh = q.shape
     require(beam <= 16, f"at most 16 beams, got {beam}")
     require(k_cache.dim() == 5 and tuple(k_cache.shape[:3]) == (b, h, beam),
@@ -222,5 +223,5 @@ def beam_reorder_attend(
         ),
         "beam_reorder_attend",
     )
-    REORDER_LAUNCHES += 1
+    launched("beam_attend", "REORDER_LAUNCHES")
     return out, k_out, v_out

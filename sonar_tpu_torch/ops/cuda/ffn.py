@@ -26,6 +26,7 @@ from __future__ import annotations
 from typing import Optional
 
 from sonar_tpu_torch.ops import _build
+from sonar_tpu_torch.ops.cuda import launched
 from sonar_tpu_torch.ops.cuda.int8_blocks import (
     check_cuda,
     f32,
@@ -81,7 +82,6 @@ def _fused_ffn_impl(x, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
     if not x.is_cuda:
         return fused_ffn_plain(x, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
                                ln_scale, ln_bias, n_splits)
-    global LAUNCHES
     require(x.dim() == 2 and x.dtype in _KIND, "x must be [M, D] fp32 or bf16")
     m, d = x.shape
     f = w1_q.shape[-1]
@@ -116,7 +116,7 @@ def _fused_ffn_impl(x, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
         ),
         "fused_int8_ffn",
     )
-    LAUNCHES += 1
+    launched("ffn", "LAUNCHES")
     return out
 
 
@@ -144,7 +144,6 @@ def fused_bf16_ffn_ln_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
     if not x.is_cuda:
         return fused_bf16_ffn_ln_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                                 res_scale, n_splits)
-    global BF16_LAUNCHES
     require(x.dim() == 2 and x.dtype in _KIND, "x must be [M, D] fp32 or bf16")
     m, d = x.shape
     f = w1.shape[-1]
@@ -179,5 +178,5 @@ def fused_bf16_ffn_ln_residual(x, ln_scale, ln_bias, w1, b1, w2, b2,
         ),
         "fused_bf16_ffn_ln_residual",
     )
-    BF16_LAUNCHES += 1
+    launched("ffn", "BF16_LAUNCHES")
     return out

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Optional
 
 from sonar_tpu_torch.ops import _build
+from sonar_tpu_torch.ops.cuda import launched
 from sonar_tpu_torch.ops.attention import softmax
 from sonar_tpu_torch.ops.cuda.int8_blocks import check_cuda, require
 import torch
@@ -38,7 +39,6 @@ def flash_attention(
     stride); bias [B, 1, 1, Skv] or [B, 1, Sq, Skv]. -> [B, H, Sq, Dh]."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, bias)
-    global LAUNCHES
     require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k, v must be 4-D")
     b, h, sq, dh = q.shape
     skv = k.shape[2]
@@ -69,5 +69,5 @@ def flash_attention(
         ),
         "flash_attention",
     )
-    LAUNCHES += 1
+    launched("flash", "LAUNCHES")
     return out

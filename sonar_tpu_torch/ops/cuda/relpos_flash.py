@@ -25,6 +25,7 @@ import ctypes
 from typing import Optional
 
 from sonar_tpu_torch.ops import _build
+from sonar_tpu_torch.ops.cuda import launched
 from sonar_tpu_torch.ops.attention import softmax
 from sonar_tpu_torch.ops.cuda.int8_blocks import check_cuda, require
 import torch
@@ -142,7 +143,6 @@ def relpos_flash_attention_v2(
     if not q.is_cuda:
         return relpos_flash_attention_v2_plain(q, k, v, wr_heads, si, ci, basis,
                                                u_bias, v_bias, key_bias)
-    global LAUNCHES
     b, h, s, dh = _check_qkv(q, k, v)
     d = basis.shape[-1]
     require(d % 64 == 0, f"model dim {d} must be a multiple of 64")
@@ -163,7 +163,7 @@ def relpos_flash_attention_v2(
         ),
         "relpos_flash_attention_v2",
     )
-    LAUNCHES += 1
+    launched("relpos_flash", "LAUNCHES")
     return out
 
 
@@ -175,7 +175,6 @@ def relpos_flash_attention(
     dtype; key_bias [B, S] fp32 or None. -> [B, H, S, Dh]."""
     if not q.is_cuda:
         return relpos_flash_attention_plain(q, k, v, bd, u_bias, key_bias)
-    global V1_LAUNCHES
     b, h, s, dh = _check_qkv(q, k, v)
     check_cuda("bd", bd, q.device, dtype=q.dtype, shape=(b, h, s, s))
     check_cuda("u_bias", u_bias, q.device, dtype=q.dtype, shape=(h, dh))
@@ -189,5 +188,5 @@ def relpos_flash_attention(
         ),
         "relpos_flash_attention",
     )
-    V1_LAUNCHES += 1
+    launched("relpos_flash", "V1_LAUNCHES")
     return out

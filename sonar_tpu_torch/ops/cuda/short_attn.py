@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 from sonar_tpu_torch.ops import _build
+from sonar_tpu_torch.ops.cuda import launched
 from sonar_tpu_torch.ops.attention import softmax
 from sonar_tpu_torch.ops.cuda.int8_blocks import check_cuda, require
 import torch
@@ -50,7 +51,6 @@ def short_qkv_attention(
     the input dtype)."""
     if not qkv.is_cuda:
         return short_qkv_attention_plain(qkv, bias, num_heads, out_dtype)
-    global LAUNCHES
     out_dtype = out_dtype or qkv.dtype
     require(qkv.dim() == 3 and qkv.shape[-1] % (3 * num_heads) == 0,
             f"qkv must be [B, S, 3*H*Dh], got {tuple(qkv.shape)}")
@@ -72,5 +72,5 @@ def short_qkv_attention(
         ),
         "short_qkv_attention",
     )
-    LAUNCHES += 1
+    launched("short_attn", "LAUNCHES")
     return out

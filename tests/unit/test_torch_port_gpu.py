@@ -1201,3 +1201,156 @@ def test_world_one_nccl_mesh_encode_is_the_mesh_free_encode(dev, tmp_path, quant
         dist.destroy_process_group()
     assert sum(want_launches) > 0 and launches == want_launches
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+def test_captured_beam_decode_matches_the_eager_body(dev, mode):
+    """Beam decode through the captured CUDA graphs and the device-side
+    loop (``generate_beam`` and the async pair) against the eager body on
+    the card (``_beam_eager``, the same padded batch): tokens and lengths
+    identical, scores within 1e-5 (bit for bit unless cuBLAS picks another
+    algorithm under capture). The card runs the search's steps and no
+    more (the first call adds the prefix's and one body step, run eagerly
+    before the capture); ``beam_masked_attend`` launches 2 layers x the
+    steps the card ran; the second call replays the same program."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_decoder_params, text_decoder_from_numpy
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+
+    toy = sonar_text_decoder_archs.get("toy")
+    cfg = dataclasses.replace(toy, model_dim=128, num_encoder_attn_heads=2,
+                              num_decoder_attn_heads=2, ffn_inner_dim=256,
+                              vocab_info=dataclasses.replace(toy.vocab_info, size=3000))
+    dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+    dec = TorchTextDecoder(text_decoder_from_numpy(init_text_decoder_params(cfg, seed=0), cfg,
+                                                   dtype, device=dev),
+                           quantize=mode == "int8", device=dev)
+    rng = np.random.default_rng(0)
+    memory = rng.normal(size=(5, 1, 128)).astype(np.float32) * 2.0
+    config = BeamSearchConfig(beam_size=3, max_gen_len=12, len_penalty=0.7, unk_penalty=0.5)
+    search = dec._search_config(config, 2)
+    want = dec._beam_eager(torch.tensor(memory, device=dev), [3, 7], search)
+    for run in range(2):
+        masked, steps, ran = beam_attend.MASKED_LAUNCHES, dec.decode_steps, dec.device_steps
+        handle = dec.generate_beam_async(memory, [3, 7], config)
+        got = dec.materialize_beam(handle)
+        torch.cuda.synchronize()
+        assert len(dec._graphs) == 1
+        warm = 3 if run == 0 else 0
+        assert dec.device_steps - ran == dec.decode_steps - steps + warm
+        assert dec.decode_steps - steps > 2
+        assert beam_attend.MASKED_LAUNCHES - masked == 2 * (dec.device_steps - ran)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_beam_decode_from_several_threads(dev):
+    """Four threads decode on one decoder at once, each three batches of 3, 5
+    and 9 rows (padded to 4, 8 and 16: three captures race with the other
+    threads' dispatches), half through the async pair, with a short switch
+    interval: every result equals the same call made alone on a second
+    decoder of the same weights, and every thread ends within 300 s."""
+    import dataclasses
+    import sys
+    import threading
+
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_decoder_params, text_decoder_from_numpy
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+
+    toy = sonar_text_decoder_archs.get("toy")
+    cfg = dataclasses.replace(toy, model_dim=128, num_encoder_attn_heads=2,
+                              num_decoder_attn_heads=2, ffn_inner_dim=256,
+                              vocab_info=dataclasses.replace(toy.vocab_info, size=3000))
+    model = text_decoder_from_numpy(init_text_decoder_params(cfg, seed=0), cfg, torch.bfloat16,
+                                    device=dev)
+    shared, alone = TorchTextDecoder(model, device=dev), TorchTextDecoder(model, device=dev)
+    config = BeamSearchConfig(beam_size=3, max_gen_len=10)
+    rng = np.random.default_rng(0)
+    jobs = [[rng.normal(size=(b, 1, 128)).astype(np.float32) for b in (3, 5, 9)]
+            for _ in range(4)]
+    got, errors = {}, []
+
+    def run(t):
+        try:
+            for i, mem in enumerate(jobs[t]):
+                if (t + i) % 2:
+                    got[t, i] = shared.generate_beam(mem, [3, 7], config)
+                else:
+                    got[t, i] = shared.materialize_beam(
+                        shared.generate_beam_async(mem, [3, 7], config))
+        except Exception as err:  # reported below with its thread
+            errors.append((t, err))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(t,)) for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert len(got) == 12 and len(shared._graphs) == 3
+    for (t, i), out in got.items():
+        want = alone.generate_beam(jobs[t][i], [3, 7], config)
+        for g, w in zip(out, want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [0, 7, 10])
+def test_while_graph_runs_its_body_until_done(dev, start):
+    """``ops.cuda.graph_loop.WhileGraph`` loops a captured body (a cuBLAS
+    product and a counter) on the card until the body writes done: from a
+    count of 0 and 7 it runs to 10 steps, equal bit for bit to 10 eager
+    steps; from 10 (done at launch) it runs none. Launched twice, it runs
+    again."""
+    from sonar_tpu_torch.ops.cuda.graph_loop import WhileGraph
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x0 = torch.randn(64, 64, generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn(64, 64, generator=gen) * 0.1).to(dev, torch.bfloat16)
+    x = x0.clone()
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def body():
+        x.copy_(torch.tanh(x @ w))
+        count.add_(1)
+        done.copy_(count >= 10)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        body()
+    loop = WhileGraph(graph, done)
+    want = x0.clone()
+    for _ in range(10 - start):
+        want = torch.tanh(want @ w)
+    for _ in range(2):
+        x.copy_(x0)
+        count.fill_(start)
+        done.fill_(start >= 10)
+        loop.launch(torch.cuda.current_stream(dev))
+        torch.cuda.synchronize()
+        assert int(count) == max(start, 10)
+        assert torch.equal(x, want)
