@@ -21,7 +21,7 @@ Phases, each printing ``#`` lines:
     sm_90a) and prints the build time and the compiler's register report;
 (c) kernels: the bf16 attention core's softmax division against
     ``__fdiv_rn``, bit for bit, on 2^36 operand pairs (``csrc/div_check.cu``);
-    each of the ten kernels against its plain PyTorch version on
+    each of the eleven kernels against its plain PyTorch version on
     the card, at the main paths' shapes, with the tolerance stated, and
     both timed with CUDA events (plain, kernel, kernel, plain; the kernels
     line gives each kernel's first timed shape, v2 is timed in fp32 too),
@@ -68,6 +68,10 @@ Phases, each printing ``#`` lines:
     S - 1, S 259, the new caches equal to the plain version's and two calls
     equal bit for bit each time, and timed in bf16 at the decode shape
     (random and one-row sel) and at S 259, idx 200, warm and with a cold L2;
+    ``gumbel_max`` (the sampling step's draw, which replaces no Pallas
+    kernel) at [32, 256206] and [128, 256206] over 48 steps, its noise and
+    tokens equal to the plain version's bit for bit, timed at [32, 256206]
+    beside its bound (integer operations over the INT32 lanes' rate);
 (d) the slice: the ``basic`` SONAR text encoder at full width (24 layers,
     D 1024, 16 heads, FFN 8192, vocabulary 256,206) with seeded random
     weights, behind ``TextToEmbeddingModelPipeline.predict`` with a
@@ -137,9 +141,10 @@ Phases, each printing ``#`` lines:
     embeddings within 1e-3 of their scale, and the same best hypotheses.
 (h) sampling, int8 decode and the heads: top-p 0.9 and top-k 10 sampling
     with the ``basic`` decoder in bf16 and fp32 on (d)'s 64 embeddings
-    (batch 32, max_gen_len 48), and in fp32 on 4 embeddings against the
-    CPU port with the same Gumbel noise (``noise`` hook; identical tokens,
-    a tie within 1e-5 printed); int8 decode (``quantize=True``, beam 5) on
+    (batch 32, max_gen_len 48; the captured program, ``gumbel_max``
+    launched), and in fp32 on 4 embeddings against the CPU port with the
+    same Gumbel noise drawn on the host (``noise`` hook, the eager body;
+    identical tokens, a tie within 1e-5 printed); int8 decode (``quantize=True``, beam 5) on
     the 64 embeddings and on 2 (10 beam rows, ``int8_matmul``'s float64
     route), its teacher-forced logits' row cosine >= 0.99 against the
     card's fp32 decoder and >= 0.9999 against the CPU port in int8; BLASER
@@ -148,6 +153,22 @@ Phases, each printing ``#`` lines:
     BiLSTM 512) on 512 sentences of (d)'s corpus, each at its published
     width with seeded random weights, against the CPU port in fp32 to 1e-4
     of the output's scale.
+
+(h2) the captured sampling program: sampling runs as CUDA graphs (the
+    setup, then one step looped on the card until the device's exit flag
+    says done), its draw JAX's threefry noise from the seed's key words and
+    the device step counter (``gumbel_max``); it is held against the same
+    loop run eagerly on the card (``_sample_eager``) on the 64 embeddings,
+    top-p 0.9 and top-k 10, max_gen_len 48, in bf16, fp32 and int8: tokens,
+    scores and lengths bit for bit, ``gumbel_max`` launched once a body step
+    the card ran, each path's ms a decode step. In bf16: the same seeds
+    repeat their samples and other seeds give others; a new key's capture
+    (max_gen_len 45, a runtime of its own) timed with the memory it holds;
+    both busy shares over a top-p batch of 32 (the eager body's over 16
+    steps); the fresh-noise check (a flat filter for 48 steps:
+    each row's tokens >= 40 distinct values; a draw fixed at capture would
+    give 1). fp32 top-p from one seed on 4 embeddings against the CPU port
+    (its plain draw): identical tokens, a tie within 1e-5 printed.
 
 (i) mining: ``sonar_tpu_torch.parallel.mining.cosine_topk`` at
     ``scripts/bench_mining.py``'s size (65,536 x 65,536 unit rows, D 1024,
@@ -265,7 +286,8 @@ Phases, each printing ``#`` lines:
     (k4)'s 2e-3 of its scale, no launch.
 
 A kernel's ``launches`` in the JSON record is the sum of its counts over
-(d) to (m), (l)'s and (m)'s summed over their children; the kernels that no path calls (``relpos_flash_attention``,
+(d) to (m) (with (f2) and (h2)), (l)'s and (m)'s summed over their
+children; the kernels that no path calls (``relpos_flash_attention``,
 ``beam_diag_attend``, ``beam_reorder_attend``,
 ``fused_bf16_ffn_ln_residual``) must read 0. Prints that record on the
 line before the last, and as the last line ``{"ok": true, "device":
@@ -322,6 +344,10 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its
                             "REORDER_LAUNCHES"),
     "fused_bf16_ffn_ln_residual": ("sonar_tpu_torch/csrc/bf16_ffn.cu",
                                    "sonar_tpu/ops/pallas/ffn.py:137", "ffn", "BF16_LAUNCHES"),
+    # No Pallas kernel: the sampling step's jax.random.categorical, which XLA
+    # computes in the JAX package.
+    "gumbel_max": ("sonar_tpu_torch/csrc/gumbel_max.cu", "sonar_tpu/generation/sampling.py:123",
+                   "gumbel_max", "LAUNCHES"),
 }
 # Kernels that no driven path launches (no JAX path calls them either): their
 # counts are read like the others' and must stay 0.
@@ -330,9 +356,13 @@ NO_PATH = ("relpos_flash_attention", "beam_diag_attend", "beam_reorder_attend",
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): device
 # memory bytes/s and operations/s by operand type. A kernel's bound is the
-# larger of its bytes over HBM and its operations over their peaks.
+# larger of its bytes over HBM and its operations over their peaks. 32-bit
+# integer operations (not on the data sheet): the Hopper white paper's 64
+# INT32 lanes an SM, 132 SMs, at the 1.98 GHz behind the data sheet's fp32
+# rate (67e12 = 132 x 128 lanes x 2 x 1.98e9).
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12, "int32": 132 * 64 * 1.98e9}
+SAMPLE_VOCAB = 256206  # the basic decoder's vocabulary: (c)'s gumbel_max shape
 
 
 def log(msg: str) -> None:
@@ -1143,6 +1173,61 @@ def check_kernels(torch):
         if not ok:
             failures.append(f"beam_masked_attend {label} repeated")
         del q, kc, vc, kp, vp, outs
+
+    # K12 (replaces no Pallas kernel): the sampling step's Gumbel-max with
+    # JAX's threefry noise, at the sampling decode's [32, 256206] and at
+    # [128, 256206], over 48 steps (top-p 0.9-filtered rows and whole
+    # log-probability rows in turns, row0 0 to 2): the noise and the tokens
+    # equal to the plain version's bit for bit (both use the same logf).
+    # Timed at [32, 256206] on the filtered rows. Bound: the rows read once
+    # and the tokens written, against 75 integer operations an element (the
+    # threefry hash's 20 rounds of add, rotate and xor, its 6 key
+    # injections, the bits' xor, shift and or) and 9 fp32 ones (the uniform,
+    # two logs, two negations, the add and the comparison). No library call
+    # computes this function (torch.multinomial draws other numbers).
+    from sonar_tpu_torch.generation.sampling import TopPSampler
+    from sonar_tpu_torch.ops.cuda import gumbel_max as gm
+
+    key = gm.prng_key(123456, dev)
+    step = torch.zeros((), dtype=torch.int64, device=dev)
+    for b in (32, 128):
+        lp = torch.log_softmax(rand(b, SAMPLE_VOCAB, scale=3.0), dim=-1)
+        nucleus = TopPSampler(0.9).filter_logprobs(lp)
+        noise, want_noise = (torch.empty(b, SAMPLE_VOCAB, device=dev) for _ in range(2))
+        differ = [0, 0]
+        gap = 0.0
+        for s in range(48):
+            step.fill_(s)
+            filtered = nucleus if s % 2 else lp
+            got = gm.gumbel_max(filtered, key, step, s % 3, noise=noise)
+            want = gm.gumbel_max_plain(filtered, key, step, s % 3, noise=want_noise)
+            differ[0] += int((noise != want_noise).sum())
+            differ[1] += int((got != want).sum())
+            gap = max(gap, float((noise - want_noise).abs().max()))
+        ok = differ == [0, 0] and bool(torch.isfinite(noise).all())
+        log(f"check gumbel_max [{b},{SAMPLE_VOCAB}] over 48 steps: {differ[0]} noise values and "
+            f"{differ[1]} tokens differ from the plain version's (bit for bit) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"gumbel_max [{b},{SAMPLE_VOCAB}]")
+        results["gumbel_max"]["max_abs_err"] = max(results["gumbel_max"]["max_abs_err"], gap)
+        if b == 32:
+            step.fill_(7)
+            kernel_fn = lambda: gm.gumbel_max(nucleus, key, step)  # noqa: E731
+            plain_fn = lambda: gm.gumbel_max_plain(nucleus, key, step)  # noqa: E731
+            p1, k1, k2, p2 = (_timed(torch, fn, 20)
+                              for fn in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+            n = b * SAMPLE_VOCAB
+            bound_ms, bound_by = bound(nbytes(nucleus, key, step) + 8 * b,
+                                       {"int32": 75 * n, "fp32": 9 * n})
+            k_ms = (k1 + k2) / 2
+            results["gumbel_max"].update(ms=k_ms, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+                                         bound_by=bound_by, library_ms=None,
+                                         shape=f"[{b},{SAMPLE_VOCAB}] top-p 0.9 rows")
+            log(f"time gumbel_max [{b},{SAMPLE_VOCAB}]: kernel {k1:.4f} / {k2:.4f} ms, plain "
+                f"{p1:.4f} / {p2:.4f} ms, library call none, bound {bound_ms:.4f} ms "
+                f"({bound_by}); {bound_ms / k_ms:.1%} of the bound")
+        del lp, nucleus, noise, want_noise
 
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
@@ -2201,6 +2286,218 @@ def run_sampling_int8_heads(torch, card, handoff):
          lambda: torch.cat([laser(s_, l_) for s_, l_ in batches]),
          lambda: torch.cat([cpu_laser(s_[pick].cpu(), l_[pick].cpu())
                             for (s_, l_), pick in zip(batches, picks)]), len(ids), rows)
+    return launches
+
+
+# -- (h2) the captured sampling program against the eager body -----------------------------
+
+
+SAMPLE_GEN_LEN = 48  # (h2)'s max_gen_len, as (h)'s
+SAMPLE_NEW_KEY_GEN_LEN = 45  # (h2): a limit no sampling call used before: its first call captures
+FRESH_MIN_DISTINCT = 40  # (h2): distinct tokens of 48 uniform draws of 256,206 (about 48 expected)
+
+
+class _FlatSampler:
+    """A sampler whose filter keeps every column at 0 but EOS (-1e30, so that
+    no row stops): each token is a uniform draw of the vocabulary, which a
+    draw fixed at capture would repeat at every step of the loop."""
+
+    temperature = 1.0
+
+    def __init__(self, eos):
+        self.eos = eos
+
+    def filter_logprobs(self, lp):
+        out = lp.new_zeros(lp.shape)
+        out[:, self.eos] = -1e30
+        return out
+
+
+def _sample_ties(label, card_out, cpu_out, filtered, noise_of, tol=1e-5):
+    """The card's and the CPU's sampled tokens agree, or, where a row's
+    tokens differ, its two best noisy scores at the first differing step
+    (the CPU's filtered rows plus ``noise_of(step)``) lie within ``tol``
+    (printed, not failed)."""
+    import torch
+
+    (ct, _, _), (pt, _, _) = card_out, cpu_out
+    for r in range(ct.shape[0]):
+        diff = [i for i in range(ct.shape[1]) if ct[r, i] != pt[r, i]]
+        if not diff:
+            continue
+        scores = (filtered[diff[0]][r] + noise_of(diff[0])[r]).double()
+        top2 = torch.topk(scores, 2).values
+        tie = float(top2[0] - top2[1]) <= tol
+        log(f"{label} row {r}: tokens differ from step {diff[0]} (the CPU's two best noisy "
+            f"scores {float(top2[0]):.7f}, {float(top2[1]):.7f}); "
+            f"{'a tie within 1e-5: not a failure' if tie else 'FAIL'}")
+        if not tie:
+            raise AssertionError(f"{label}: the card's tokens of row {r} are not the CPU's")
+
+
+def run_sample_graph(torch, card, handoff):
+    """(h2): sampling through the captured CUDA graphs and the loop on the
+    card (``generate_sample``) against the same loop run eagerly on the card
+    (``_sample_eager``: the same body, setup and tail, the same padded batch
+    and seeds), on (f)'s 64 embeddings in batches of 32, top-p 0.9 and
+    top-k 10, max_gen_len 48, in bf16, fp32 and int8 (``quantize=True``):
+    tokens, scores and lengths bit for bit; each path's ms a decode step
+    and the steps the card ran; ``gumbel_max`` launched once a body step
+    the card ran. Then, in bf16: a seed repeats its samples and another
+    gives others; the first call of a new key (max_gen_len 45: its capture)
+    timed against the next, with the memory it holds (on a runtime of its
+    own); the busy share over one top-p batch of 32 (the graph path over 48
+    steps, the eager body over 16); the fresh-noise check (48 steps of a flat
+    filter, each row's tokens >= 40 distinct values of 256,206). Last, fp32
+    top-p on 4 embeddings from one seed against the CPU port (the plain
+    draw), tokens equal but in a tie within 1e-5."""
+    import numpy as np
+
+    from sonar_tpu_torch.assets import convert
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.sampling import TopKSampler, TopPSampler
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+    from sonar_tpu_torch.ops.cuda import gumbel_max as gm
+
+    tok, emb, decoders = handoff["tokenizer"], handoff["embeddings"], handoff["decoders"]
+    prefix = list(tok.create_encoder(lang="eng_Latn", mode="target").prefix_indices)
+    dcfg = sonar_text_decoder_archs.get("basic")
+    batches = [emb[i:i + 32, None, :] for i in range(0, len(emb), 32)]
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def counted(fn):
+        zero_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for name in KERNELS:
+            launches[name] += counts[name]
+        return out, counts
+
+    def graph_run(dec, sampler, gen_len=SAMPLE_GEN_LEN, seed0=0):
+        return [dec.generate_sample(m, prefix, sampler, gen_len, seed=seed0 + i)
+                for i, m in enumerate(batches)]
+
+    def eager_run(dec, sampler):
+        return [dec._sample_eager(torch.as_tensor(m, device=DEVICE), prefix, sampler,
+                                  SAMPLE_GEN_LEN, seed=i) for i, m in enumerate(batches)]
+
+    int8 = TorchTextDecoder(decoders["bf16"].model, quantize=True)
+    for mode, dec in (("bf16", decoders["bf16"]), ("fp32", decoders["fp32"]), ("int8", int8)):
+        for label, sampler in (("top-p 0.9", TopPSampler(0.9)), ("top-k 10", TopKSampler(10))):
+            dec.generate_sample(batches[0], prefix, sampler, SAMPLE_GEN_LEN)  # warm: the capture
+            outs = {}
+            for path, run in (("graph", graph_run), ("eager", eager_run)):
+                _zero_steps(dec)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[path], counts = counted(lambda: run(dec, sampler))
+                dt = time.perf_counter() - t0
+                body = dec.device_steps - len(prefix) * len(batches)
+                log(f"(h2) {mode} {label} {path}: {len(emb)} sentences in {dt:.3f} s = "
+                    f"{len(emb) / dt:.2f} sentences/s, {dt * 1e3 / dec.decode_steps:.3f} ms per "
+                    f"decode step; {_steps_line(dec)}; gumbel_max {counts['gumbel_max']} "
+                    f"launches for the {body} body steps the card ran; on {card}")
+                if counts["gumbel_max"] != body:
+                    raise AssertionError(f"(h2) {mode} {label} {path}: gumbel_max launched "
+                                         f"{counts['gumbel_max']} times over {body} body steps")
+            pairs = list(zip(outs["graph"], outs["eager"]))
+            same = all(np.array_equal(g, e) for go, eo in pairs for g, e in zip(go, eo))
+            rows = sum(int((g[0] != e[0]).any(axis=1).sum()) for g, e in pairs)
+            gap = max(float(np.abs(g[1] - e[1]).max()) for g, e in pairs)
+            lens = [int(x) for o in outs["graph"] for x in o[2]]
+            log(f"(h2) {mode} {label} graph vs eager body on {len(emb)} embeddings: tokens, "
+                f"scores and lengths {'bit for bit' if same else 'DIFFER'} ({rows} rows' tokens "
+                f"differ, score gap {gap:.3e}; lengths {min(lens)}-{max(lens)}) "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"(h2) {mode} {label}: the captured program disagrees with "
+                                     f"the eager body")
+            if mode == "bf16" and label == "top-p 0.9":
+                again, other = graph_run(dec, sampler), graph_run(dec, sampler, seed0=100)
+                repeat = all(np.array_equal(a, g) for ao, go in zip(again, outs["graph"])
+                             for a, g in zip(ao, go))
+                differ = all(not np.array_equal(o[0], g[0])
+                             for o, g in zip(other, outs["graph"]))
+                log(f"(h2) bf16 top-p: the same seeds again equal bit for bit {repeat}, other "
+                    f"seeds give other tokens in every batch {differ} "
+                    f"{'ok' if repeat and differ else 'FAIL'}")
+                if not (repeat and differ):
+                    raise AssertionError("(h2): the seed does not decide the samples")
+    del int8
+    torch.cuda.empty_cache()
+
+    # The cost of a capture: the first call of a new key against the next,
+    # on a runtime of its own over the bf16 model (no other graph to evict,
+    # its own pool).
+    dec, sampler = TorchTextDecoder(decoders["bf16"].model), TopPSampler(0.9)
+    ms, got = [], []
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    for _ in range(2):
+        _zero_steps(dec)
+        t0 = time.perf_counter()
+        got.append(dec.generate_sample(batches[0], prefix, sampler, SAMPLE_NEW_KEY_GEN_LEN))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if len(ms) == 1:
+            held = (torch.cuda.memory_allocated() - held[0],
+                    torch.cuda.memory_reserved() - held[1])
+    eager = dec._sample_eager(torch.as_tensor(batches[0], device=DEVICE), prefix, sampler,
+                              SAMPLE_NEW_KEY_GEN_LEN)
+    same = all(np.array_equal(g, e) for out in got for g, e in zip(out, eager))
+    log(f"(h2) bf16 top-p max_gen_len {SAMPLE_NEW_KEY_GEN_LEN}, batch of 32 (a new key): first "
+        f"call {ms[0]:.1f} ms (an eager setup and step, the setup and the step captured, the "
+        f"loop instantiated; then the decode), the next {ms[1]:.1f} ms ({_steps_line(dec)}): "
+        f"the capture costs {ms[0] - ms[1]:.1f} ms; the new graph holds "
+        f"{held[0] / 2**30:.3f} GiB allocated, {held[1] / 2**30:.3f} GiB more reserved; both "
+        f"calls equal to the eager body bit for bit {same} {'ok' if same else 'FAIL'}; on {card}")
+    if not same:
+        raise AssertionError("(h2): a new key's captured program disagrees with the eager body")
+    del dec
+    torch.cuda.empty_cache()
+
+    # Busy shares over one top-p batch of 32: the graph path over 48 steps,
+    # the eager body over 16 (the profiler's read of its ~1,600 launches a
+    # step costs about a second a step).
+    dec, mem = decoders["bf16"], batches[0]
+    for path, n, fn in (
+            ("graph", SAMPLE_GEN_LEN,
+             lambda: dec.generate_sample(mem, prefix, sampler, SAMPLE_GEN_LEN)),
+            ("eager body", 16, lambda: dec._sample_eager(torch.as_tensor(mem, device=DEVICE),
+                                                         prefix, sampler, 16))):
+        _busy_share(torch, card, f"(h2) sampling bf16 top-p batch of 32, max_gen_len {n}, {path}",
+                    dec, fn, top=5)
+
+    # Fresh noise at every turn of the loop on the card: a flat filter makes
+    # each token a uniform draw of the vocabulary.
+    flat = dec.generate_sample(np.zeros((32, 1, dcfg.model_dim), np.float32), prefix,
+                               _FlatSampler(dcfg.vocab_info.eos_idx), SAMPLE_GEN_LEN, seed=3)
+    distinct = [len(set(row[:SAMPLE_GEN_LEN].tolist())) for row in flat[0]]
+    ok = min(distinct) >= FRESH_MIN_DISTINCT and (flat[2] == SAMPLE_GEN_LEN + 1).all()
+    log(f"(h2) fresh noise: 32 rows x {SAMPLE_GEN_LEN} steps of a flat filter in the captured "
+        f"loop: distinct tokens a row {min(distinct)}-{max(distinct)} (>= {FRESH_MIN_DISTINCT}; "
+        f"a draw fixed at capture gives 1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(h2): the captured loop does not draw fresh noise each step")
+
+    # The card against the CPU port, fp32 top-p from one seed on 4 embeddings.
+    memory = emb[:4, None, :]
+    t0 = time.perf_counter()
+    cpu_dec = TorchTextDecoder(convert.text_decoder_from_numpy(
+        handoff["decoder_params"], dcfg, torch.float32, "cpu"), device="cpu")
+    rec = _RecordingSampler(TopPSampler(0.9))
+    card_out = decoders["fp32"].generate_sample(memory, prefix, TopPSampler(0.9), SAMPLE_GEN_LEN,
+                                                seed=7)
+    cpu_out = cpu_dec.generate_sample(memory, prefix, rec, SAMPLE_GEN_LEN, seed=7)
+    key = gm.prng_key(7)
+    _sample_ties("(h2) sampling fp32 from a seed", card_out, cpu_out, rec.filtered,
+                 lambda step: gm.threefry_gumbel(key, step, 0, 4, dcfg.vocab_info.size))
+    log(f"(h2) sampling fp32 card vs CPU on 4 embeddings (top-p 0.9, seed 7, no hook): tokens "
+        f"agree, lengths {card_out[2].tolist()}, max score gap "
+        f"{float(np.abs(card_out[1] - cpu_out[1]).max()):.3e} (CPU {time.perf_counter() - t0:.1f} "
+        f"s)")
+    del cpu_dec
     return launches
 
 
@@ -4202,12 +4499,13 @@ def main() -> int:
     graphs = phase("(f2)", run_graph_vs_eager, torch, card, handoff)
     s2t = phase("(g)", run_speech_to_text, torch, card, handoff)
     rest = phase("(h)", run_sampling_int8_heads, torch, card, handoff)
+    sampled = phase("(h2)", run_sample_graph, torch, card, handoff)
     mined = phase("(i)", run_mining, torch, card)
     served = phase("(j)", run_serving, torch, card, handoff)
     trained = phase("(k)", run_training, torch, card, handoff)
     scaled = phase("(l) and (m)", run_scaleout, torch, card, handoff)
-    launches = {name: sum(run[name] for run in (text, speech, decode, graphs, s2t, rest, mined,
-                                                 served, trained, scaled))
+    launches = {name: sum(run[name] for run in (text, speech, decode, graphs, s2t, rest, sampled,
+                                                 mined, served, trained, scaled))
                 for name in KERNELS}
     launched = [name for name in NO_PATH if launches[name] != 0]
     if launched:

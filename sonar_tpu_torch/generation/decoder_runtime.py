@@ -21,6 +21,13 @@ while this one decodes (``TextTranslator.translate_stream``). A capture or
 launch that fails raises; nothing falls back to the eager loop. On the CPU
 the same body runs eagerly, its exit flag read once per chunk of steps.
 
+Sampling (``generate_sample``) pads the batch to a power of two too and
+runs as one device program the same way on a card (``_SampleGraph``: the
+setup, then one step of ``generation.sampling.sample_step`` looped on the
+card), its Gumbel draw JAX's own (``ops.cuda.gumbel_max``, from the seed's
+key words and the device step counter), and returns once its outputs are
+on the host, as JAX's does.
+
 Over a mesh of several ranks the rows are split over its ``data`` axis
 (padded to a multiple of ``data`` too), each rank decodes its rows with its
 share of the heads (and vocabulary), every rank takes the same number of
@@ -50,10 +57,11 @@ from sonar_tpu_torch.generation.beam_search import (
     beam_step,
     run_chunks,
 )
-from sonar_tpu_torch.generation.sampling import gumbel, sample_lax
+from sonar_tpu_torch.generation.sampling import sample_finish, sample_setup, sample_step
 from sonar_tpu_torch.nn.conditional_decoder import ConditionalTransformerDecoder
 from sonar_tpu_torch.ops import cuda as kernels
 from sonar_tpu_torch.ops.cuda.graph_loop import WhileGraph
+from sonar_tpu_torch.ops.cuda.gumbel_max import M32, prng_key
 from sonar_tpu_torch.ops.precision import matmul_precision_for
 from sonar_tpu_torch.parallel.comm import any_over, gather_blocks, model_parallel
 from sonar_tpu_torch.parallel.mesh import (
@@ -65,14 +73,16 @@ from sonar_tpu_torch.parallel.mesh import (
 )
 import torch
 
-# Captured beam programs a runtime keeps (least recently used first out):
-# the padded batch sizes 1, 2, 4, ..., 128 of one prefix length and config,
-# which the pipelines' warmups capture for a batch_size of up to 128. Each
-# holds its static KV cache, 2 x L x B x H x K x S x Dh values of the model
-# dtype (the basic decoder in bf16 at B 32, K 5, S 51: 0.8 GB; fp32 twice
-# that), its state and the [B*K, V] fp32 logits (164 MB at B 32, K 5, V
-# 256,206), so the sizes up to B hold about twice what B's alone does; the
-# intermediates of all of a runtime's graphs share one memory pool.
+# Captured programs a runtime keeps, beam and sampling together (least
+# recently used first out): the padded batch sizes 1, 2, 4, ..., 128 of one
+# prefix length and config, which the pipelines' warmups capture for a
+# batch_size of up to 128. A beam program holds its static KV cache, 2 x L x
+# B x H x K x S x Dh values of the model dtype (the basic decoder in bf16 at
+# B 32, K 5, S 51: 0.8 GB; fp32 twice that), its state and the [B*K, V] fp32
+# logits (164 MB at B 32, K 5, V 256,206), so the sizes up to B hold about
+# twice what B's alone does; a sampling program a fifth of the cache, the
+# [B, V] log-probabilities and its sort's buffers. The intermediates of all
+# of a runtime's graphs share one memory pool.
 MAX_GRAPHS = 8
 
 
@@ -99,45 +109,46 @@ def _static_config(config: BeamSearchConfig) -> BeamSearchConfig:
                                unk_penalty=0.0 if config.unk_penalty == 0 else 1.0)
 
 
-class _BeamGraph:
-    """The captured beam search of one key: static inputs (memory [B, 1, D],
-    prefix [B, P], the penalties), the setup graph, whose outputs are the
-    cache and the ``BeamState``, and ``loop``, which steps that state in
-    place on the card until it is done. ``setup_launches`` /
-    ``step_launches``: the kernels one replay of the setup and one step
-    launch, by ``ops.cuda`` counter."""
+class _LoopGraph:
+    """A captured decode of one key: static inputs (memory [B, 1, D] and
+    prefix [B, P], zero and EOS until ``load`` fills them), the setup graph,
+    whose outputs are the cache and the loop's state, and ``loop``, which
+    steps that state in place on the card until it is done.
+    ``setup_launches`` / ``step_launches``: the kernels one replay of the
+    setup and one step launch, by ``ops.cuda`` counter."""
 
-    def __init__(self, runtime: "TorchTextDecoder", b_pad: int, prefix_len: int,
-                 config: BeamSearchConfig, pool: Any):
+    def __init__(self, runtime: "TorchTextDecoder", b_pad: int, prefix_len: int):
         dev = runtime.device
-        d = runtime.model.config.model_dim
-        self.mem = torch.zeros((b_pad, 1, d), dtype=torch.float32, device=dev)
+        self.mem = torch.zeros((b_pad, 1, runtime.model.config.model_dim), dtype=torch.float32,
+                               device=dev)
         self.prefix = torch.full((b_pad, prefix_len), runtime.vocab_info.eos_idx,
                                  dtype=torch.long, device=dev)
-        self.knobs = beam_knobs(config, dev)
-        start, step = runtime._beam_program(config, prefix_len, self.knobs)
 
+    def _capture(self, runtime: "TorchTextDecoder", start: Callable, step: Callable,
+                 inputs: Tuple[torch.Tensor, ...], pool: Any) -> None:
+        """Capture ``start(*inputs)`` and one ``step`` of its state."""
         # One eager setup and step first, on a side stream: they build the
         # kernels, fill the tilings' cache and set up the libraries' handles
         # and workspaces, none of which may happen under capture.
+        dev = runtime.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            step(start(self.mem, self.prefix))
+            step(start(*inputs))
         torch.cuda.current_stream(dev).wait_stream(side)
-        runtime.device_steps += prefix_len + 1
+        runtime.device_steps += self.prefix.shape[1] + 1
 
         self.setup = torch.cuda.CUDAGraph()
         with kernels.captured_launches() as self.setup_launches, \
                 torch.cuda.graph(self.setup, pool=pool, capture_error_mode="thread_local"):
-            self.state = start(self.mem, self.prefix)
+            self.state = start(*inputs)
         body = torch.cuda.CUDAGraph(keep_graph=True)
         with kernels.captured_launches() as self.step_launches, \
                 torch.cuda.graph(body, pool=pool, capture_error_mode="thread_local"):
             step(self.state)
         self.loop = WhileGraph(body, self.state.done)
 
-    def load(self, mem: torch.Tensor, prefix_ids: Sequence[int], config: BeamSearchConfig) -> None:
+    def load(self, mem: torch.Tensor, prefix_ids: Sequence[int]) -> None:
         """Copy one call's inputs into the static buffers (zero rows past
         ``mem``'s, as the JAX runtime pads)."""
         b = mem.shape[0]
@@ -145,16 +156,48 @@ class _BeamGraph:
         self.mem[b:].zero_()
         for j, tok in enumerate(prefix_ids):
             self.prefix[:, j].fill_(int(tok))
+
+
+class _BeamGraph(_LoopGraph):
+    """The captured beam search of one key; its static inputs add the
+    penalties, so that one capture serves every value."""
+
+    def __init__(self, runtime: "TorchTextDecoder", b_pad: int, prefix_len: int,
+                 config: BeamSearchConfig, pool: Any):
+        super().__init__(runtime, b_pad, prefix_len)
+        self.knobs = beam_knobs(config, runtime.device)
+        start, step = runtime._beam_program(config, prefix_len, self.knobs)
+        self._capture(runtime, start, step, (self.mem, self.prefix), pool)
+
+    def load(self, mem: torch.Tensor, prefix_ids: Sequence[int], config: BeamSearchConfig) -> None:
+        super().load(mem, prefix_ids)
         for knob, value in zip(self.knobs, (config.len_penalty, config.unk_penalty,
                                             config.min_gen_len)):
             knob.fill_(value)
 
 
+class _SampleGraph(_LoopGraph):
+    """The captured sampling decode of one key; its static inputs add the
+    key words, so that one capture serves every seed."""
+
+    def __init__(self, runtime: "TorchTextDecoder", b_pad: int, prefix_len: int, sampler: Any,
+                 max_gen_len: int, min_gen_len: int, pool: Any):
+        super().__init__(runtime, b_pad, prefix_len)
+        self.key = prng_key(0, runtime.device)
+        start, step = runtime._sample_program(sampler, prefix_len, max_gen_len, min_gen_len)
+        self._capture(runtime, start, step, (self.mem, self.prefix, self.key), pool)
+
+    def load(self, mem: torch.Tensor, prefix_ids: Sequence[int], seed: int) -> None:
+        """The key's second word is the seed mod 2^32; its first stays 0."""
+        super().load(mem, prefix_ids)
+        self.key[1].fill_(int(seed) & M32)
+
+
 class TorchTextDecoder:
     """A ``ConditionalTransformerDecoder`` on one device (``device=None``
-    means the GPU). ``decode_steps`` counts the decoder steps the searches
-    took (prefix steps included; a beam search's are read from its device
-    step counter), each of which goes through every layer once;
+    means the GPU). ``decode_steps`` counts the decoder steps the decodes
+    took (prefix steps included; read from each loop's device step
+    counter), each of which goes through every layer once;
     ``device_steps`` counts the decoder steps the device ran, which add the
     gated steps of the eager loop's last chunk and the eager steps that
     precede a capture.
@@ -191,7 +234,7 @@ class TorchTextDecoder:
         ).to(self.device)
         self.decode_steps = 0
         self.device_steps = 0
-        self._graphs: "collections.OrderedDict[Any, _BeamGraph]" = collections.OrderedDict()
+        self._graphs: "collections.OrderedDict[Any, _LoopGraph]" = collections.OrderedDict()
         self._lock = threading.Lock()
         self._pool: Any = None
         self._free: Any = None  # the event after the last captured decode's copies
@@ -358,7 +401,8 @@ class TorchTextDecoder:
             # time, whatever stream each caller queues on.
             if self._free is not None:
                 stream.wait_event(self._free)
-            graph = self._graph(key, b_pad, len(prefix_ids), config)
+            graph = self._graph(key, lambda pool: _BeamGraph(self, b_pad, len(prefix_ids),
+                                                             config, pool))
             graph.load(mem, prefix_ids, config)
             graph.setup.replay()
             graph.loop.launch(stream)
@@ -370,21 +414,21 @@ class TorchTextDecoder:
             settle = functools.partial(self._settle, graph, len(prefix_ids), host[3])
             return _BeamHandle(host[:3], self._free, b, settle)
 
-    def _graph(self, key: Any, b_pad: int, prefix_len: int,
-               config: BeamSearchConfig) -> _BeamGraph:
-        """The captured program of ``key``, captured now if it is new."""
+    def _graph(self, key: Any, capture: Callable[[Any], _LoopGraph]) -> _LoopGraph:
+        """The captured program of ``key``, ``capture(pool)`` now if it is
+        new."""
         if key in self._graphs:
             self._graphs.move_to_end(key)
             return self._graphs[key]
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = _BeamGraph(self, b_pad, prefix_len, config, self._pool)
+        graph = capture(self._pool)
         self._graphs[key] = graph
         while len(self._graphs) > MAX_GRAPHS:
             self._graphs.popitem(last=False)
         return graph
 
-    def _settle(self, graph: _BeamGraph, prefix_len: int, step: torch.Tensor) -> None:
+    def _settle(self, graph: _LoopGraph, prefix_len: int, step: torch.Tensor) -> None:
         """Count a captured decode once its step count is on the host: the
         steps, and the launches of one setup and of ``step`` body steps."""
         steps = int(step)
@@ -407,6 +451,68 @@ class TorchTextDecoder:
 
     # -- sampling ---------------------------------------------------------------
 
+    def _sample_program(self, sampler: Any, prefix_len: int, max_gen_len: int,
+                        min_gen_len: int, row0: int = 0, noise: Optional[Callable] = None
+                        ) -> Tuple[Callable, Callable]:
+        """(start(memory [B, 1, D], prefix [B, P], key [2]) -> SampleState,
+        step(state)): the sampling loop's setup and one step of its body on
+        this decoder; ``row0`` the first row's global index."""
+        vocab = self.vocab_info
+        cache_len = prefix_len + max_gen_len + 1
+        pad = vocab.pad_idx or 0
+
+        def step_fn(tokens, cache):
+            logits, cache = self.model.step(tokens, cache)
+            return torch.log_softmax(logits.float(), dim=-1), cache
+
+        def start(mem, prefix, key):
+            # Standard strides: a memory of stride 0 on its size-1 axis (a
+            # numpy row slice with an axis added) takes another fp32 GEMM.
+            cache = self.model.init_cache(mem.clone(memory_format=torch.contiguous_format),
+                                          cache_len)
+            return sample_setup(step_fn, cache, prefix, vocab.size, max_gen_len, key, pad)
+
+        def step(state):
+            sample_step(state, step_fn, vocab.eos_idx, sampler, max_gen_len, min_gen_len, pad,
+                        row0, noise)
+
+        return start, step
+
+    def _sample_eager(self, mem: torch.Tensor, prefix_ids: Sequence[int], sampler: Any,
+                      max_gen_len: int, min_gen_len: int = 1, seed: int = 0,
+                      noise: Optional[Callable] = None, chunk: int = CHUNK_STEPS
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The sampling decode run eagerly in this thread (the CPU; a mesh of
+        several ranks; a ``noise`` hook; and, to compare it with the captured
+        program, on a card): the same setup, body and tail on the same
+        padded batch, the exit flag read after every ``chunk`` steps (every
+        step with a hook). Each rank draws the rows it holds of the padded
+        batch; a hook is asked for the whole padded batch's draw and each
+        rank reads its rows."""
+        b = mem.shape[0]
+        mem, b_pad = self._rows(mem, pad=True)
+        rows = data_sharding(self.mesh, b_pad)
+        if noise is not None and self.mesh.data > 1:
+            draw = noise
+
+            def noise(step: int, shape: Tuple[int, ...]) -> torch.Tensor:
+                return torch.as_tensor(draw(step, (b_pad,) + tuple(shape[1:])),
+                                       dtype=torch.float32, device=self.device)[rows]
+
+        prefix = torch.tensor(list(prefix_ids), dtype=torch.long, device=self.device)
+        prefix = prefix[None, :].expand(mem.shape[0], -1)
+        agree = self._agree if self.mesh.world.size > 1 else None
+        with torch.inference_mode(), matmul_precision_for(self.dtype), self._scope():
+            start, step = self._sample_program(sampler, len(prefix_ids), max_gen_len,
+                                               min_gen_len, rows.start, noise)
+            state = start(mem, prefix, prng_key(seed, self.device))
+            ran = run_chunks(state, step, 1 if noise is not None else chunk, agree)
+            outs = self._gathered(*sample_finish(state, self.vocab_info.eos_idx, sampler),
+                                  rows=b)
+            self.decode_steps += len(prefix_ids) + int(state.step)
+            self.device_steps += len(prefix_ids) + ran
+            return outs
+
     def generate_sample(self, memory: Any, prefix_ids: Sequence[int], sampler: Any,
                         max_gen_len: int, min_gen_len: int = 1, seed: int = 0,
                         noise: Optional[Callable] = None
@@ -414,11 +520,16 @@ class TorchTextDecoder:
         """memory: [B, 1, D] (numpy or a tensor); returns (tokens [B, T],
         scores [B], lens [B]) of one sampled hypothesis per row.
 
-        The Gumbel noise comes from a ``torch.Generator`` on the decoder's
-        device seeded with ``seed``, or from ``noise(step, (B, V))`` when it
-        is given (``generation.sampling``). Under a data split both are drawn
-        for the whole padded batch on every rank, and each rank reads its
-        rows."""
+        The batch is padded with zero rows to a power of two (and a multiple
+        of ``data``), and each step draws JAX's Gumbel noise of
+        ``fold_in(PRNGKey(seed), step)`` over the padded batch
+        (``ops.cuda.gumbel_max``), so the same seed samples the tokens
+        ``JitTextDecoder.generate_sample`` samples. ``noise(step, (B_pad,
+        V))``, when given, replaces that draw (the tests' hook); the body
+        then runs eagerly, reading the step back once a step. On a card,
+        with one rank and no hook, the captured program of this key
+        (captured here first if it is new; any seed) runs the loop on the
+        card; this call returns once its outputs are on the host."""
         # Same prompt-aware cap as the beam path.
         max_gen_len = min(max_gen_len, self.max_target_len - len(prefix_ids))
         if max_gen_len < 1:
@@ -428,34 +539,26 @@ class TorchTextDecoder:
             )
         mem = self._tensor(memory, torch.float32)
         b = mem.shape[0]
-        mem, b_pad = self._rows(mem)
-        prefix = torch.tensor(list(prefix_ids), dtype=torch.long, device=self.device)
-        prefix = prefix[None, :].expand(mem.shape[0], -1)
-        vocab = self.vocab_info
-        generator = None
-        if noise is None:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-        if self.mesh.data > 1:
-            rows = data_sharding(self.mesh, b_pad)
-            draw = noise or (lambda step, shape: gumbel(generator, shape, self.device))
-
-            def noise_rows(step: int, shape: Tuple[int, ...]) -> Any:
-                return torch.as_tensor(draw(step, (b_pad,) + tuple(shape[1:])),
-                                       dtype=torch.float32, device=self.device)[rows]
-
-            noise = noise_rows
-
-        def step_fn(tokens, cache):
-            self.decode_steps += 1
-            self.device_steps += 1
-            logits, cache = self.model.step(tokens, cache)
-            return torch.log_softmax(logits.float(), dim=-1), cache
-
-        with torch.inference_mode(), matmul_precision_for(self.dtype), self._scope():
-            cache = self.model.init_cache(mem, len(prefix_ids) + max_gen_len + 1)
-            tokens, scores, lens = sample_lax(
-                step_fn, cache, prefix, vocab.eos_idx, vocab.size, sampler, generator,
-                max_gen_len, min_gen_len, pad_idx=vocab.pad_idx or 0, noise=noise,
-                agree=self._agree,
-            )
-            return self._gathered(tokens, scores, lens, rows=b)
+        if self.device.type != "cuda" or self.mesh.world.size > 1 or noise is not None:
+            return self._sample_eager(mem, prefix_ids, sampler, max_gen_len, min_gen_len, seed,
+                                      noise)
+        b_pad = round_up_pow2(b)
+        key = ("sample", b_pad, len(prefix_ids), sampler, max_gen_len, min_gen_len)
+        stream = torch.cuda.current_stream(self.device)
+        with self._lock, torch.inference_mode(), matmul_precision_for(self.dtype), \
+                self._scope():
+            if self._free is not None:
+                stream.wait_event(self._free)
+            graph = self._graph(key, lambda pool: _SampleGraph(
+                self, b_pad, len(prefix_ids), sampler, max_gen_len, min_gen_len, pool))
+            graph.load(mem, prefix_ids, seed)
+            graph.setup.replay()
+            graph.loop.launch(stream)
+            outs = sample_finish(graph.state, self.vocab_info.eos_idx, sampler)
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         .copy_(t, non_blocking=True) for t in outs + (graph.state.step,))
+            self._free = copied = torch.cuda.Event()
+            copied.record(stream)
+        copied.synchronize()
+        self._settle(graph, len(prefix_ids), host[3])
+        return tuple(np.array(t.numpy()[:b]) for t in host[:3])

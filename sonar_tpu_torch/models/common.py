@@ -81,3 +81,6 @@ class ConfigRegistry(Generic[C]):
                 f"unknown {self.name} arch '{name}'; known: {sorted(self._archs)}"
             )
         return self._archs[name]()
+
+    def names(self) -> list:
+        return sorted(self._archs)

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "sonar_beam_diag_attend": [_P] * 5 + [_I] * 6 + [_P],
     "sonar_beam_reorder_attend": [_P] * 11 + [_I] * 6 + [_P],
     "sonar_check_softmax_division": [ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P],
+    "sonar_gumbel_max": [_P, _P, _P, _LL, _I, _I, _P, _P, _P, _P],
     "sonar_graph_while": [_P, _P, ctypes.POINTER(_P)],
     "sonar_graph_launch": [_P, _P],
     "sonar_graph_exec_destroy": [_P],

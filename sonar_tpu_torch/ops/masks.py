@@ -17,6 +17,32 @@ def length_mask(seq_lens: torch.Tensor, max_len: int) -> torch.Tensor:
     return positions[None, :] < seq_lens[:, None]
 
 
+def mask_from_lengths(seq_lens: Optional[torch.Tensor], max_len: int) -> Optional[torch.Tensor]:
+    if seq_lens is None:
+        return None
+    return length_mask(seq_lens, max_len)
+
+
+def apply_padding_mask(
+    seqs: torch.Tensor, mask: Optional[torch.Tensor], pad_value: float = 0.0
+) -> torch.Tensor:
+    """Zero (or fill) padded positions of [B, S, D] given a [B, S] bool mask."""
+    if mask is None:
+        return seqs
+    fill = torch.full((), pad_value, dtype=seqs.dtype, device=seqs.device)
+    return torch.where(mask[..., None], seqs, fill)
+
+
+def combine_masks(*masks: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Logical AND of broadcastable boolean masks; None entries are skipped."""
+    out = None
+    for m in masks:
+        if m is None:
+            continue
+        out = m if out is None else torch.logical_and(out, m)
+    return out
+
+
 def additive_bias(
     mask: Optional[torch.Tensor], dtype: torch.dtype = torch.float32
 ) -> Optional[torch.Tensor]:

@@ -195,6 +195,35 @@ def suite_decode(inp: Dict[str, Any], workdir: Path) -> Dict[str, Any]:
     return out
 
 
+def suite_sample(inp: Dict[str, Any], workdir: Path) -> Dict[str, Any]:
+    """Sampling from a seed, with no noise hook, over a (data 2, model 1)
+    mesh: each rank draws the rows it holds of the padded batch."""
+    import dataclasses
+
+    from sonar_tpu_torch.assets.convert import text_decoder_from_numpy
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.sampling import TopKSampler, TopPSampler
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+    from sonar_tpu_torch.parallel.mesh import make_mesh
+
+    data = inp["data"]
+    toy = sonar_text_decoder_archs.get("toy")
+    cfg = dataclasses.replace(toy, vocab_info=dataclasses.replace(
+        toy.vocab_info, size=int(data["vocab"])))
+    runtime = TorchTextDecoder(text_decoder_from_numpy(inp["decoder"], cfg), device="cpu",
+                               mesh=make_mesh(2, 1))
+    prefix = [int(t) for t in data["prefix"]]
+    out: Dict[str, Any] = {}
+    for seed in data["seeds"].tolist():
+        for name, sampler, min_len in (("top_p", TopPSampler(p=0.9), 1),
+                                       ("top_k", TopKSampler(k=10), 3)):
+            tokens, scores, lens = runtime.generate_sample(
+                data["memory"], prefix, sampler, max_gen_len=int(data["gen"]),
+                min_gen_len=min_len, seed=int(seed))
+            out[f"{name}_{seed}"] = {"tokens": tokens, "scores": scores, "lens": lens}
+    return out
+
+
 def _text_models(inp: Dict[str, Any]):
     from sonar_tpu_torch.assets.convert import text_decoder_from_numpy, text_encoder_from_numpy
     from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs, sonar_text_encoder_archs
@@ -520,7 +549,7 @@ def suite_sequence(inp: Dict[str, Any], workdir: Path) -> Dict[str, Any]:
 SUITES: Dict[str, Callable] = {
     "encode": suite_encode, "decode": suite_decode, "train": suite_train,
     "mining": suite_mining, "multihost": suite_multihost, "pipeline": suite_pipeline,
-    "sequence": suite_sequence,
+    "sequence": suite_sequence, "sample": suite_sample,
 }
 
 

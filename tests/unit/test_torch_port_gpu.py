@@ -1354,3 +1354,148 @@ def test_while_graph_runs_its_body_until_done(dev, start):
         torch.cuda.synchronize()
         assert int(count) == max(start, 10)
         assert torch.equal(x, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [32, 128])
+def test_gumbel_max_kernel_is_the_plain_draw(dev, b):
+    """``gumbel_max`` at [B, 256206] (the ``basic`` decoder's vocabulary)
+    over 48 steps, on top-p-filtered rows (most columns -1e30) and on whole
+    log-probability rows in turns, rows offset by a ``row0`` of 0 to 2: the
+    noise equal to the plain version's bit for bit, the tokens equal; one
+    launch a call."""
+    from sonar_tpu_torch.generation.sampling import TopPSampler
+    from sonar_tpu_torch.ops.cuda import gumbel_max as gm
+
+    v = 256206
+    lp = torch.log_softmax(_rand(dev, b, v, scale=3.0), dim=-1)
+    nucleus = TopPSampler(0.9).filter_logprobs(lp)
+    key = gm.prng_key(123456, dev)
+    step = torch.zeros((), dtype=torch.int64, device=dev)
+    noise, want_noise = (torch.empty(b, v, device=dev) for _ in range(2))
+    before = gm.LAUNCHES
+    for s in range(48):
+        step.fill_(s)
+        filtered = nucleus if s % 2 else lp
+        got = gm.gumbel_max(filtered, key, step, row0=s % 3, noise=noise)
+        want = gm.gumbel_max_plain(filtered, key, step, s % 3, noise=want_noise)
+        torch.cuda.synchronize()
+        assert torch.equal(noise, want_noise), s
+        assert got.dtype == torch.int64 and torch.equal(got, want), s
+    assert gm.LAUNCHES - before == 48
+
+
+@pytest.mark.gpu
+def test_gumbel_max_kernel_raises_on_what_it_does_not_take(dev):
+    from sonar_tpu_torch.ops.cuda import gumbel_max as gm
+
+    x = torch.zeros(4, 100, device=dev)
+    key, step = gm.prng_key(0, dev), torch.zeros((), dtype=torch.int64, device=dev)
+    for args in ((x.half(), key, step), (x, key.int(), step), (x, key, step.int()),
+                 (x, key.cpu(), step), (x[:, ::2], key, step), (x[0], key, step)):
+        with pytest.raises(ValueError):
+            gm.gumbel_max(*args)
+    with pytest.raises(ValueError):
+        gm.gumbel_max(x, key, step, row0=-1)
+
+
+class _FlatSampler:
+    """A test sampler whose filter keeps every column at 0 but EOS (NEG_INF,
+    so that no row stops): each token is a uniform draw of the vocabulary,
+    which a draw fixed at capture would repeat at every step."""
+
+    temperature = 1.0
+
+    def __init__(self, eos):
+        self.eos = eos
+
+    def filter_logprobs(self, lp):
+        out = torch.zeros_like(lp)
+        out[:, self.eos] = -1e30
+        return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+def test_captured_sampling_matches_the_eager_body(dev, mode):
+    """Sampling through the captured setup and step looped on the card
+    (``generate_sample``) against the eager body on the card
+    (``_sample_eager``, the same padded batch and seed; the memory rows of
+    a 2-D array): tokens, scores and lengths bit for bit, top-p with
+    min_gen_len 3 and top-k at temperature 0.7. The card runs the loop's
+    steps and no more (the first call adds the prefix's and one body step,
+    run eagerly before the capture);
+    ``gumbel_max`` launches once a body step the card ran; the second call
+    replays; another seed samples other tokens. Then the fresh-noise check:
+    12 steps of a flat filter give each row at least 10 distinct tokens."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_decoder_params, text_decoder_from_numpy
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.sampling import TopKSampler, TopPSampler
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+    from sonar_tpu_torch.ops.cuda import gumbel_max as gm
+
+    toy = sonar_text_decoder_archs.get("toy")
+    cfg = dataclasses.replace(toy, model_dim=128, num_encoder_attn_heads=2,
+                              num_decoder_attn_heads=2, ffn_inner_dim=256,
+                              vocab_info=dataclasses.replace(toy.vocab_info, size=3000))
+    dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+    dec = TorchTextDecoder(text_decoder_from_numpy(init_text_decoder_params(cfg, seed=0), cfg,
+                                                   dtype, device=dev),
+                           quantize=mode == "int8", device=dev)
+    # Rows of a 2-D array with an axis added (stride 0 on it), as a caller
+    # slices embeddings: the eager body takes them as they are.
+    rows = np.random.default_rng(0).normal(size=(5, 128)).astype(np.float32) * 2.0
+    memory = rows[:, None, :]
+    mem = torch.as_tensor(memory, device=dev)
+    for sampler, min_len in ((TopPSampler(0.9), 3), (TopKSampler(10, temperature=0.7), 1)):
+        want = dec._sample_eager(mem, [3, 7], sampler, 12, min_len, seed=5)
+        for run in range(2):
+            launches, steps, ran = gm.LAUNCHES, dec.decode_steps, dec.device_steps
+            got = dec.generate_sample(memory, [3, 7], sampler, 12, min_len, seed=5)
+            warm = 3 if run == 0 else 0
+            assert dec.device_steps - ran == dec.decode_steps - steps + warm
+            body = dec.decode_steps - steps - 2
+            assert body > 0 and gm.LAUNCHES - launches == body + (1 if run == 0 else 0)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+        other = dec.generate_sample(memory, [3, 7], sampler, 12, min_len, seed=6)
+        assert not np.array_equal(other[0], want[0])
+    assert len(dec._graphs) == 2
+    flat = dec.generate_sample(np.zeros((32, 1, 128), np.float32), [3, 7],
+                               _FlatSampler(cfg.vocab_info.eos_idx), 12, seed=1)
+    assert (flat[2] == 13).all()
+    assert min(len(set(row[:12].tolist())) for row in flat[0]) >= 10
+
+
+@pytest.mark.gpu
+def test_sampling_from_a_seed_card_matches_cpu(dev):
+    """Top-p sampling from a seed, no hook, on the card (the captured
+    program) and on the CPU (the plain draw): the same tokens and lengths,
+    scores to 1e-4 (fp32, other summation orders)."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_decoder_params, text_decoder_from_numpy
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.sampling import TopPSampler
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+
+    toy = sonar_text_decoder_archs.get("toy")
+    cfg = dataclasses.replace(toy, model_dim=128, num_encoder_attn_heads=2,
+                              num_decoder_attn_heads=2, ffn_inner_dim=256,
+                              vocab_info=dataclasses.replace(toy.vocab_info, size=3000))
+    params = init_text_decoder_params(cfg, seed=0)
+    memory = np.random.default_rng(0).normal(size=(3, 1, 128)).astype(np.float32) * 2.0
+    sampler = TopPSampler(0.9, max_candidates=64)
+    (ct, cs, cl), (pt, ps, pl) = [
+        TorchTextDecoder(text_decoder_from_numpy(params, cfg, device=d), device=d)
+        .generate_sample(memory, [3, 7], sampler, max_gen_len=10, seed=9)
+        for d in (dev, "cpu")]
+    np.testing.assert_array_equal(ct, pt)
+    np.testing.assert_array_equal(cl, pl)
+    np.testing.assert_allclose(cs, ps, atol=1e-4)

@@ -2,8 +2,8 @@
 
 Two fp32 configs, as in ``test_torch_port_decode.py``: ``toy`` and a D 128
 decoder of 2 heads of 64 with a 3000-row vocabulary (wide enough for the
-blocked exact top-k). Both packages sample ``argmax(filtered + G)``; the
-port is given JAX's own Gumbel draws ``G`` through its ``noise`` hook (the
+blocked exact top-k). Both packages sample ``argmax(filtered + G)``; here
+the port is given JAX's own Gumbel draws ``G`` through its ``noise`` hook (the
 key ``fold_in(PRNGKey(seed), step)`` over the power-of-two-padded batch, as
 ``JitTextDecoder.generate_sample`` draws it, sliced to the real rows), so
 the sampled tokens and lengths must be identical and the scores agree to
@@ -127,9 +127,10 @@ def test_generate_sample_matches_jax(name, case):
 
 
 def test_generate_sample_with_its_own_generator():
-    """Without a hook the port draws from a seeded ``torch.Generator``: a
-    seed repeats its samples, another seed gives others, and every row ends
-    in EOS within the length limit."""
+    """Without a hook the port draws JAX's noise from the seed itself
+    (``ops.cuda.gumbel_max``; ``test_torch_port_sample_loop.py`` holds it
+    to JAX's): a seed repeats its samples, another seed gives others, and
+    every row ends in EOS within the length limit."""
     _, trun = _runtimes("wide")
     memory = np.random.default_rng(7).normal(size=(4, 1, 128)).astype(np.float32)
     sampler = sampling.TopPSampler(p=0.95)
