@@ -285,9 +285,28 @@ Phases, each printing ``#`` lines:
     single rank's: the loss within 1e-5, every leaf the rank holds within
     (k4)'s 2e-3 of its scale, no launch.
 
+(n) each path with its kernels off (``ops.gates.no_cuda_kernels``), on the
+    models and weights of (d)-(h2), run once with its kernels and once
+    inside the scope: int8 text at [64, 128] (#2, #3 with LN) and [16, 512]
+    (#5, #3), bf16 text at [8, 128] (#1), the int8 [16, 512] batch under
+    ``set_attention_impl("plain")`` (#3; flash must not launch), a bf16
+    encoder with q/k/v unfused at [64, 64] under
+    ``set_attention_impl("cuda")`` (flash below its length gate), bf16
+    speech on 8 clips of 20 s (S 999, #6), fp32 beam decode (#8) and fp32
+    top-k 10 sampling from seed 7 (``gumbel_max``) on the graph path at B
+    32, each decode on a fresh runtime over (f)'s model. Each path: its
+    kernels launched without the scope, none inside it (capture tallies
+    included); the outputs within PERF.md's agreement limits (cosine >=
+    0.999 per sentence or clip; fp32 best hypotheses equal but in a tie
+    within 1e-5; sampled tokens identical); device ms of a batch (5 text
+    batches, 2 speech, behind a GPU spin of ~0.4 s) or of a decode step (2 decodes)
+    each way, beside the card's name and power limit. The decodes run
+    outside, inside, outside: two captures, keyed on the scope, and the
+    third decode replays the first's graph, equal bit for bit.
+
 A kernel's ``launches`` in the JSON record is the sum of its counts over
 (d) to (m) (with (f2) and (h2)), (l)'s and (m)'s summed over their
-children; the kernels that no path calls (``relpos_flash_attention``,
+children ((n)'s are logged, not summed); the kernels that no path calls (``relpos_flash_attention``,
 ``beam_diag_attend``, ``beam_reorder_attend``,
 ``fused_bf16_ffn_ln_residual``) must read 0. Prints that record on the
 line before the last, and as the last line ``{"ok": true, "device":
@@ -297,6 +316,7 @@ line before the last, and as the last line ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
 import json
 import os
@@ -437,14 +457,15 @@ def build():
 # -- (c) kernels against their plain versions ---------------------------------------
 
 
-def _timed(torch, fn, iters: int) -> float:
-    """Device ms per call of ``fn``. The calls are queued behind a ~25 ms
-    spin of the GPU, so the events bracket device work only (a kernel of a
-    few microseconds would otherwise be timed at the host's launch rate)."""
+def _timed(torch, fn, iters: int, spin: int = 50_000_000) -> float:
+    """Device ms per call of ``fn``. The calls are queued behind a spin of
+    the GPU (``spin`` cycles, ~25 ms by default), so the events bracket
+    device work only (a kernel of a few microseconds would otherwise be
+    timed at the host's launch rate)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(iters):
         fn()
@@ -4299,6 +4320,184 @@ def pipeline_refs(handoff):
              e_bf16=handoff["speech_embeddings"]["bf16"])
 
 
+# -- (n) each path with its kernels off ---------------------------------------------------
+
+
+OFF_TEXT_BATCHES = 5  # (n): batches timed each way on a text path
+OFF_SPEECH_BATCHES = 2  # (n): batches timed each way on the speech path
+OFF_DECODES = 2  # (n): decodes timed each way on a decode path
+OFF_COS = 0.999  # (n): cosine per sentence or clip, kernels on against off (int8, bf16)
+OFF_KEY_ON, OFF_KEY_OFF = (False, "auto", "auto"), (True, "auto", "auto")  # the graphs' settings
+# (n): a spin of ~0.4 s before the timed batches, longer than the host takes
+# to queue them all (a whole model's launches a batch, eager int8 the most).
+OFF_SPIN = 800_000_000
+
+
+def _replays_first(dec, fn, first):
+    """(n)'s graph-cache check, after a decode outside ``no_cuda_kernels()``
+    and one inside it on a fresh runtime: two captures, keyed on the scope;
+    a third decode outside replays the first's graph (the same object, no
+    eager steps before a capture) and equals it bit for bit."""
+    import numpy as np
+
+    graphs = list(dec._graphs.items())
+    if [key[-1] for key, _ in graphs] != [OFF_KEY_ON, OFF_KEY_OFF]:
+        raise AssertionError(f"(n): captures keyed {[key[-1] for key, _ in graphs]}, not one "
+                             f"outside the scope and one inside it")
+    (key, graph), warm = graphs[0], dec.device_steps - dec.decode_steps
+    third = fn()
+    replayed = (len(dec._graphs) == 2 and dec._graphs.get(key) is graph
+                and dec.device_steps - dec.decode_steps == warm)
+    same = all(np.array_equal(a, b) for a, b in zip(third, first))
+    if not (replayed and same):
+        raise AssertionError(f"(n): the third decode did not replay the first's capture "
+                             f"(replayed {replayed}, equal {same})")
+    return "2 captures (outside, inside); the third decode replayed the first's, bit for bit"
+
+
+def _decode_ms(torch, dec, fn, n):
+    """Device ms a decode step: CUDA events around ``n`` decodes (each waits
+    for its outputs), over the decode steps they took."""
+    fn()
+    steps = dec.decode_steps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (dec.decode_steps - steps)
+
+
+def run_kernels_off(torch, card, handoff):
+    """(n): each full-width path once with its kernels (the default, or a
+    setter's choice) and once inside ``no_cuda_kernels()``, on the models
+    and weights of (d)-(h2): the outputs within PERF.md's agreement limits,
+    the path's kernels launched without the scope and no kernel inside it
+    (captures included), and the device ms of each."""
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import text_encoder_from_numpy
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.sampling import TopKSampler
+    from sonar_tpu_torch.inference_pipelines.text import TorchTextEncoder
+    from sonar_tpu_torch.models.sonar_text import sonar_text_encoder_archs
+    from sonar_tpu_torch.ops.gates import kernel_settings, no_cuda_kernels, set_attention_impl
+
+    if kernel_settings() != OFF_KEY_ON:
+        raise AssertionError(f"(n) starts under settings {kernel_settings()}")
+    rng = np.random.default_rng(0)
+    cfg = sonar_text_encoder_archs.get("basic")
+    text, decoders = handoff["text_pipelines"], handoff["decoders"]
+    prefix = list(handoff["tokenizer"].create_encoder(lang="eng_Latn",
+                                                      mode="target").prefix_indices)
+    memory = handoff["embeddings"][:32, None, :]
+    results = {}
+
+    def cos_rows(on, off):
+        on, off = (np.asarray(x.float().cpu() if hasattr(x, "cpu") else x, np.float64)
+                   for x in (on, off))
+        cos = (on * off).sum(1) / (np.linalg.norm(on, axis=1) * np.linalg.norm(off, axis=1))
+        if not (np.isfinite(on).all() and np.isfinite(off).all() and cos.min() >= OFF_COS):
+            raise AssertionError(f"min cosine {cos.min():.6f} < {OFF_COS} or not finite")
+        return f"min cosine per row {cos.min():.6f} (>= {OFF_COS})"
+
+    def same_tokens(on, off):
+        if not (np.array_equal(on[0], off[0]) and np.array_equal(on[2], off[2])):
+            raise AssertionError("the sampled tokens differ")
+        gap = float(np.abs(on[1] - off[1]).max())
+        return f"tokens and lengths identical, scores {gap:.3e} apart"
+
+    def same_best(on, off):
+        _same_best("(n) fp32 beam, kernels on against off", on, off)
+        gap = float(np.abs(on[1][:, 0] - off[1][:, 0]).max())
+        return f"best hypotheses agree, best scores {gap:.3e} apart"
+
+    def path(label, unit, run, kernels, agree, ms, impl="auto", absent=(), after=None):
+        t0 = time.perf_counter()
+        set_attention_impl(impl)
+        try:
+            zero_launches()
+            on = run()
+            torch.cuda.synchronize()
+            on_counts = read_launches()
+            zero_launches()
+            with no_cuda_kernels():
+                off = run()
+            torch.cuda.synchronize()
+            off_counts = read_launches()
+            missing = [k for k in kernels if on_counts[k] == 0]
+            present = [k for k in absent if on_counts[k] != 0]
+            leaked = {k: n for k, n in off_counts.items() if n}
+            if missing or present or leaked:
+                raise AssertionError(f"(n) {label}: kernels on missed {missing}, launched "
+                                     f"{present}; inside the scope launched {leaked}")
+            detail = agree(on, off)
+            if after is not None:
+                detail += "; " + after(on)
+            ms_on = ms()
+            with no_cuda_kernels():
+                ms_off = ms()
+        finally:
+            set_attention_impl("auto")
+        launched = {k: n for k, n in on_counts.items() if n}
+        results[label] = (ms_on, ms_off)
+        log(f"(n) {label}: kernels on {ms_on:.3f}, off {ms_off:.3f} device ms {unit} "
+            f"(off / on {ms_off / ms_on:.3f}); launches on {launched}, inside the scope 0; "
+            f"{detail} ok ({time.perf_counter() - t0:.1f} s); on {card}")
+
+    def text_path(label, enc, b, s, kernels, **kw):
+        seqs = rng.integers(4, cfg.vocab_info.size, (b, s)).astype(np.int32)
+        lens = rng.integers(s // 2, s + 1, b).astype(np.int32)
+        lens[0] = s
+        for i, n in enumerate(lens):
+            seqs[i, n:] = 1
+        path(f"{label} [{b}, {s}]", "a batch", lambda: enc._encode(seqs, lens), kernels, cos_rows,
+             lambda: _timed(torch, lambda: enc._encode(seqs, lens), OFF_TEXT_BATCHES, OFF_SPIN),
+             **kw)
+
+    int8, bf16 = text["int8"].model, text["bf16"].model
+    text_path("int8 text", int8, 64, 128, ("fused_attn_block", "fused_int8_ffn"))
+    text_path("int8 text", int8, 16, 512, ("flash_attention", "fused_int8_ffn"))
+    text_path("bf16 text", bf16, 8, 128, ("short_qkv_attention",))
+    text_path('int8 text, set_attention_impl("plain")', int8, 16, 512, ("fused_int8_ffn",),
+              impl="plain", absent=("flash_attention",))
+    unfused = TorchTextEncoder(text_encoder_from_numpy(handoff["text_params"], cfg,
+                                                       torch.bfloat16, DEVICE), fuse_qkv=False)
+    text_path('bf16 text, q/k/v unfused, set_attention_impl("cuda")', unfused, 64, 64,
+              ("flash_attention",), impl="cuda")
+    del unfused
+    torch.cuda.empty_cache()
+
+    speech = handoff["speech_pipelines"]["bf16"].model
+    waves = [_clip(rng, 20.0) for _ in range(8)]  # S 999
+    path("bf16 speech [8 clips of 20 s, S 999]", "a batch",
+         lambda: speech.encode_waveforms(waves), ("relpos_flash_attention_v2",), cos_rows,
+         lambda: _timed(torch, lambda: speech.encode_waveforms(waves, materialize=False),
+                        OFF_SPEECH_BATCHES, OFF_SPIN))
+
+    # The decodes on fresh runtimes over (f)'s fp32 model: their captures
+    # are the only ones, so the cache check counts them exactly.
+    beam_cfg = BeamSearchConfig(**DECODE_KW)
+    for label, kernels, agree, decode in (
+            ("fp32 beam decode, graph path [32 embeddings, beam 5, max_gen_len 48]",
+             ("beam_masked_attend",), same_best,
+             lambda dec: dec.generate_beam(memory, prefix, beam_cfg)),
+            ("fp32 top-k 10 sampling, graph path [32 embeddings, max_gen_len 48, seed 7]",
+             ("gumbel_max",), same_tokens,
+             lambda dec: dec.generate_sample(memory, prefix, TopKSampler(10), SAMPLE_GEN_LEN,
+                                             seed=7))):
+        dec = TorchTextDecoder(decoders["fp32"].model)
+        fn = functools.partial(decode, dec)
+        path(label, "a decode step", fn, kernels, agree,
+             lambda: _decode_ms(torch, dec, fn, OFF_DECODES),
+             after=lambda first: _replays_first(dec, fn, first))
+        del dec, fn
+        torch.cuda.empty_cache()
+    return results
+
+
 # -- --compare: this checkout against others, in turns, on one card ------------------
 
 
@@ -4504,6 +4703,7 @@ def main() -> int:
     served = phase("(j)", run_serving, torch, card, handoff)
     trained = phase("(k)", run_training, torch, card, handoff)
     scaled = phase("(l) and (m)", run_scaleout, torch, card, handoff)
+    phase("(n)", run_kernels_off, torch, card, handoff)
     launches = {name: sum(run[name] for run in (text, speech, decode, graphs, s2t, rest, sampled,
                                                  mined, served, trained, scaled))
                 for name in KERNELS}

@@ -12,9 +12,13 @@ runtime does, and runs one device program per batch, as JAX's
 the prefix steps) and one step of its body (``generation.beam_search.
 beam_step``, which reads nothing back to the host) are captured as CUDA
 graphs (``torch.cuda.CUDAGraph``) once per (padded batch, prefix length,
-static config), and a decode replays the setup, then loops the step on the
-card until its exit flag says done (a conditional WHILE node,
-``ops.cuda.graph_loop``). ``generate_beam_async`` queues that, the tail and
+static config, kernel settings), and a decode replays the setup, then loops
+the step on the card until its exit flag says done (a conditional WHILE
+node, ``ops.cuda.graph_loop``). A replay launches the kernels its capture
+recorded, so the key holds ``ops.gates.kernel_settings()`` read at call
+time: a decode inside ``no_cuda_kernels()`` (or after a setter's change)
+captures its own program and never replays one captured under other
+settings (``_graph_key``). ``generate_beam_async`` queues that, the tail and
 the outputs' copies to pinned host memory on the caller's stream and
 returns without blocking: a caller encodes and dispatches the next batch
 while this one decodes (``TextTranslator.translate_stream``). A capture or
@@ -62,6 +66,7 @@ from sonar_tpu_torch.nn.conditional_decoder import ConditionalTransformerDecoder
 from sonar_tpu_torch.ops import cuda as kernels
 from sonar_tpu_torch.ops.cuda.graph_loop import WhileGraph
 from sonar_tpu_torch.ops.cuda.gumbel_max import M32, prng_key
+from sonar_tpu_torch.ops.gates import kernel_settings
 from sonar_tpu_torch.ops.precision import matmul_precision_for
 from sonar_tpu_torch.parallel.comm import any_over, gather_blocks, model_parallel
 from sonar_tpu_torch.parallel.mesh import (
@@ -84,6 +89,13 @@ import torch
 # [B, V] log-probabilities and its sort's buffers. The intermediates of all
 # of a runtime's graphs share one memory pool.
 MAX_GRAPHS = 8
+
+
+def _graph_key(*parts: Any) -> Tuple[Any, ...]:
+    """A captured program's cache key: ``parts`` and the kernel gates'
+    settings now (``ops.gates.kernel_settings``), which its capture bakes
+    in."""
+    return parts + (kernel_settings(),)
 
 
 class _BeamHandle:
@@ -393,7 +405,7 @@ class TorchTextDecoder:
         if self.device.type != "cuda" or self.mesh.world.size > 1:
             return _BeamHandle(self._beam_eager(mem, prefix_ids, config), None, b)
         b_pad = round_up_pow2(b)
-        key = (b_pad, len(prefix_ids), _static_config(config))
+        key = _graph_key(b_pad, len(prefix_ids), _static_config(config))
         stream = torch.cuda.current_stream(self.device)
         with self._lock, torch.inference_mode(), matmul_precision_for(self.dtype), \
                 self._scope():
@@ -543,7 +555,7 @@ class TorchTextDecoder:
             return self._sample_eager(mem, prefix_ids, sampler, max_gen_len, min_gen_len, seed,
                                       noise)
         b_pad = round_up_pow2(b)
-        key = ("sample", b_pad, len(prefix_ids), sampler, max_gen_len, min_gen_len)
+        key = _graph_key("sample", b_pad, len(prefix_ids), sampler, max_gen_len, min_gen_len)
         stream = torch.cuda.current_stream(self.device)
         with self._lock, torch.inference_mode(), matmul_precision_for(self.dtype), \
                 self._scope():

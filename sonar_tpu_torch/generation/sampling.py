@@ -15,10 +15,11 @@ Random numbers: ``jax.random.categorical`` draws ``argmax(logits +
 gumbel(key, logits.shape))`` with the key ``fold_in(PRNGKey(seed), step)``.
 The port computes the same draw from the key's words and the device step
 counter (``ops.cuda.gumbel_max``: a CUDA kernel on the card, its plain
-version on the CPU), so the same seed samples the same tokens in both
-packages. A ``noise(step, shape)`` callable given to the loop replaces the
-draw (the tests' hook); it takes the step as a host int, so the body then
-reads the step back once a step and is never captured.
+version on the CPU and inside ``no_cuda_kernels()``, the same noise), so
+the same seed samples the same tokens in both packages. A ``noise(step,
+shape)`` callable given to the loop replaces the draw (the tests' hook); it
+takes the step as a host int, so the body then reads the step back once a
+step and is never captured.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
 from sonar_tpu_torch.generation.beam_search import CHUNK_STEPS, run_chunks
-from sonar_tpu_torch.ops.cuda.gumbel_max import gumbel_max
+from sonar_tpu_torch.ops.cuda.gumbel_max import gumbel_max, gumbel_max_plain
+from sonar_tpu_torch.ops.gates import kernels_allowed
 from sonar_tpu_torch.ops.topk import exact_top_k_wide
 import torch
 
@@ -146,7 +148,8 @@ def sample_step(
         lp[:, eos_idx] = torch.where(step + 1 < min_gen_len, NEG_INF, lp[:, eos_idx])
     filtered = sampler.filter_logprobs(lp)
     if noise is None:
-        tok = gumbel_max(filtered, state.key, step, row0)
+        draw = gumbel_max if kernels_allowed() else gumbel_max_plain
+        tok = draw(filtered, state.key, step, row0)
     else:
         g = torch.as_tensor(noise(int(step), tuple(filtered.shape)), dtype=torch.float32,
                             device=filtered.device)

@@ -15,8 +15,9 @@ no rel-shift.
 Dispatch is the JAX package's, on shapes: 128 <= S <= 2048, head dim 64 or
 128 and a key-padding bias take ``relpos_flash_attention_v2`` (its wrapper
 then runs the CUDA kernel for CUDA tensors, its plain version for CPU
-tensors) unless autograd records (``ops.gates``); everything else takes
-``rel_pos_attend_plain``, the math of the JAX package's XLA lowering.
+tensors) unless autograd records, a ``no_cuda_kernels()`` scope is on or
+``set_attention_impl("plain")`` was called (``ops.gates``); everything else
+takes ``rel_pos_attend_plain``, the math of the JAX package's XLA lowering.
 ``PLAIN_CALLS`` counts the latter. The kernel reads r_proj per head
 (``relpos_heads``), laid out from the layer's r_proj at each call, so a
 trained r_proj is never read through a stale copy. ``conformer_stack(remat=
@@ -41,7 +42,7 @@ import numpy as np
 from sonar_tpu_torch.nn.core import Params, layer_norm, linear, row_linear
 from sonar_tpu_torch.nn.transformer import _merge_heads, _split_heads, local_heads, run_layers
 from sonar_tpu_torch.ops.attention import softmax
-from sonar_tpu_torch.ops.gates import records_grad
+from sonar_tpu_torch.ops.gates import attention_impl, kernels_allowed
 from sonar_tpu_torch.parallel.comm import Group, copy_to_group, model_group
 import torch
 
@@ -117,7 +118,10 @@ def relpos_heads(r_proj_kernel: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def _use_relpos_kernel(bias: Optional[torch.Tensor], s: int, hd: int) -> bool:
     """The JAX package's gate: the kernel reads a broadcastable [B, 1, 1, S]
-    key mask only, and its shared-memory plan covers 128 <= S <= 2048."""
+    key mask only, and its shared-memory plan covers 128 <= S <= 2048;
+    ``set_attention_impl("plain")`` turns it off."""
+    if attention_impl() == "plain":
+        return False
     if bias is not None and not (bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[-2] == 1):
         return False
     return 128 <= s <= 2048 and hd in (64, 128)
@@ -198,8 +202,8 @@ def rel_pos_attention(
     q, k, v = rel_pos_qkv(params, x, cfg.num_heads)
     sdpa = params["sdpa"]
     if (_use_relpos_kernel(bias, s, cfg.head_dim)
-            and not records_grad(q, k, v, sdpa["u_bias"], sdpa["v_bias"],
-                                 sdpa["r_proj"]["kernel"])):
+            and kernels_allowed(q, k, v, sdpa["u_bias"], sdpa["v_bias"],
+                                sdpa["r_proj"]["kernel"])):
         from sonar_tpu_torch.ops.cuda.relpos_flash import relpos_flash_attention_v2
 
         group = model_group()

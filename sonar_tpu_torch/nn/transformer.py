@@ -13,9 +13,11 @@ whose core is the ``beam_masked_attend`` kernel).
 Parameters are nested dicts in the JAX layout; the per-layer tensors of a
 stack carry a leading L axis, and ``encoder_stack`` loops over it.
 
-The kernel gates are the JAX package's, on shapes and dtypes, and take
-the plain version whenever autograd records (``ops.gates.records_grad``: the
-kernels have no backward); each kernel wrapper then runs its plain version
+The kernel gates are the JAX package's, on shapes and dtypes and the
+caller's choice, and take the plain version whenever autograd records
+(``ops.gates.kernels_allowed``: the kernels have no backward; a
+``no_cuda_kernels()`` scope turns every gate off; ``set_ffn_impl("plain")``
+the standalone fused FFN); each kernel wrapper then runs its plain version
 for CPU tensors and its CUDA kernel for CUDA tensors. The thresholds (S
 8..128, >= 2048 tokens) were tuned on a TPU; re-tuning them on the H100 is
 open work. ``encoder_stack`` / ``decoder_stack(remat=True)`` recompute each
@@ -46,7 +48,8 @@ from sonar_tpu_torch.nn.core import (
     tree_leaves,
 )
 from sonar_tpu_torch.ops.attention import dispatch_sdpa
-from sonar_tpu_torch.ops.gates import records_grad
+from sonar_tpu_torch.ops.gates import ffn_impl, kernels_allowed
+from sonar_tpu_torch.ops.gates import set_ffn_impl as set_ffn_impl
 from sonar_tpu_torch.parallel.comm import Group, copy_to_group, model_group
 import torch
 import torch.utils.checkpoint
@@ -88,7 +91,7 @@ def mha(
         group = model_group()
         heads = local_heads(num_heads, group)
         qkv = linear(params["qkv_proj"], copy_to_group(x, group))
-        if _key_bias(bias) and 8 <= qkv.shape[1] <= 128 and not records_grad(qkv):
+        if _key_bias(bias) and 8 <= qkv.shape[1] <= 128 and kernels_allowed(qkv):
             # Short-sequence attention straight from the fused QKV layout.
             from sonar_tpu_torch.ops.cuda.short_attn import short_qkv_attention
 
@@ -166,7 +169,8 @@ def ffn(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     n_tokens = x.numel() // x.shape[-1]
     group = model_group()
     if (
-        group is None
+        ffn_impl() == "auto"
+        and group is None
         and activation == "relu"
         and "kernel_q" in inner
         and "kernel_q" in out
@@ -175,7 +179,7 @@ def ffn(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
         and inner["kernel_q"].shape[1] % 256 == 0
         and inner["kernel_q"].shape[0] % 128 == 0
         and n_tokens >= 2048
-        and not records_grad(x, *tree_leaves(params))
+        and kernels_allowed(x, *tree_leaves(params))
     ):
         from sonar_tpu_torch.ops.cuda.ffn import fused_int8_ffn
 
@@ -201,12 +205,13 @@ def _block_kernels_eligible(params: Params, x: torch.Tensor, bias, num_heads: in
                             activation: str, norm_order: str) -> bool:
     """Whole-block kernels: pre-LN int8 layers with a fused QKV projection,
     ReLU FFN, key-padding bias, sentence-length sequences, enough tokens,
-    nothing that autograd records, and no model split."""
+    no model split, and ``kernels_allowed`` (nothing that autograd records,
+    no ``no_cuda_kernels()`` scope)."""
     if norm_order != "pre" or activation != "relu" or not _key_bias(bias):
         return False
     if model_group() is not None:
         return False
-    if records_grad(x, *tree_leaves(params)):
+    if not kernels_allowed(x, *tree_leaves(params)):
         return False
     sa, f = params["self_attn"], params["ffn"]
     if not ("qkv_proj" in sa and "kernel_q" in sa["qkv_proj"]
@@ -452,18 +457,21 @@ def _beam_self_attend(
     anc_b: [B, K, S] int32, for (query beam, position) the cache row that
     holds the winning token; bias: [S] fp32 ``valid_bias`` of this step
     (positions past the step's index carry -1e30). The core is the
-    ``beam_masked_attend`` kernel (its plain version on the CPU); it keeps
-    P in fp32 for P @ V, where the JAX einsum rounds P to the model dtype
-    first, so in bf16 the two differ by that rounding.
+    ``beam_masked_attend`` kernel (its plain version on the CPU and inside
+    ``no_cuda_kernels()``); it keeps P in fp32 for P @ V, where the JAX
+    einsum rounds P to the model dtype first, so in bf16 the two differ by
+    that rounding.
     """
-    from sonar_tpu_torch.ops.cuda.beam_attend import beam_masked_attend
+    from sonar_tpu_torch.ops.cuda.beam_attend import beam_masked_attend, beam_masked_attend_plain
 
     b, h, k, s, dh = k_cache.shape
     n = b * beam_size
     group = model_group()
     q = linear(params["q_proj"], copy_to_group(x, group)).reshape(b, beam_size, h, dh)
     qbh = q.permute(0, 2, 1, 3).reshape(b * h, beam_size, dh).contiguous()
-    out = beam_masked_attend(
+    attend = (beam_masked_attend if kernels_allowed(qbh, k_cache, v_cache)
+              else beam_masked_attend_plain)
+    out = attend(
         qbh, k_cache.reshape(b * h, k, s, dh), v_cache.reshape(b * h, k, s, dh),
         anc_b, bias, local_heads(num_heads, group),
     )

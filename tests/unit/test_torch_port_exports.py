@@ -63,7 +63,9 @@ def test_pipeline_names_cover_the_reference():
             "Pooling", "static_pool", "SinusoidalPositionEncoder", "LearnedPositionEncoder",
             "decoder_stack", "encoder_stack", "fuse_qkv", "dropout", "tree_leaves"]),
     ("ops", ["dispatch_sdpa", "sdpa_xla", "FbankConfig", "batched_fbank", "additive_bias",
-             "length_mask", "quantize_params_int8", "records_grad"]),
+             "length_mask", "quantize_params_int8", "records_grad", "set_attention_impl",
+             "set_ffn_impl", "no_cuda_kernels", "cuda_kernels_disabled", "kernel_gate_scope",
+             "kernels_allowed", "kernel_settings"]),
     ("models", ["ConfigRegistry", "SonarEncoderOutput", "VocabularyInfo"]),
     ("parallel", ["l2_normalize", "cosine_topk", "xsim", "xsim_pp", "mine_bitexts",
                   "sharded_cosine_topk", "sharded_xsim", "sharded_xsim_pp", "Mesh", "SINGLE_MESH",
@@ -83,6 +85,29 @@ def test_subpackage_names_resolve(sub, names):
         assert getattr(mod, name) is not None
     with pytest.raises(AttributeError):
         getattr(mod, "no_such_name")
+
+
+@pytest.mark.parametrize("jax_name,port_name", [
+    ("sonar_tpu.ops.attention:no_tpu_kernels", "no_cuda_kernels"),
+    ("sonar_tpu.ops.attention:tpu_kernels_disabled", "cuda_kernels_disabled"),
+    ("sonar_tpu.ops.attention:kernel_gate_scope", "kernel_gate_scope"),
+    ("sonar_tpu.ops.attention:set_attention_impl", "set_attention_impl"),
+    ("sonar_tpu.nn.transformer:set_ffn_impl", "set_ffn_impl"),
+])
+def test_kernel_selection_names_have_counterparts(jax_name, port_name):
+    """The JAX package's kernel-selection API under the port's CUDA names,
+    each the port's own (``sonar_tpu_torch.ops.gates``); ``kernels_off_for``
+    has none (``sonar_tpu_torch.ops``' docstring says why)."""
+    import importlib
+
+    import sonar_tpu_torch.ops
+
+    module, _, name = jax_name.partition(":")
+    assert callable(getattr(importlib.import_module(module), name))
+    got = getattr(sonar_tpu_torch.ops, port_name)
+    assert callable(got) and got.__module__ == "sonar_tpu_torch.ops.gates"
+    assert "kernels_off_for" not in sonar_tpu_torch.ops.__all__
+    assert "kernels_off_for" in sonar_tpu_torch.ops.__doc__
 
 
 def _module_functions(mod):

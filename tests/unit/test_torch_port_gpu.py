@@ -9,7 +9,10 @@ and skip without one. The machine with the card has no JAX, and
 Tolerance: every row's cosine >= 0.9999 against the plain version (rows of
 length >= 1 for the int8 attention block), and each call counted as a launch.
 Training: one step on the card launches no kernel and gives the gradients
-of the same step on the CPU.
+of the same step on the CPU. The kernel-selection scope: a decoder runtime
+captures once per setting and replays the first capture when the setting
+returns; inside ``no_cuda_kernels()`` a beam and a sampling decode launch
+no kernel.
 """
 
 import pytest
@@ -1499,3 +1502,85 @@ def test_sampling_from_a_seed_card_matches_cpu(dev):
     np.testing.assert_array_equal(ct, pt)
     np.testing.assert_array_equal(cl, pl)
     np.testing.assert_allclose(cs, ps, atol=1e-4)
+
+
+# -- the kernel-selection scope on the captured decodes ------------------------------------------
+
+
+def _scope_decoder(dev):
+    """A fp32 D 128 decoder (two heads of 64) over 3000 rows on the card, and
+    its beam and top-k sampling decodes of 5 rows."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_decoder_params, text_decoder_from_numpy
+    from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+    from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder
+    from sonar_tpu_torch.generation.sampling import TopKSampler
+    from sonar_tpu_torch.models.sonar_text import sonar_text_decoder_archs
+
+    toy = sonar_text_decoder_archs.get("toy")
+    cfg = dataclasses.replace(toy, model_dim=128, num_encoder_attn_heads=2,
+                              num_decoder_attn_heads=2, ffn_inner_dim=256,
+                              vocab_info=dataclasses.replace(toy.vocab_info, size=3000))
+    dec = TorchTextDecoder(text_decoder_from_numpy(init_text_decoder_params(cfg, seed=0), cfg,
+                                                   device=dev), device=dev)
+    memory = np.random.default_rng(0).normal(size=(5, 1, 128)).astype(np.float32) * 2.0
+    config = BeamSearchConfig(beam_size=3, max_gen_len=12)
+    return dec, {
+        "beam": lambda: dec.generate_beam(memory, [3, 7], config),
+        "sample": lambda: dec.generate_sample(memory, [3, 7], TopKSampler(10), 12, seed=5),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["beam", "sample"])
+def test_decoder_captures_once_per_kernel_setting(dev, kind):
+    """Three decodes on one runtime: outside ``no_cuda_kernels()``, inside it,
+    outside again. Two captures (the second keyed on the scope), and the
+    third call replays the first's (the same graph, no eager steps before a
+    capture); the first and third equal bit for bit, the second the same
+    tokens and lengths (the plain #8 and draw), scores within 1e-5."""
+    import numpy as np
+
+    from sonar_tpu_torch.ops.gates import no_cuda_kernels
+
+    dec, decodes = _scope_decoder(dev)
+    first = decodes[kind]()
+    (key,) = list(dec._graphs)
+    graph = dec._graphs[key]
+    with no_cuda_kernels():
+        second = decodes[kind]()
+    assert len(dec._graphs) == 2 and key in dec._graphs
+    warm = dec.device_steps - dec.decode_steps
+    third = decodes[kind]()
+    assert len(dec._graphs) == 2 and dec._graphs[key] is graph
+    assert dec.device_steps - dec.decode_steps == warm
+    for a, b in zip(first, third):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(second[0], first[0])
+    np.testing.assert_array_equal(second[2], first[2])
+    np.testing.assert_allclose(second[1], first[1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_no_launch_under_the_scope(dev):
+    """A beam and a sampling decode inside ``no_cuda_kernels()`` launch no
+    kernel (their captures tally none); the same decodes outside launch
+    #8 and ``gumbel_max``."""
+    from sonar_tpu_torch.ops.cuda import gumbel_max as gm
+    from sonar_tpu_torch.ops.gates import no_cuda_kernels
+
+    dec, decodes = _scope_decoder(dev)
+    before = _all_launches() + (gm.LAUNCHES,)
+    with no_cuda_kernels():
+        decodes["beam"]()
+        decodes["sample"]()
+    torch.cuda.synchronize()
+    assert _all_launches() + (gm.LAUNCHES,) == before
+    assert all(not g.setup_launches and not g.step_launches for g in dec._graphs.values())
+    masked, draws = beam_attend.MASKED_LAUNCHES, gm.LAUNCHES
+    decodes["beam"]()
+    decodes["sample"]()
+    assert beam_attend.MASKED_LAUNCHES > masked and gm.LAUNCHES > draws
