@@ -12,14 +12,11 @@ Used by bench.py; available to pipelines via ``batching="static"``.
 
 from __future__ import annotations
 
-import logging
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
-
 from sonar_tpu_torch.data.collate import SequenceBatch
-
-logger = logging.getLogger(__name__)
+from sonar_tpu_torch.utils.profiling import span
 
 
 class StaticShapeBatcher:
@@ -107,18 +104,14 @@ class StaticShapeBatcher:
     def _make(self, items: List[Tuple[int, Sequence[int]]], bucket: int,
               stats: list, yield_indices: bool):
         bsz = self.batch_size_for(bucket)
-        seqs = np.full((bsz, bucket), self.pad_value, np.int32)
-        lens = np.zeros((bsz,), np.int32)
-        for i, (_, it) in enumerate(items):
-            seqs[i, : len(it)] = np.asarray(it, np.int32)
-            lens[i] = len(it)
-        stats.append((bucket, len(items), bsz, int(lens.sum())))
-        if logger.isEnabledFor(logging.DEBUG):
-            logger.debug(
-                "batch [%d, %d]: %d/%d rows, %.1f%% real tokens",
-                bsz, bucket, len(items), bsz,
-                100.0 * lens.sum() / (bsz * bucket),
-            )
+        with span("pipeline.batch", bucket=bucket, used=len(items), rows=bsz) as s:
+            seqs = np.full((bsz, bucket), self.pad_value, np.int32)
+            lens = np.zeros((bsz,), np.int32)
+            for i, (_, it) in enumerate(items):
+                seqs[i, : len(it)] = np.asarray(it, np.int32)
+                lens[i] = len(it)
+            stats.append((bucket, len(items), bsz, int(lens.sum())))
+            s.set(tokens=stats[-1][3])
         batch = SequenceBatch(seqs=seqs, seq_lens=lens, true_batch=len(items))
         if yield_indices:
             return batch, np.asarray([pos for pos, _ in items], np.int64)

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+from sonar_tpu_torch.utils.profiling import span
 
 DEFAULT_LEN_BUCKETS = (16, 32, 64, 128, 256, 512, 514)
 
@@ -72,11 +73,12 @@ class Collater:
             max_len = round_up_length(max_len, self.len_buckets)
         b_pad = round_up_pow2(b) if self.pad_batch_to_pow2 else b
 
-        seqs = np.full((b_pad, max_len), self.pad_value, np.int32)
-        for i, item in enumerate(items):
-            seqs[i, : lens[i]] = np.asarray(item, np.int32)
-        seq_lens = np.zeros((b_pad,), np.int32)
-        seq_lens[:b] = np.asarray(lens, np.int32)
+        with span("pipeline.batch", bucket=max_len, used=b, rows=b_pad, tokens=sum(lens)):
+            seqs = np.full((b_pad, max_len), self.pad_value, np.int32)
+            for i, item in enumerate(items):
+                seqs[i, : lens[i]] = np.asarray(item, np.int32)
+            seq_lens = np.zeros((b_pad,), np.int32)
+            seq_lens[:b] = np.asarray(lens, np.int32)
         return SequenceBatch(seqs=seqs, seq_lens=seq_lens, true_batch=b)
 
 

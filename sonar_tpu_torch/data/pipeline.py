@@ -16,16 +16,25 @@ Implementation notes:
 - ``prefetch(n)`` runs the upstream iterator on a daemon thread into a
   bounded queue — this is the host/device overlap point: batches are
   prepared while the TPU computes the previous step.
+- Workers (``map``'s pool, ``prefetch``'s thread) run in a copy of the
+  caller's ``contextvars`` context, so their spans
+  (``utils.profiling.span``) carry the caller's request. ``prefetch``
+  records the consumer's wait on an empty queue (``pipeline.wait``, its
+  ``cause`` the producer's innermost span then) and the producer's on a
+  full one (``pipeline.backpressure``).
 - Everything is lazy; iteration starts on ``__iter__``.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+import contextvars
 from pathlib import Path
 import queue
 import threading
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence, Union
+
+from sonar_tpu_torch.utils.profiling import innermost, span
 
 
 class DataPipelineBuilder:
@@ -62,7 +71,8 @@ class DataPipelineBuilder:
                                     item = next(it)
                                 except StopIteration:
                                     break
-                                pending.put(pool.submit(applied, item))
+                                pending.put(pool.submit(contextvars.copy_context().run,
+                                                        applied, item))
                                 n_inflight += 1
                             if n_inflight == 0:
                                 break
@@ -206,16 +216,24 @@ class DataPipelineBuilder:
             # pipeline in a long-lived process.
             stop = threading.Event()
 
-            def worker():
+            def put(item: Any) -> bool:
+                """Queue ``item``; False once the consumer has left."""
                 try:
-                    for item in src():
+                    q.put_nowait(item)
+                except queue.Full:
+                    with span("pipeline.backpressure"):
                         while not stop.is_set():
                             try:
                                 q.put(item, timeout=0.1)
                                 break
                             except queue.Full:
                                 continue
-                        if stop.is_set():
+                return not stop.is_set()
+
+            def worker():
+                try:
+                    for item in src():
+                        if not put(item):
                             return
                 except BaseException as e:  # propagate to consumer
                     error.append(e)
@@ -229,11 +247,16 @@ class DataPipelineBuilder:
                         except queue.Full:
                             continue
 
-            t = threading.Thread(target=worker, daemon=True)
+            t = threading.Thread(target=contextvars.copy_context().run, args=(worker,),
+                                 daemon=True)
             t.start()
             try:
                 while True:
-                    item = q.get()
+                    try:
+                        item = q.get_nowait()
+                    except queue.Empty:
+                        with span("pipeline.wait", cause=innermost(t)):
+                            item = q.get()
                     if item is _SENTINEL:
                         if error:
                             raise error[0]

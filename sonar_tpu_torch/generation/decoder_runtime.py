@@ -47,6 +47,7 @@ import collections
 import dataclasses
 import functools
 import threading
+import time
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +77,7 @@ from sonar_tpu_torch.parallel.mesh import (
     pad_rows,
     shard_params,
 )
+from sonar_tpu_torch.utils.profiling import span
 import torch
 
 # Captured programs a runtime keeps, beam and sampling together (least
@@ -101,16 +103,44 @@ def _graph_key(*parts: Any) -> Tuple[Any, ...]:
 class _BeamHandle:
     """In-flight beam decode (``TorchTextDecoder.generate_beam_async``): the
     host outputs (tokens, scores, lens; padded), the CUDA event behind their
-    copies from the card (None once on the host), the true batch size, and
+    copies from the card (None once on the host), the true batch size,
     ``settle``, which counts the decode's steps and launches once its step
-    count is on the host (None on the CPU). Resolve with
+    count is on the host and returns the device steps it counted (None on
+    the CPU), and ``loop``, the loop's CUDA events while recording (None
+    otherwise: ``_LoopEvents``). Resolve with
     ``TorchTextDecoder.materialize_beam``."""
 
-    __slots__ = ("outs", "copied", "b", "settle")
+    __slots__ = ("outs", "copied", "b", "settle", "loop")
 
     def __init__(self, outs: Tuple[Any, ...], copied: Any, b: int,
-                 settle: Optional[Callable[[], None]] = None):
+                 settle: Optional[Callable[[], int]] = None, loop: Any = None):
         self.outs, self.copied, self.b, self.settle = outs, copied, b, settle
+        self.loop = loop
+
+
+class _LoopEvents:
+    """CUDA events around one launch of a decode's loop on the card, kept
+    while recording (``utils.profiling``): ``origin``, recorded first on the
+    dispatch's stream at host time ``origin_ns``, places the loop's interval
+    (``start`` to ``end``, at the stream boundary: the loop's device time
+    alone) on the host's clock. The placement assumes the stream idle at
+    the dispatch, as it is between ``predict``'s batches; with batches in
+    flight the interval lies early by the wait, its length exact.
+    ``dispatch``: the dispatch's span, the new span's parent."""
+
+    def __init__(self, stream: Any, dispatch: Any):
+        self.dispatch = dispatch
+        self.origin, self.start, self.end = (torch.cuda.Event(enable_timing=True)
+                                             for _ in range(3))
+        self.origin.record(stream)
+        self.origin_ns = time.time_ns()
+
+    def record(self, steps: int) -> None:
+        """Once the loop has finished: the ``device.beam_loop`` span."""
+        def at(event: Any) -> int:
+            return self.origin_ns + int(self.origin.elapsed_time(event) * 1e6)
+
+        self.dispatch.child("device.beam_loop", at(self.start), at(self.end), steps=steps)
 
 
 def _static_config(config: BeamSearchConfig) -> BeamSearchConfig:
@@ -400,31 +430,40 @@ class TorchTextDecoder:
         before materializing batch i. On the CPU, or over a mesh of several
         ranks, the decode runs here and the handle comes back resolved."""
         config = self._search_config(config, len(prefix_ids))
-        mem = self._tensor(memory, torch.float32)
-        b = mem.shape[0]
-        if self.device.type != "cuda" or self.mesh.world.size > 1:
-            return _BeamHandle(self._beam_eager(mem, prefix_ids, config), None, b)
-        b_pad = round_up_pow2(b)
-        key = _graph_key(b_pad, len(prefix_ids), _static_config(config))
-        stream = torch.cuda.current_stream(self.device)
-        with self._lock, torch.inference_mode(), matmul_precision_for(self.dtype), \
-                self._scope():
-            # The graphs share their static buffers' pool: one decode at a
-            # time, whatever stream each caller queues on.
-            if self._free is not None:
-                stream.wait_event(self._free)
-            graph = self._graph(key, lambda pool: _BeamGraph(self, b_pad, len(prefix_ids),
-                                                             config, pool))
-            graph.load(mem, prefix_ids, config)
-            graph.setup.replay()
-            graph.loop.launch(stream)
-            outs = beam_finish(graph.state, self.vocab_info.eos_idx, config) + (graph.state.step,)
-            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                         .copy_(t, non_blocking=True) for t in outs)
-            self._free = torch.cuda.Event()
-            self._free.record(stream)
-            settle = functools.partial(self._settle, graph, len(prefix_ids), host[3])
-            return _BeamHandle(host[:3], self._free, b, settle)
+        with span("runtime.dispatch", prefix=len(prefix_ids)) as dispatch:
+            cuda = self.device.type == "cuda" and self.mesh.world.size == 1
+            stream = torch.cuda.current_stream(self.device) if cuda else None
+            loop = _LoopEvents(stream, dispatch) if cuda and dispatch else None
+            mem = self._tensor(memory, torch.float32)
+            b = mem.shape[0]
+            b_pad = round_up_pow2(b)
+            dispatch.set(b_pad=b_pad)
+            if not cuda:
+                return _BeamHandle(self._beam_eager(mem, prefix_ids, config), None, b)
+            key = _graph_key(b_pad, len(prefix_ids), _static_config(config))
+            with self._lock, torch.inference_mode(), matmul_precision_for(self.dtype), \
+                    self._scope():
+                # The graphs share their static buffers' pool: one decode at a
+                # time, whatever stream each caller queues on.
+                if self._free is not None:
+                    stream.wait_event(self._free)
+                graph = self._graph(key, lambda pool: _BeamGraph(self, b_pad, len(prefix_ids),
+                                                                 config, pool))
+                graph.load(mem, prefix_ids, config)
+                graph.setup.replay()
+                if loop is not None:
+                    loop.start.record(stream)
+                graph.loop.launch(stream)
+                if loop is not None:
+                    loop.end.record(stream)
+                outs = (beam_finish(graph.state, self.vocab_info.eos_idx, config)
+                        + (graph.state.step,))
+                host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                             .copy_(t, non_blocking=True) for t in outs)
+                self._free = torch.cuda.Event()
+                self._free.record(stream)
+                settle = functools.partial(self._settle, graph, len(prefix_ids), host[3])
+                return _BeamHandle(host[:3], self._free, b, settle, loop)
 
     def _graph(self, key: Any, capture: Callable[[Any], _LoopGraph]) -> _LoopGraph:
         """The captured program of ``key``, ``capture(pool)`` now if it is
@@ -434,32 +473,39 @@ class TorchTextDecoder:
             return self._graphs[key]
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = capture(self._pool)
+        with span("runtime.capture", key=repr(key)):
+            graph = capture(self._pool)
         self._graphs[key] = graph
         while len(self._graphs) > MAX_GRAPHS:
             self._graphs.popitem(last=False)
         return graph
 
-    def _settle(self, graph: _LoopGraph, prefix_len: int, step: torch.Tensor) -> None:
+    def _settle(self, graph: _LoopGraph, prefix_len: int, step: torch.Tensor) -> int:
         """Count a captured decode once its step count is on the host: the
-        steps, and the launches of one setup and of ``step`` body steps."""
+        steps, and the launches of one setup and of ``step`` body steps.
+        Returns the device steps counted."""
         steps = int(step)
         with self._lock:
             self.decode_steps += prefix_len + steps
             self.device_steps += prefix_len + steps
             kernels.add_launches(graph.setup_launches)
             kernels.add_launches(graph.step_launches, steps)
+        return prefix_len + steps
 
     @staticmethod
     def materialize_beam(handle: _BeamHandle) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Block on a ``generate_beam_async`` handle -> host (tokens, scores,
         lens), padding rows trimmed."""
-        if handle.copied is not None:
-            handle.copied.synchronize()
-        settle, handle.settle = handle.settle, None
-        if settle is not None:
-            settle()
-        return tuple(np.array(np.asarray(t)[: handle.b]) for t in handle.outs)
+        with span("runtime.materialize", rows=handle.b):
+            if handle.copied is not None:
+                handle.copied.synchronize()
+            settle, handle.settle = handle.settle, None
+            loop, handle.loop = handle.loop, None
+            if settle is not None:
+                steps = settle()
+                if loop is not None:
+                    loop.record(steps)
+            return tuple(np.array(np.asarray(t)[: handle.b]) for t in handle.outs)
 
     # -- sampling ---------------------------------------------------------------
 

@@ -18,13 +18,15 @@ from typing import Any, Deque, Iterable, Iterator, List, Sequence
 import numpy as np
 from sonar_tpu_torch.data.collate import Collater, DEFAULT_LEN_BUCKETS
 from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+from sonar_tpu_torch.utils.profiling import span
 import torch
 
 
 def _decode_hypotheses(tokenizer: Any, tokens: np.ndarray, lens: np.ndarray) -> List[str]:
     """tokens: [B, T] best hypotheses (generated part incl. EOS)."""
-    decoder = tokenizer.create_decoder()
-    return [decoder([int(t) for t in row[: int(n)]]) for row, n in zip(tokens, lens)]
+    with span("pipeline.detokenize", rows=len(tokens)):
+        decoder = tokenizer.create_decoder()
+        return [decoder([int(t) for t in row[: int(n)]]) for row, n in zip(tokens, lens)]
 
 
 class EmbeddingToTextConverter:

@@ -52,6 +52,7 @@ from sonar_tpu_torch.parallel.mesh import (
     pad_rows,
     shard_params,
 )
+from sonar_tpu_torch.utils.profiling import span
 import torch
 
 
@@ -83,13 +84,15 @@ class EncodeStats:
         self.true_tokens = 0
         self.padded_tokens = 0
 
-    def add(self, batch: SequenceBatch) -> None:
+    def add(self, batch: SequenceBatch) -> int:
+        """Count ``batch``; returns its true tokens."""
         padded = int(np.prod(batch.seqs.shape))
         true = int(np.asarray(batch.seq_lens)[: batch.true_batch].sum())
         with self._lock:
             self.batches += 1
             self.true_tokens += true
             self.padded_tokens += padded
+        return true
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -160,8 +163,11 @@ class TorchTextEncoder:
             seqs = np.pad(seqs, ((0, pad), (0, 0)), constant_values=1)
             lens = np.pad(lens, (0, pad))
         rows = data_sharding(mesh, len(seqs))
-        seqs_t = upload(torch.from_numpy(np.ascontiguousarray(seqs[rows], np.int32)), self.device)
-        lens_t = upload(torch.from_numpy(np.ascontiguousarray(lens[rows], np.int32)), self.device)
+        with span("runtime.upload"):
+            seqs_t = upload(torch.from_numpy(np.ascontiguousarray(seqs[rows], np.int32)),
+                            self.device)
+            lens_t = upload(torch.from_numpy(np.ascontiguousarray(lens[rows], np.int32)),
+                            self.device)
         with torch.inference_mode(), matmul_precision_for(self.dtype), \
                 model_parallel(mesh.model_group):
             emb = self.model(seqs_t, lens_t).sentence_embeddings
@@ -169,7 +175,8 @@ class TorchTextEncoder:
 
     @staticmethod
     def _to_host(emb: torch.Tensor) -> np.ndarray:
-        return emb.float().cpu().numpy()
+        with span("runtime.copy_out", rows=emb.shape[0]):
+            return emb.float().cpu().numpy()
 
     def warmup(self, len_buckets: Optional[Sequence[int]] = None,
                tokens_per_batch: int = 8192) -> int:
@@ -190,8 +197,10 @@ class TorchTextEncoder:
     def encode_batch(self, batch: SequenceBatch, materialize: bool = True) -> Any:
         """Embeddings of the batch's real rows; ``materialize=False`` keeps
         them on the device."""
-        self.stats.add(batch)
-        emb = self._encode(batch.seqs, batch.seq_lens)[: batch.true_batch]
+        tokens = self.stats.add(batch)
+        with span("runtime.enqueue", rows=batch.true_batch, length=batch.seqs.shape[1],
+                  tokens=tokens):
+            emb = self._encode(batch.seqs, batch.seq_lens)[: batch.true_batch]
         return self._to_host(emb) if materialize else emb
 
     def encode_batches(self, batches: List[SequenceBatch]) -> List[np.ndarray]:
@@ -237,11 +246,20 @@ def _resolve_tokenizer(tokenizer: Any) -> Any:
 
 
 def _map_tokenize(builder: Any, tokenizer_encoder: Any) -> Any:
-    """Tokenize stage: the batched native path when the encoder has one."""
+    """Tokenize stage: the batched native path when the encoder has one,
+    a ``pipeline.tokenize`` span a chunk of 1,024 sentences."""
     encode_batch = getattr(tokenizer_encoder, "encode_batch", None)
     if encode_batch is None:
         return builder.map(tokenizer_encoder)
-    return builder.map_batched(encode_batch, batch_size=1024)
+
+    def tokenize(texts: List[str]) -> List[List[int]]:
+        with span("pipeline.tokenize", sentences=len(texts)) as s:
+            ids = encode_batch(texts)
+            if s:
+                s.set(tokens=sum(map(len, ids)))
+        return ids
+
+    return builder.map_batched(tokenize, batch_size=1024)
 
 
 class TextToEmbeddingModelPipeline:
@@ -279,108 +297,113 @@ class TextToEmbeddingModelPipeline:
         if batch_size is not None and batch_size <= 0:
             raise ValueError("`batch_size` should be strictly positive")
 
-        tokenizer_encoder = self.tokenizer.create_encoder(lang=source_lang)
-        model_max_len = self.model.max_source_len
-        if max_seq_len is None:
-            max_seq_len = model_max_len
-        elif max_seq_len > model_max_len:
-            raise ValueError(
-                f"max_seq_len cannot be larger than max_seq_len of the encoder model: {model_max_len}"
-            )
-
-        n_truncated = 0
-
-        def truncate(ids: List[int]) -> List[int]:
-            nonlocal n_truncated
-            if len(ids) > max_seq_len:
-                n_truncated += 1
-                return ids[:max_seq_len]
-            return ids
-
-        def warn_truncated() -> None:
-            if n_truncated:
-                warnings.warn(
-                    f"For {n_truncated} input tensors for SONAR text encoder, "
-                    f"the length was truncated to {max_seq_len} elements."
+        with span("pipeline.predict"):
+            tokenizer_encoder = self.tokenizer.create_encoder(lang=source_lang)
+            model_max_len = self.model.max_source_len
+            if max_seq_len is None:
+                max_seq_len = model_max_len
+            elif max_seq_len > model_max_len:
+                raise ValueError(
+                    f"max_seq_len cannot be larger than max_seq_len of the encoder model: {model_max_len}"
                 )
 
-        empty = np.zeros((0, self.model.model_dim), np.float32)
-        if isinstance(input, (str, Path)):
-            builder = read_text(Path(input))
-            sorting_index = None
-        elif len(input) == 0:
-            return empty
-        elif batching == "static":
-            # Length buckets group by size already; order is restored from
-            # the batcher's input positions.
-            sorting_index = None
-            builder = read_sequence(list(input))
-        else:
-            sorting_index = np.argsort([len(s) for s in input], kind="stable")
-            builder = read_sequence([input[i] for i in sorting_index])
+            n_truncated = 0
 
-        pad_idx = self.tokenizer.vocab_info.pad_idx
+            def truncate(ids: List[int]) -> List[int]:
+                nonlocal n_truncated
+                if len(ids) > max_seq_len:
+                    n_truncated += 1
+                    return ids[:max_seq_len]
+                return ids
 
-        if batching == "static":
-            batcher = StaticShapeBatcher(
-                pad_value=pad_idx,
-                len_buckets=_static_len_buckets_for(max_seq_len),
-                tokens_per_batch=batch_max_tokens or 8192,
-            )
-            tokens = _map_tokenize(builder, tokenizer_encoder).map(truncate).and_return()
-            # A prefetch thread tokenizes, buckets and pads while batches are
-            # encoded on the device.
-            it = iter(
-                read_iterator(lambda: batcher.batches(iter(tokens), yield_indices=True))
-                .prefetch(64)
+            def warn_truncated() -> None:
+                if n_truncated:
+                    warnings.warn(
+                        f"For {n_truncated} input tensors for SONAR text encoder, "
+                        f"the length was truncated to {max_seq_len} elements."
+                    )
+
+            empty = np.zeros((0, self.model.model_dim), np.float32)
+            if isinstance(input, (str, Path)):
+                builder = read_text(Path(input))
+                sorting_index = None
+            elif len(input) == 0:
+                return empty
+            elif batching == "static":
+                # Length buckets group by size already; order is restored from
+                # the batcher's input positions.
+                sorting_index = None
+                builder = read_sequence(list(input))
+            else:
+                sorting_index = np.argsort([len(s) for s in input], kind="stable")
+                builder = read_sequence([input[i] for i in sorting_index])
+
+            pad_idx = self.tokenizer.vocab_info.pad_idx
+
+            if batching == "static":
+                batcher = StaticShapeBatcher(
+                    pad_value=pad_idx,
+                    len_buckets=_static_len_buckets_for(max_seq_len),
+                    tokens_per_batch=batch_max_tokens or 8192,
+                )
+                tokens = _map_tokenize(builder, tokenizer_encoder).map(truncate).and_return()
+                # A prefetch thread tokenizes, buckets and pads while batches are
+                # encoded on the device.
+                it = iter(
+                    read_iterator(lambda: batcher.batches(iter(tokens), yield_indices=True))
+                    .prefetch(64)
+                    .and_return()
+                )
+                positions = []
+
+                def batches_only():
+                    for b, pos in it:
+                        positions.append(pos)
+                        yield b
+
+                embs = self.model.encode_batches_iter(
+                    batches_only(), max_pending=_STATIC_ENCODE_WINDOW
+                )
+                warn_truncated()
+                if not embs:
+                    return empty
+                with span("pipeline.restore") as s:
+                    out = np.concatenate(embs, axis=0)
+                    s.set(rows=len(out))
+                    return out[np.argsort(np.concatenate(positions), kind="stable")]
+
+            collater = Collater(pad_idx, len_buckets=_len_buckets_for(max_seq_len))
+            pipeline = (
+                _map_tokenize(builder, tokenizer_encoder)
+                .map(truncate)
+                .dynamic_bucket(
+                    batch_max_tokens or 2**31,
+                    len,
+                    min_num_examples=1,
+                    max_num_examples=batch_size or 20_000,
+                    drop_remainder=False,
+                )
+                .map(collater)
+                .prefetch(2)
+                .map(self.model.encode_batch)
                 .and_return()
             )
-            positions = []
-
-            def batches_only():
-                for b, pos in it:
-                    positions.append(pos)
-                    yield b
-
-            embs = self.model.encode_batches_iter(
-                batches_only(), max_pending=_STATIC_ENCODE_WINDOW
-            )
+            iterable = pipeline
+            if progress_bar:
+                iterable = add_progress_bar(
+                    pipeline, inputs=input,
+                    batch_size=batch_size if batch_max_tokens is None else None,
+                )
+            results = list(iter(iterable))
             warn_truncated()
-            if not embs:
+            if not results:
                 return empty
-            out = np.concatenate(embs, axis=0)
-            return out[np.argsort(np.concatenate(positions), kind="stable")]
-
-        collater = Collater(pad_idx, len_buckets=_len_buckets_for(max_seq_len))
-        pipeline = (
-            _map_tokenize(builder, tokenizer_encoder)
-            .map(truncate)
-            .dynamic_bucket(
-                batch_max_tokens or 2**31,
-                len,
-                min_num_examples=1,
-                max_num_examples=batch_size or 20_000,
-                drop_remainder=False,
-            )
-            .map(collater)
-            .prefetch(2)
-            .map(self.model.encode_batch)
-            .and_return()
-        )
-        iterable = pipeline
-        if progress_bar:
-            iterable = add_progress_bar(
-                pipeline, inputs=input,
-                batch_size=batch_size if batch_max_tokens is None else None,
-            )
-        results = list(iter(iterable))
-        warn_truncated()
-        if not results:
-            return empty
-        embeddings = np.concatenate(results, axis=0)
-        if sorting_index is not None:
-            embeddings = embeddings[np.argsort(sorting_index, kind="stable")]
-        return embeddings
+            with span("pipeline.restore") as s:
+                embeddings = np.concatenate(results, axis=0)
+                s.set(rows=len(embeddings))
+                if sorting_index is not None:
+                    embeddings = embeddings[np.argsort(sorting_index, kind="stable")]
+            return embeddings
 
 
 class TextToTextModelPipeline:
@@ -436,7 +459,8 @@ class TextToTextModelPipeline:
         iterable = translator.translate_stream(iter(builder.bucket(batch_size).and_return()))
         if progress_bar:
             iterable = add_progress_bar(iterable, inputs=input, batch_size=batch_size)
-        return [x for y in iterable for x in y]
+        with span("pipeline.predict"):
+            return [x for y in iterable for x in y]
 
 
 class EmbeddingToTextModelPipeline:
@@ -476,7 +500,8 @@ class EmbeddingToTextModelPipeline:
         iterable = pipeline
         if progress_bar:
             iterable = add_progress_bar(pipeline, inputs=inputs, batch_size=batch_size)
-        return [x for y in iterable for x in y]
+        with span("pipeline.predict", rows=len(inputs)):
+            return [x for y in iterable for x in y]
 
 
 def _padded_sizes(batch_size: int) -> tuple:

@@ -24,6 +24,8 @@ import subprocess
 import threading
 from typing import Optional
 
+from sonar_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sonar_tpu_torch"
 LIB_NAME = "libsonar_tpu_torch_kernels.so"
@@ -120,11 +122,13 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (a ``runtime.build``
+    span: compiled, or loaded from an earlier build)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            with span("runtime.build"):
+                lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
