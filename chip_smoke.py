@@ -288,8 +288,10 @@ Phases, each printing ``#`` lines:
 (n) each path with its kernels off (``ops.gates.no_cuda_kernels``), on the
     models and weights of (d)-(h2), run once with its kernels and once
     inside the scope: int8 text at [64, 128] (#2, #3 with LN) and [16, 512]
-    (#5, #3), bf16 text at [8, 128] (#1), the int8 [16, 512] batch under
-    ``set_attention_impl("plain")`` (#3; flash must not launch), a bf16
+    (#2 with #5's core as its attention step, #3 with LN), bf16 text at
+    [8, 128] (#1), the int8 [16, 512] batch under
+    ``set_attention_impl("plain")`` (#3 alone; neither #2 nor flash may
+    launch), int8 text with q/k/v unfused at [16, 512] (#5, #3 alone), a bf16
     encoder with q/k/v unfused at [64, 64] under
     ``set_attention_impl("cuda")`` (flash below its length gate), bf16
     speech on 8 clips of 20 s (S 999, #6), fp32 beam decode (#8) and fp32
@@ -4459,10 +4461,17 @@ def run_kernels_off(torch, card, handoff):
 
     int8, bf16 = text["int8"].model, text["bf16"].model
     text_path("int8 text", int8, 64, 128, ("fused_attn_block", "fused_int8_ffn"))
-    text_path("int8 text", int8, 16, 512, ("flash_attention", "fused_int8_ffn"))
+    text_path("int8 text", int8, 16, 512, ("fused_attn_block", "flash_attention", "fused_int8_ffn"))
     text_path("bf16 text", bf16, 8, 128, ("short_qkv_attention",))
     text_path('int8 text, set_attention_impl("plain")', int8, 16, 512, ("fused_int8_ffn",),
-              impl="plain", absent=("flash_attention",))
+              impl="plain", absent=("flash_attention", "fused_attn_block"))
+    unfused = TorchTextEncoder(text_encoder_from_numpy(handoff["text_params"], cfg,
+                                                       torch.bfloat16, DEVICE),
+                               fuse_qkv=False, quantize=True)
+    text_path("int8 text, q/k/v unfused", unfused, 16, 512, ("flash_attention", "fused_int8_ffn"),
+              absent=("fused_attn_block",))
+    del unfused
+    torch.cuda.empty_cache()
     unfused = TorchTextEncoder(text_encoder_from_numpy(handoff["text_params"], cfg,
                                                        torch.bfloat16, DEVICE), fuse_qkv=False)
     text_path('bf16 text, q/k/v unfused, set_attention_impl("cuda")', unfused, 64, 64,

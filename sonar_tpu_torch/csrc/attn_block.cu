@@ -11,7 +11,9 @@
 //      (as the TPU kernel does, also for an fp32 model);
 //   3. per-(sequence, head) softmax attention on the bf16 QKV, P rounded
 //      to bf16, output kept in fp32 (attention.cuh: the tensor-core core,
-//      one pass at S <= 128);
+//      one pass at S <= 128; past that the two-pass kernel of flash.cu,
+//      64-key tiles read from the fused QKV rows, fp32 stored into merged
+//      heads);
 //   4. per-row requantisation of the fp32 attention output;
 //   5. int8 GEMM with the output weights, dequantised, + bias, added to x
 //      in fp32 and rounded to x.dtype.
@@ -23,6 +25,13 @@
 // intermediates cross device memory once each.
 #include "attention.cuh"
 #include "int8_gemm.cuh"
+
+// The longest S whose attention step is the one-pass core: past it, #5's
+// two-pass kernel (the wrapper counts that launch on flash's counter).
+extern "C" int sonar_attn_one_pass_max(int* s_max) {
+  *s_max = TC_ONE_PASS_MAX;
+  return 0;
+}
 
 extern "C" int sonar_fused_attn_block(const void* x, int x_kind, int B, int S, int H, int Dh,
                                       const float* bias, const float* ln_w, const float* ln_b,

@@ -32,9 +32,9 @@ class StaticShapeBatcher:
         self.len_buckets = tuple(sorted(len_buckets))
         self.tokens_per_batch = tokens_per_batch
         self.min_batch = min_batch
-        # At end-of-stream, promote sparsely-filled remainder batches into the
-        # next length bucket: a few extra pad tokens per item beats emitting a
-        # mostly-empty full-shape batch.
+        # At end-of-stream, promote sparsely-filled remainder batches into a
+        # longer bucket's partial batch: a few extra pad tokens per item beats
+        # emitting a mostly-empty full-shape batch.
         self.flush_merge = flush_merge
         # Fill diagnostics of the last ``batches()`` run: per emitted batch
         # (bucket_len, rows_used, rows_total, real_tokens).
@@ -77,8 +77,11 @@ class StaticShapeBatcher:
                 yield self._make(pending[b], b, stats, yield_indices)
                 pending[b] = []
         # Flush: ascending buckets; sparsely-filled remainders promote to the
-        # next bucket when the added length padding is cheaper than the empty
-        # rows of a dedicated batch.
+        # nearest longer bucket that has a partial batch of its own, when
+        # the added length padding is cheaper than the empty rows of a
+        # dedicated batch. (Into a bucket with no partial batch they would
+        # fill a batch of their own, of about the same padded tokens with
+        # longer rows: no row saved, and more attention work.)
         for bi, b in enumerate(self.len_buckets):
             items = pending[b]
             if not items:
@@ -89,11 +92,12 @@ class StaticShapeBatcher:
                 items = items[bsz:]
             if not items:
                 continue
-            if self.flush_merge and bi + 1 < len(self.len_buckets):
-                nb = self.len_buckets[bi + 1]
+            nb = next((c for c in self.len_buckets[bi + 1:]
+                       if len(pending[c]) % self.batch_size_for(c)), None)
+            if self.flush_merge and nb is not None:
                 # cost of emitting the partial batch here = its empty rows;
                 # cost of promoting = the extra per-item length padding
-                # (the items may then fill nb's batch; cascades greedily).
+                # (the items then fill nb's batch; cascades greedily).
                 own_cost = (bsz - len(items)) * b
                 promote_cost = len(items) * (nb - b)
                 if promote_cost < own_cost:

@@ -18,10 +18,15 @@ caller's choice, and take the plain version whenever autograd records
 (``ops.gates.kernels_allowed``: the kernels have no backward; a
 ``no_cuda_kernels()`` scope turns every gate off; ``set_ffn_impl("plain")``
 the standalone fused FFN); each kernel wrapper then runs its plain version
-for CPU tensors and its CUDA kernel for CUDA tensors. The thresholds (S
-8..128, >= 2048 tokens) were tuned on a TPU; re-tuning them on the H100 is
-open work. ``encoder_stack`` / ``decoder_stack(remat=True)`` recompute each
-layer's activations in the backward pass (``torch.utils.checkpoint``).
+for CPU tensors and its CUDA kernel for CUDA tensors. The whole-block int8
+kernels take S >= 8 with >= 2048 tokens and no upper bound: their attention
+step is the one-pass core to S 128 and #5's two-pass core past it (which
+``set_attention_impl("plain")`` keeps off), and on an H100 the block beat
+the eager int8 projections at every S from 192 to 512. The other
+thresholds (short attention S 8..128, flash S >= 256) were tuned on a TPU;
+re-tuning them on the H100 is open work. ``encoder_stack`` /
+``decoder_stack(remat=True)`` recompute each layer's activations in the
+backward pass (``torch.utils.checkpoint``).
 
 Under a model split (``parallel.comm.model_parallel``, the parameters being
 ``parallel.mesh.shard_params``'s slices) each rank runs its H / model heads
@@ -48,7 +53,8 @@ from sonar_tpu_torch.nn.core import (
     tree_leaves,
 )
 from sonar_tpu_torch.ops.attention import dispatch_sdpa
-from sonar_tpu_torch.ops.gates import ffn_impl, kernels_allowed
+from sonar_tpu_torch.ops.cuda.attn_block import ONE_PASS_MAX
+from sonar_tpu_torch.ops.gates import attention_impl, ffn_impl, kernels_allowed
 from sonar_tpu_torch.ops.gates import set_ffn_impl as set_ffn_impl
 from sonar_tpu_torch.parallel.comm import Group, copy_to_group, model_group
 import torch
@@ -204,9 +210,12 @@ def _residual_block(params_ln: Params, x: torch.Tensor, fn, norm_order: str) -> 
 def _block_kernels_eligible(params: Params, x: torch.Tensor, bias, num_heads: int,
                             activation: str, norm_order: str) -> bool:
     """Whole-block kernels: pre-LN int8 layers with a fused QKV projection,
-    ReLU FFN, key-padding bias, sentence-length sequences, enough tokens,
-    no model split, and ``kernels_allowed`` (nothing that autograd records,
-    no ``no_cuda_kernels()`` scope)."""
+    ReLU FFN, key-padding bias, S >= 8, enough tokens, no model split, and
+    ``kernels_allowed`` (nothing that autograd records, no
+    ``no_cuda_kernels()`` scope). No upper bound on S: #2's attention step
+    takes any key count, past ``ONE_PASS_MAX`` (S 128) in #5's two-pass
+    core, which ``set_attention_impl("plain")`` keeps off there, as JAX's
+    block gate, ending at S 128, leaves such layers to plain attention."""
     if norm_order != "pre" or activation != "relu" or not _key_bias(bias):
         return False
     if model_group() is not None:
@@ -221,7 +230,9 @@ def _block_kernels_eligible(params: Params, x: torch.Tensor, bias, num_heads: in
         return False
     b, s, d = x.shape
     fdim = f["inner_proj"]["kernel_q"].shape[1]
-    return 8 <= s <= 128 and d % 128 == 0 and fdim % 256 == 0 and b * s >= 2048
+    if s > ONE_PASS_MAX and attention_impl() == "plain":
+        return False
+    return s >= 8 and d % 128 == 0 and fdim % 256 == 0 and b * s >= 2048
 
 
 def encoder_layer(

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "sonar_fused_int8_ffn": [_P, _I, _I, _I, _I, _I] + [_P] * 14 + [_P],
     "sonar_fused_bf16_ffn": [_P] + [_I] * 5 + [ctypes.c_float] + [_P] * 9 + [_P],
     "sonar_fused_attn_block": [_P, _I, _I, _I, _I, _I] + [_P] * 16 + [_P],
+    "sonar_attn_one_pass_max": [ctypes.POINTER(_I)],
     "sonar_relpos_v2_workspace": [_I, _I, _I, _I, _P],
     "sonar_relpos_flash_v2": [_P] * 12 + [_LL] + [_I] * 5 + [_LL] * 9 + [_I, _P],
     "sonar_relpos_flash_v1": [_P] * 7 + [_I] * 4 + [_LL] * 9 + [_I, _P],

@@ -12,10 +12,17 @@ block-diagonal mask; attention here is per sequence. The two agree on every
 sequence of length >= 1; a padding row of length 0 (all keys masked) gets a
 uniform average of its own keys here and of other sequences' keys on the
 TPU, and is discarded by both.
+
+The attention step is ``csrc/attention.cuh``'s tensor-core core: one pass
+over the keys up to S 128, past that the two-pass kernel that ``flash``
+(#5) runs, on the fused QKV layout with fp32 output into merged heads.
+Such a call counts one launch on ``flash.LAUNCHES`` besides its own, as a
+profiler trace shows the two-pass kernel beside the block's GEMMs.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 from sonar_tpu_torch.ops import _build
@@ -32,6 +39,10 @@ from sonar_tpu_torch.ops.quantization import int8_matmul
 import torch
 
 LAUNCHES = 0
+# attention.cuh's TC_ONE_PASS_MAX, for the block gate, which runs without the
+# library; a call counts #5's launch by the library's own value.
+ONE_PASS_MAX = 128
+_ONE_PASS_MAX_BUILT: Optional[int] = None
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -103,4 +114,18 @@ def fused_attn_block(
         "fused_attn_block",
     )
     launched("attn_block", "LAUNCHES")
+    if s > one_pass_max():
+        launched("flash", "LAUNCHES")
     return out
+
+
+def one_pass_max() -> int:
+    """The longest S whose attention step is the one-pass core, as the
+    library was built (``TC_ONE_PASS_MAX``)."""
+    global _ONE_PASS_MAX_BUILT
+    if _ONE_PASS_MAX_BUILT is None:
+        s_max = ctypes.c_int()
+        _build.check(_build.library().sonar_attn_one_pass_max(ctypes.byref(s_max)),
+                     "attn_one_pass_max")
+        _ONE_PASS_MAX_BUILT = s_max.value
+    return _ONE_PASS_MAX_BUILT

@@ -24,7 +24,10 @@ The caller's choice (the JAX package's kernel-selection API,
 - ``set_ffn_impl("auto" | "plain")`` (process-wide) governs the standalone
   fused int8 FFN (#3, ``nn.transformer.ffn``) only, not the whole-block
   kernels (#2, #3 with LN). Neither setter governs the short attention (#1)
-  or the block kernels, as in JAX.
+  or the block kernels up to S 128, as in JAX. Past S 128 #2's attention
+  step is #5's two-pass core, so ``"plain"`` keeps the block off there
+  (``nn.transformer._block_kernels_eligible``), as JAX's block gate, which
+  ends at S 128, leaves such layers to plain attention.
 
 The scope also sends the port's own call sites to their plain versions:
 the beam step's masked attend (#8) and the sampling step's draw

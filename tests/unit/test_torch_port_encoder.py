@@ -187,10 +187,12 @@ def test_toy_encoder_int8_matches_jax(fuse):
     assert _row_cos(got[:3], want[:3]).min() >= 0.999
 
 
-@pytest.mark.parametrize("mode", ["int8_blocks", "int8_flash", "bf16_flash", "fp32_short"])
+@pytest.mark.parametrize("mode", ["int8_blocks", "int8_blocks_long", "int8_flash", "bf16_flash",
+                                  "fp32_short"])
 def test_wide_encoder_through_every_gate(mode):
-    """D = 128 with enough tokens: the block kernels (S 8..128, >= 2048
-    tokens), the fused FFN + flash attention (S >= 256), and the short
+    """D = 128 with enough tokens: the block kernels (fused q/k/v, S >= 8,
+    >= 2048 tokens; at S 256 the attention step in two passes), the fused
+    FFN + flash attention (q/k/v unfused, S >= 256), and the short
     attention, each against the JAX package's CPU path."""
     cfg, tcfg = _wide_cfg(jax_archs), _wide_cfg(sonar_text_encoder_archs)
     params = _jax_params(cfg, seed=2)
@@ -205,7 +207,7 @@ def test_wide_encoder_through_every_gate(mode):
     tdt, jdt = DTYPES["bfloat16" if mode == "bf16_flash" else "float32"]
     quantize = mode.startswith("int8")
     enc = TorchTextEncoder(text_encoder_from_numpy(params, tcfg, tdt), quantize=quantize,
-                           device="cpu")
+                           fuse_qkv=mode != "int8_flash", device="cpu")
     got = enc.encode_batch(batch)
     want = np.asarray(JitTextEncoder(JaxEncoder(cfg, dtype=jdt), params,
                                      quantize=quantize).encode_batch(batch), np.float32)
@@ -243,6 +245,120 @@ def test_kernel_gates_route_like_jax():
     finally:
         for (mod, name), fn in originals.items():
             setattr(mod, name, fn)
+
+
+def _layer(rows, s, quantize=True, seed=0):
+    """One D 128 (two heads of 64), FFN 256 layer with fused q/k/v, int8 or
+    float, and x [rows, s, 128]."""
+    from sonar_tpu_torch.ops.quantization import quantize_params_int8
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def lin(i, o):
+        return {"kernel": torch.randn(i, o, generator=gen) * i ** -0.5,
+                "bias": torch.randn(o, generator=gen) * 0.1}
+
+    def ln(d):
+        return {"weight": 1 + 0.1 * torch.randn(d, generator=gen),
+                "bias": 0.1 * torch.randn(d, generator=gen)}
+
+    layer = transformer.fuse_qkv({
+        "self_attn": {n: lin(128, 128) for n in ("q_proj", "k_proj", "v_proj", "output_proj")},
+        "self_attn_layer_norm": ln(128),
+        "ffn": {"inner_proj": lin(128, 256), "output_proj": lin(256, 128)},
+        "ffn_layer_norm": ln(128)}, keep_split=False)
+    return (quantize_params_int8(layer) if quantize else layer,
+            torch.randn(rows, s, 128, generator=gen))
+
+
+def _key_bias_of(lens, s):
+    return masks.additive_bias(masks.length_mask(torch.tensor(lens), s))[:, None, None, :]
+
+
+_ROUTES = (("attn_block", "fused_attn_block"), ("ffn", "fused_int8_ffn_ln"),
+           ("ffn", "fused_int8_ffn"), ("flash", "flash_attention"),
+           ("short_attn", "short_qkv_attention"))
+
+
+def _routes(monkeypatch, fn):
+    """(fn(), the set of kernel wrappers and ``int8_linear`` it called)."""
+    import importlib
+
+    from sonar_tpu_torch.ops import quantization
+
+    called = set()
+    targets = [(importlib.import_module(f"sonar_tpu_torch.ops.cuda.{m}"), n) for m, n in _ROUTES]
+    for mod, name in targets + [(quantization, "int8_linear")]:
+        wrapped = getattr(mod, name)
+        monkeypatch.setattr(mod, name, (lambda f, n: lambda *a, **k: (called.add(n),
+                                                                      f(*a, **k))[1])(wrapped, name))
+    out = fn()
+    monkeypatch.undo()
+    return out, called
+
+
+@pytest.mark.parametrize("s", [192, 384, 512])
+def test_int8_layer_takes_the_block_kernels_past_s_128(s, monkeypatch):
+    """An int8 pre-LN layer at S 192-512 with key padding and >= 2048 tokens
+    reaches #2 and #3 with LN and no eager int8 projection, and agrees with
+    the eager int8 path (its kernels off) as the S 128 block cases do:
+    cosine >= 0.999 per position of a row of length >= 1, and within 2e-2
+    of the output's largest magnitude."""
+    from sonar_tpu_torch.ops.gates import no_cuda_kernels
+
+    rows = -(-2048 // s)
+    params, x = _layer(rows, s)
+    lens = [s, 0] + [s // 2 + 29 * i % (s // 2) for i in range(rows - 2)]
+    bias = _key_bias_of(lens, s)
+    layer = lambda: transformer.encoder_layer(params, x, bias, 2, "relu")  # noqa: E731
+    with torch.inference_mode():
+        got, calls = _routes(monkeypatch, layer)
+        assert calls == {"fused_attn_block", "fused_int8_ffn_ln"}
+        with no_cuda_kernels():
+            want, calls = _routes(monkeypatch, layer)
+        assert calls == {"int8_linear"}
+    valid = masks.length_mask(torch.tensor(lens), s)
+    g, w = got[valid].double(), want[valid].double()
+    assert torch.nn.functional.cosine_similarity(g, w, dim=-1).min().item() >= 0.999
+    assert (g - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("case,s,rows,want", [
+    ("int8", 128, 16, {"fused_attn_block", "fused_int8_ffn_ln"}),
+    ("int8_few_tokens", 64, 4, {"short_qkv_attention", "int8_linear"}),
+    ("bf16", 512, 4, {"flash_attention"}),
+    ("packed_int8", 512, 4, {"flash_attention", "int8_linear", "fused_int8_ffn"}),
+    ("autograd_int8", 384, 6, {"int8_linear"}),
+])
+def test_layer_inputs_outside_the_long_block_path_keep_theirs(case, s, rows, want, monkeypatch):
+    """What the block gate's S bound did not decide routes as before: int8 at
+    S 128 to the block kernels, int8 with fewer than 2048 tokens to the
+    short attention and eager projections, bf16 to flash, packed rows (a
+    full bias, not a key bias) to flash and the standalone int8 FFN, and
+    anything autograd records to no kernel."""
+    params, x = _layer(rows, s, quantize=case != "bf16")
+    if case == "bf16":
+        x = x.bfloat16()
+    if case == "packed_int8":  # three segments a row, the last row half padding
+        seg = torch.arange(s).repeat(rows, 1) * 3 // s + 1
+        seg[-1, s // 2:] = 0
+        real = seg > 0
+        bias = masks.additive_bias((seg[:, :, None] == seg[:, None, :])
+                                   & real[:, :, None] & real[:, None, :])[:, None]
+    else:
+        bias = _key_bias_of([s] + [s // 2] * (rows - 1), s)
+    layer = lambda: transformer.encoder_layer(params, x, bias, 2, "relu")  # noqa: E731
+    if case == "autograd_int8":
+        for leaf in core.tree_leaves(params):
+            if leaf.is_floating_point():
+                leaf.requires_grad_(True)
+        out, calls = _routes(monkeypatch, layer)
+        assert out.requires_grad
+    else:
+        with torch.inference_mode():
+            out, calls = _routes(monkeypatch, layer)
+    assert torch.isfinite(out.float()).all()
+    assert calls == want
 
 
 # -- weights -------------------------------------------------------------------

@@ -318,8 +318,81 @@ def test_attn_block_kernel_full_width(dev, dtype):
     wo, so = quantize_kernel(_rand(dev, 1024, 1024, scale=0.03))
     args = (x, bias, _rand(dev, 1024, scale=0.1) + 1, _rand(dev, 1024, scale=0.1, seed=1), wq, sq,
             _rand(dev, 3072, scale=0.05), wo, so, _rand(dev, 1024, scale=0.05), 16)
+    flash_launches = flash.LAUNCHES
     got = _launched(attn_block, lambda: attn_block.fused_attn_block(*args))
+    assert flash.LAUNCHES == flash_launches  # S 128: the one-pass attention step
     _assert_int8_close(got, attn_block.fused_attn_block_plain(*args), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", [(8, 192), (12, 200), (8, 300), (16, 384), (16, 512)])
+def test_attn_block_kernel_full_width_long(dev, b, s):
+    """The int8 block past S 128 at full width: its attention step is #5's
+    two-pass core on the fused QKV rows, fp32 into merged heads, so each
+    call counts one launch of #2 and one of #5. Ragged lengths and one row
+    wholly padding (the static batcher's remainder rows), all of them
+    within the int8 tolerances of the plain version; S 200 and 300 (dynamic
+    batching's lengths) end in a partial 64-key tile."""
+    x = _rand(dev, b, s, 1024, dtype=torch.bfloat16)
+    lens = [s, 0] + [s // 2 + 37 * i % (s // 2) for i in range(b - 2)]
+    bias = _key_bias(dev, lens, s)
+    wq, sq = quantize_kernel(_rand(dev, 1024, 3072, scale=0.03))
+    wo, so = quantize_kernel(_rand(dev, 1024, 1024, scale=0.03))
+    args = (x, bias, _rand(dev, 1024, scale=0.1) + 1, _rand(dev, 1024, scale=0.1, seed=1), wq, sq,
+            _rand(dev, 3072, scale=0.05), wo, so, _rand(dev, 1024, scale=0.05), 16)
+    flash_launches = flash.LAUNCHES
+    got = _launched(attn_block, lambda: attn_block.fused_attn_block(*args))
+    assert flash.LAUNCHES == flash_launches + 1
+    _assert_int8_close(got, attn_block.fused_attn_block_plain(*args), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_attn_block_one_pass_max_is_the_librarys(dev):
+    """The block gate's ``ONE_PASS_MAX`` (read without the library) is the
+    built library's ``TC_ONE_PASS_MAX``, by which a call counts #5."""
+    assert attn_block.one_pass_max() == attn_block.ONE_PASS_MAX
+
+
+@pytest.mark.gpu
+def test_int8_encoder_long_batch_on_the_card(dev):
+    """A [16, 512] batch (ragged, one row wholly padding) through the 24
+    full-width layers of the ``basic`` encoder in int8 (a vocabulary of
+    3,000): on the card every layer launches #2 (its attention step #5's
+    core) and #3 with LN, and each sentence's embedding is within cosine
+    0.999 of the CPU's, which runs the kernels' plain versions."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_text_encoder_params, text_encoder_from_numpy
+    from sonar_tpu_torch.inference_pipelines.text import TorchTextEncoder
+    from sonar_tpu_torch.models.sonar_text import sonar_text_encoder_archs
+
+    basic = sonar_text_encoder_archs.get("basic")
+    cfg = dataclasses.replace(basic, vocab_info=dataclasses.replace(basic.vocab_info, size=3000))
+    params = init_text_encoder_params(cfg, seed=0)
+    rng = np.random.default_rng(1)
+    seqs = rng.integers(4, 3000, (16, 512)).astype(np.int32)
+    lens = rng.integers(257, 511, 16).astype(np.int32)
+    lens[0], lens[-1] = 512, 0
+    for i, n in enumerate(lens):
+        seqs[i, n:] = 1
+    counters = (attn_block, "LAUNCHES"), (flash, "LAUNCHES"), (ffn, "LAUNCHES")
+    outs = {}
+    for device in (dev, "cpu"):
+        enc = TorchTextEncoder(text_encoder_from_numpy(params, cfg, torch.bfloat16, device),
+                               quantize=True, device=device)
+        before = [getattr(m, c) for m, c in counters]
+        outs[str(device)] = enc._encode(seqs, lens).float().cpu()
+        if device == dev:
+            torch.cuda.synchronize()
+            assert [getattr(m, c) - n for (m, c), n in zip(counters, before)] == [24, 24, 24]
+        del enc
+    real = torch.from_numpy(lens > 0)
+    got, want = outs[str(dev)][real], outs["cpu"][real]
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1)
+    assert cos.min().item() >= 0.999
 
 
 @pytest.mark.gpu

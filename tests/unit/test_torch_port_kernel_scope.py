@@ -265,12 +265,12 @@ def _case(name):
     if name == "short_attn":  # #1: S 8..128, fewer tokens than the block gate's
         enc, batch = _text_encoder(), _text_batch(2, 16)
         return [(short_attn, "short_qkv_attention")], lambda: enc.encode_batch(batch), close(1e-4)
-    if name == "block":  # #2 + #3-LN: int8, S 8..128, >= 2048 tokens
+    if name == "block":  # #2 + #3-LN: int8, fused q/k/v, S >= 8, >= 2048 tokens
         enc, batch = _text_encoder(quantize=True), _text_batch(64, 32)
         return ([(attn_block, "fused_attn_block"), (ffn, "fused_int8_ffn_ln")],
                 lambda: enc.encode_batch(batch), cos)
-    if name == "ffn":  # #3 alone: int8, S 256 (past the block gate), 2048 tokens
-        enc, batch = _text_encoder(quantize=True), _text_batch(8, 256)
+    if name == "ffn":  # #3 alone: int8, q/k/v unfused (past the block gate), 2048 tokens
+        enc, batch = _text_encoder(quantize=True, fuse_qkv=False), _text_batch(8, 256)
         return [(ffn, "fused_int8_ffn")], lambda: enc.encode_batch(batch), cos
     if name == "flash":  # #5: S >= 256
         enc, batch = _text_encoder(), _text_batch(2, 256)
@@ -339,7 +339,7 @@ def test_attention_impl_plain_turns_flash_and_relpos_off(monkeypatch):
     flash_calls = _counting(monkeypatch, flash, "flash_attention")
     relpos_calls = _counting(monkeypatch, relpos_flash, "relpos_flash_attention_v2")
     ffn_calls = _counting(monkeypatch, ffn, "fused_int8_ffn")
-    enc, batch = _text_encoder(quantize=True), _text_batch(8, 256)
+    enc, batch = _text_encoder(quantize=True, fuse_qkv=False), _text_batch(8, 256)
     want = enc.encode_batch(batch)
     assert len(flash_calls) == 2 and len(ffn_calls) == 2
     attention.set_attention_impl("plain")
@@ -354,14 +354,37 @@ def test_attention_impl_plain_turns_flash_and_relpos_off(monkeypatch):
     assert relpos_calls == []
 
 
+def test_attention_impl_plain_keeps_the_block_to_its_one_pass_step(monkeypatch):
+    """The default int8 encoder (q/k/v fused) at S 256: under ``"auto"``
+    each of the 2 layers runs #2, whose attention step past S 128 is #5's
+    two-pass core; under ``"plain"`` no #2 and no flash there (as in JAX,
+    whose block gate ends at S 128) but the standalone #3, with the same
+    embeddings. At S 32, where #2's step is its one-pass core, the block
+    still runs under ``"plain"``."""
+    block_calls = _counting(monkeypatch, attn_block, "fused_attn_block")
+    flash_calls = _counting(monkeypatch, flash, "flash_attention")
+    ffn_calls = _counting(monkeypatch, ffn, "fused_int8_ffn")
+    enc, batch = _text_encoder(quantize=True), _text_batch(8, 256)
+    want = enc.encode_batch(batch)
+    assert (len(block_calls), len(flash_calls), len(ffn_calls)) == (2, 0, 0)
+    attention.set_attention_impl("plain")
+    got = enc.encode_batch(batch)
+    assert (len(block_calls), len(flash_calls), len(ffn_calls)) == (2, 0, 2)
+    c = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+    assert c.min() >= 0.999
+    enc.encode_batch(_text_batch(64, 32))
+    assert len(block_calls) == 4
+
+
 def test_ffn_impl_plain_turns_only_the_standalone_ffn_off(monkeypatch):
     ffn_calls = _counting(monkeypatch, ffn, "fused_int8_ffn")
     block_calls = _counting(monkeypatch, attn_block, "fused_attn_block")
     transformer.set_ffn_impl("plain")
-    _text_encoder(quantize=True).encode_batch(_text_batch(8, 256))
+    _text_encoder(quantize=True, fuse_qkv=False).encode_batch(_text_batch(8, 256))
     assert ffn_calls == []
     _text_encoder(quantize=True).encode_batch(_text_batch(64, 32))
-    assert len(block_calls) == 2  # the block kernels are not the setter's
+    _text_encoder(quantize=True).encode_batch(_text_batch(8, 256))
+    assert len(block_calls) == 4  # the block kernels are not the setter's
 
 
 def test_graph_key_follows_the_settings():

@@ -539,12 +539,13 @@ def _gate_case(case):
         x = torch.randn(2, s, 128, generator=gen)
         bias = bias_of([s, s - 13], s)
         return (lambda p: transformer.encoder_layer(p, x, bias, 2, "relu")), params
-    if case in ("fused_attn_block", "fused_int8_ffn"):
-        # int8 layers: the block kernels from 2048 tokens at S <= 128; the
-        # int8 FFN alone past S 128 (where the block gate fails).
-        s = 128 if case == "fused_attn_block" else 160
+    if case in ("fused_attn_block", "fused_attn_block_long", "fused_int8_ffn"):
+        # int8 layers with 2048 tokens or more: the block kernels at S 128
+        # and at S 384 (the attention step in two passes); the int8 FFN
+        # alone at S 4, below the block gate's S 8.
+        s = {"fused_attn_block": 128, "fused_attn_block_long": 384, "fused_int8_ffn": 4}[case]
         params = quantize_params_int8(transformer.fuse_qkv(layer(128, 256), keep_split=False))
-        x = torch.randn(2048 // 128 if s == 128 else 13, s, 128, generator=gen)
+        x = torch.randn(-(-2048 // s), s, 128, generator=gen)
         bias = bias_of([s] * x.shape[0], s)
         return (lambda p: transformer.encoder_layer(p, x, bias, 2, "relu")), params
     # rel-pos v2: a Conformer block at D 128, two heads of 64, S 130.
@@ -565,6 +566,7 @@ GATES = {  # case -> the wrappers its inference forward reaches
     "short_qkv_attention": [(short_attn, "short_qkv_attention")],
     "flash_attention": [(flash, "flash_attention")],
     "fused_attn_block": [(attn_block, "fused_attn_block"), (ffn, "fused_int8_ffn_ln")],
+    "fused_attn_block_long": [(attn_block, "fused_attn_block"), (ffn, "fused_int8_ffn_ln")],
     "fused_int8_ffn": [(ffn, "fused_int8_ffn")],
     "relpos_flash_attention_v2": [(relpos_flash, "relpos_flash_attention_v2")],
 }
@@ -589,7 +591,7 @@ def test_gates_take_the_plain_path_under_autograd(case, monkeypatch):
     for path, t in _flat(trained).items():
         assert t.grad is not None and bool(t.grad.abs().sum() > 0), path
     # The plain version computes the kernel's function.
-    tol = 2e-2 if case in ("fused_attn_block", "fused_int8_ffn") else 1e-5
+    tol = 2e-2 if case.startswith(("fused_attn_block", "fused_int8_ffn")) else 1e-5
     torch.testing.assert_close(got.detach(), want, rtol=0, atol=tol * float(want.abs().max()))
 
 
