@@ -6,6 +6,8 @@ is padded to its wave bucket and to a power-of-two row count, and fbank
 (``ops.fbank``), the w2v-BERT frontend, the Conformer and the pooler all run
 on that device. PyTorch runs eagerly: there is no per-bucket compile, and
 ``warmup`` builds the CUDA kernels and runs each bucket once.
+``TorchSpeechEncoder.stats`` counts the clips and the Conformer positions
+it encodes, true and padded.
 
 ``SpeechToEmbeddingModelPipeline.predict`` keeps the reference semantics
 (wav paths or in-memory [T] / [C, T] 16 kHz arrays; in-memory clips batched
@@ -24,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from fractions import Fraction
 from pathlib import Path
+import threading
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -43,6 +46,7 @@ from sonar_tpu_torch.parallel.mesh import (
     pad_rows,
     shard_params,
 )
+from sonar_tpu_torch.utils.profiling import span
 import torch
 
 # Wave-length buckets (samples at 16 kHz), as in the JAX package: padding is
@@ -72,6 +76,41 @@ def _normalize_fbank_dtype(dt: Any) -> Optional[torch.dtype]:
     if name in ("float32", "float"):
         return torch.float32
     raise ValueError(f"unsupported fbank_dtype: {dt!r}")
+
+
+class SpeechEncodeStats:
+    """Thread-safe counts over every ``encode_waveforms`` call: ``clips``,
+    ``batches``, the clips' Conformer positions ``true_seq`` (the sum of
+    their encoder lengths S_i, fbank frames // stride), ``true_seq_sq``
+    (the sum of S_i^2: attention grows with it) and ``padded_seq`` (rows
+    run on the device x the batch's padded S)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.clips = 0
+        self.batches = 0
+        self.true_seq = 0
+        self.true_seq_sq = 0
+        self.padded_seq = 0
+
+    def add(self, seq_lens: np.ndarray, rows: int, seq: int) -> None:
+        """Count one batch: its clips' encoder lengths, the rows it runs
+        and its padded length."""
+        n = np.asarray(seq_lens, np.int64)
+        with self._lock:
+            self.clips += int(n.size)
+            self.batches += 1
+            self.true_seq += int(n.sum())
+            self.true_seq_sq += int((n * n).sum())
+            self.padded_seq += int(rows) * int(seq)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = {"clips": self.clips, "batches": self.batches, "true_seq": self.true_seq,
+                   "true_seq_sq": self.true_seq_sq, "padded_seq": self.padded_seq}
+        p = out["padded_seq"]
+        out["padding_waste"] = round(1.0 - out["true_seq"] / p, 4) if p else 0.0
+        return out
 
 
 class TorchSpeechEncoder:
@@ -107,6 +146,7 @@ class TorchSpeechEncoder:
             params = quantize_params_int8(params)
         params = shard_params(params, self.mesh)
         self.model = SonarSpeechEncoder(model.config, params, dtype=model.dtype).to(self.device)
+        self.stats = SpeechEncodeStats()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -132,28 +172,45 @@ class TorchSpeechEncoder:
 
     def encode_waveforms(self, waves: List[np.ndarray], materialize: bool = True) -> Any:
         """List of [T] float32 mono waveforms -> [N, model_dim] fp32 numpy;
-        ``materialize=False`` keeps the embeddings on the device."""
+        ``materialize=False`` keeps the embeddings on the device.
+
+        Spans: ``pipeline.batch`` (the host pads the clips into their wave
+        bucket: ``rows``, ``padded_rows`` run on the device, ``samples`` a
+        row), ``runtime.upload``, ``runtime.fbank``, ``runtime.enqueue``
+        (the encoder's launches: ``rows`` run, ``length`` the padded S) and
+        ``runtime.copy_out``."""
         b = len(waves)
-        max_t = _bucket_len(max(w.shape[0] for w in waves))
         mesh = self.mesh
-        b_pad = pad_rows(round_up_pow2(b), mesh)
-        batch = np.zeros((b_pad, max_t), np.float32)
-        lens = np.zeros((b_pad,), np.int32)
-        for i, w in enumerate(waves):
-            batch[i, : w.shape[0]] = w
-            lens[i] = w.shape[0]
+        with span("pipeline.batch", rows=b) as s:
+            max_t = _bucket_len(max(w.shape[0] for w in waves))
+            b_pad = pad_rows(round_up_pow2(b), mesh)
+            batch = np.zeros((b_pad, max_t), np.float32)
+            lens = np.zeros((b_pad,), np.int32)
+            for i, w in enumerate(waves):
+                batch[i, : w.shape[0]] = w
+                lens[i] = w.shape[0]
+            s.set(padded_rows=b_pad, samples=max_t)
+        cfg, stride = self.fbank_config, self.model.config.frontend.fbank_stride
+        max_frames = num_frames(max_t, cfg)
+        seq = max_frames // stride
+        self.stats.add([num_frames(int(n), cfg) // stride for n in lens[:b]], b_pad, seq)
         rows = data_sharding(mesh, b_pad)
-        waves_t = upload(torch.from_numpy(batch[rows]), self.device)
-        lens_t = upload(torch.from_numpy(lens[rows]), self.device)
+        with span("runtime.upload"):
+            waves_t = upload(torch.from_numpy(batch[rows]), self.device)
+            lens_t = upload(torch.from_numpy(lens[rows]), self.device)
         with torch.inference_mode(), matmul_precision_for(self.dtype), \
                 model_parallel(mesh.model_group):
-            feats, frame_lens = batched_fbank(
-                waves_t, lens_t, num_frames(max_t, self.fbank_config), self.fbank_config)
-            if self.fbank_dtype is not None:
-                feats = feats.to(self.fbank_dtype)
-            emb = self.model(feats, frame_lens).sentence_embeddings
-            emb = gather_blocks(emb, mesh.data_group)[:b]
-        return emb.float().cpu().numpy() if materialize else emb
+            with span("runtime.fbank"):
+                feats, frame_lens = batched_fbank(waves_t, lens_t, max_frames, cfg)
+                if self.fbank_dtype is not None:
+                    feats = feats.to(self.fbank_dtype)
+            with span("runtime.enqueue", rows=b_pad, length=seq):
+                emb = self.model(feats, frame_lens).sentence_embeddings
+                emb = gather_blocks(emb, mesh.data_group)[:b]
+        if not materialize:
+            return emb
+        with span("runtime.copy_out", rows=b):
+            return emb.float().cpu().numpy()
 
 
 def _resolve_speech_encoder(encoder: Any, fbank_dtype: Any = None,
@@ -223,31 +280,33 @@ class SpeechToEmbeddingModelPipeline(SpeechModelPipelineInterface):
         progress_bar: bool = False,
     ) -> np.ndarray:
         items = list(input)
-        # In-memory clips are batched length-sorted (each batch pads to its
-        # longest clip's bucket), then returned in input order; paths stay in
-        # arrival order (their durations are unknown before decoding).
-        sorting_index = None
-        if items and all(hasattr(w, "shape") for w in items):
-            sorting_index = np.argsort([int(w.shape[-1]) for w in items], kind="stable")
-            items = [items[i] for i in sorting_index]
-        pipeline = (
-            read_sequence(items)
-            .map(self._decode_audio, num_parallel_calls=n_parallel)
-            .bucket(batch_size)
-            .prefetch(n_prefetched_batches)
-            .map(self.model.encode_waveforms)
-            .and_return()
-        )
-        iterable = pipeline
-        if progress_bar:
-            iterable = add_progress_bar(pipeline, inputs=items, batch_size=batch_size)
-        results = list(iter(iterable))
-        if not results:
-            return np.zeros((0, self.model.model_dim), np.float32)
-        out = np.concatenate(results, axis=0)
-        if sorting_index is not None:
-            out = out[np.argsort(sorting_index, kind="stable")]
-        return out
+        with span("pipeline.predict", clips=len(items)):
+            # In-memory clips are batched length-sorted (each batch pads to
+            # its longest clip's bucket), then returned in input order;
+            # paths stay in arrival order (their durations are unknown
+            # before decoding).
+            sorting_index = None
+            if items and all(hasattr(w, "shape") for w in items):
+                sorting_index = np.argsort([int(w.shape[-1]) for w in items], kind="stable")
+                items = [items[i] for i in sorting_index]
+            pipeline = (
+                read_sequence(items)
+                .map(self._decode_audio, num_parallel_calls=n_parallel)
+                .bucket(batch_size)
+                .prefetch(n_prefetched_batches)
+                .map(self.model.encode_waveforms)
+                .and_return()
+            )
+            iterable = pipeline
+            if progress_bar:
+                iterable = add_progress_bar(pipeline, inputs=items, batch_size=batch_size)
+            results = list(iter(iterable))
+            if not results:
+                return np.zeros((0, self.model.model_dim), np.float32)
+            out = np.concatenate(results, axis=0)
+            if sorting_index is not None:
+                out = out[np.argsort(sorting_index, kind="stable")]
+            return out
 
 
 class SpeechToTextModelPipeline(SpeechModelPipelineInterface):
