@@ -551,28 +551,28 @@ def relpos_bound_ops(b, h, s, dh, d) -> int:
     return 6 * b * h * s * s * dh + 2 * h * (2 * s - 1) * d * dh
 
 
-def relpos_trig_ops(b, h, s, dh, d) -> int:
-    """Operations of the trig-factored form that v2 computes (the TPU
-    kernel's): z = (q + v_bias) Wr_h^T, bd = w . basis_j, ac and P V, each
-    score computed once."""
-    z, bd, ac = 2 * b * h * s * dh * d, 2 * b * h * s * s * d, 2 * b * h * s * s * dh
-    return z + bd + 2 * ac
+def relpos_kernel_ops(b, h, s, dh, d) -> int:
+    """Operations the bf16 v2 kernels compute (``csrc/relpos_flash.cu``):
+    over 64-row blocks in pairs and 128-key tiles, ac and the window
+    product (128 table rows a 64-key half) in each of the two passes, P V
+    once; and the distance table, 2 (2S - 1 + 128) D dh a head."""
+    rows, keys = -(-s // 128) * 128, -(-s // 128) * 128
+    logits = b * h * rows * keys
+    return 2 * (2 * logits * dh + 4 * logits * dh) + 2 * logits * dh + 2 * h * (2 * s + 127) * d * dh
 
 
 def relpos_l2_bytes(b, h, s, dh, d) -> tuple:
-    """Bytes v2 moves through L2 in a bf16 call, from its tiling
+    """Bytes the bf16 v2 kernels move through L2, from their tiling
     (``csrc/relpos_flash.cu``): a cluster of two 64-row blocks of one head
-    fetches every 128-key tile of the basis and K once (pass 1) and of V
-    once (pass 2), multicast to both; each block reads its head's Wr_h, its
-    q rows and its rows of the trig tables; the output is written once.
-    -> (those bytes, the workspace's: each block's fp32 scores written in
-    pass 1 and read back in pass 2)."""
+    fetches every 128-key tile of K in both passes and of V in pass 2 once,
+    multicast to both; each block reads 192 table rows a tile in both
+    passes and its q rows; the output is written once. -> (those bytes,
+    the table's: written once a launch, Wr_h and the trig rows read)."""
     clusters = b * h * -(-s // 128)
-    blocks = 2 * clusters
-    per_cluster = (s * d + 2 * s * dh) * 2
-    per_block = d * dh * 2 + 64 * (dh + d) * 2
-    io = clusters * per_cluster + blocks * per_block + b * h * s * dh * 2
-    return io, blocks * 64 * (-(-s // 128) * 128) * 4 * 2
+    blocks, tiles = 2 * clusters, -(-s // 128)
+    io = (clusters * 3 * s * dh * 2 + blocks * (tiles * 2 * 192 * dh + 64 * dh) * 2
+          + b * h * s * dh * 2)
+    return io, h * (2 * s + 127) * dh * 2 + h * d * dh * 2 + 2 * s * d * 2
 
 
 def log_relpos_work(b, h, s, dh, d, result) -> None:
@@ -581,15 +581,16 @@ def log_relpos_work(b, h, s, dh, d, result) -> None:
     if ms is None:
         return
     bound_ops = relpos_bound_ops(b, h, s, dh, d)
-    trig = relpos_trig_ops(b, h, s, dh, d)
+    ops = relpos_kernel_ops(b, h, s, dh, d)
     peak = PEAK_OPS_S["bf16"]
     parts = [f"bound (rel-shift) {bound_ops / 1e9:.1f} GFLOP, {bound_ops / ms / 1e9 / peak * 1e12:.1%}"
              " of the bf16 peak"]
-    parts.append(f"trig form {trig / 1e9:.1f} GFLOP, {trig / ms / 1e9 / peak * 1e12:.1%}")
-    io, work = relpos_l2_bytes(b, h, s, dh, d)
+    parts.append(f"as computed {ops / 1e9:.1f} GFLOP, {ops / ms / 1e9 / peak * 1e12:.1%}")
+    parts.append(f"{b * h * s * s / ms / 1e9:.3f}e12 logits/s")
+    io, table = relpos_l2_bytes(b, h, s, dh, d)
     log(f"work relpos_flash_attention_v2 [{b},{h},{s},{dh}] at {ms:.4f} ms: " + "; ".join(parts)
-        + f"; L2 traffic of the tiling {io / 1e9:.3f} GB of inputs and output"
-        f" ({io / ms / 1e9:.2f} TB/s) and {work / 1e9:.3f} GB of scores written and read back")
+        + f"; L2 traffic of the tiling {io / 1e9:.3f} GB ({io / ms / 1e9:.2f} TB/s), the table's"
+        f" {table / 1e9:.3f} GB")
 
 
 def check_kernels(torch):
@@ -879,11 +880,15 @@ def check_kernels(torch):
         return q, k, v, wr, si, ci, basis, u, vb, kb.float()
 
     tol = {bf16: (1e-2, 0.9999), f32: (1e-5, 0.999999)}
+    # Timed: S 499 in bf16, then fp32; the speech cell's batches [16, 16, S,
+    # 64] at S 199, 999, 1999; S 1999 at B 8 and S 2499.
     for b, h, s, dh, dt in ((8, 16, 499, 64, bf16), (8, 16, 499, 64, f32), (1, 16, 2048, 64, bf16),
                             (2, 16, 149, 64, bf16), (2, 8, 300, 128, bf16),
+                            (16, 16, 199, 64, bf16), (16, 16, 999, 64, bf16),
+                            (16, 16, 1999, 64, bf16),
                             (8, 16, 1999, 64, bf16), (2, 16, 2499, 64, bf16)):
         args = relpos_args(b, h, s, dh, dt)
-        timed = (b, s) in ((8, 499), (8, 1999), (2, 2499))  # S 499 in bf16, then fp32
+        timed = (b, s) in ((8, 499), (16, 199), (16, 999), (16, 1999), (8, 1999), (2, 2499))
         check("relpos_flash_attention_v2", f"[{b},{h},{s},{dh}] D 1024 {str(dt)[6:]}",
               lambda: relpos_flash.relpos_flash_attention_v2(*args),
               lambda: relpos_flash.relpos_flash_attention_v2_plain(*args),
@@ -903,15 +908,16 @@ def check_kernels(torch):
             if not ok:
                 failures.append("relpos_flash_attention_v2 fp32 slower")
         del args
-    # The bf16 kernel keeps its scores in a workspace between its passes and
+    # The bf16 kernel builds its distance table in a launch of its own and
     # shares tiles across a cluster: calls on the same inputs must give the
-    # same bits, whatever the workspace held before (NaN here).
+    # same bits, whatever the table's memory held before (NaN here).
     for b, h, s, dh in ((1, 16, 2048, 64), (2, 16, 1999, 64), (8, 16, 499, 64)):
         args = relpos_args(b, h, s, dh, bf16)
         outs = []
         for _ in range(RELPOS_REPEATS):
-            # The freed NaN block is what the wrapper's workspace gets next.
-            relpos_flash._workspace(b, h, s, 1024, bf16, dev).fill_(float("nan"))
+            # The freed NaN block is what the wrapper's table gets next.
+            torch.full((h, 2 * s - 1 + relpos_flash.TABLE_PAD, dh), float("nan"), dtype=bf16,
+                       device=dev)
             outs.append(relpos_flash.relpos_flash_attention_v2(*args))
         differ = sum(not torch.equal(o, outs[0]) for o in outs[1:])
         ok = differ == 0 and bool(torch.isfinite(outs[0]).all())

@@ -4,23 +4,23 @@ them again and again to see whether they give the same bits every time.
 Each variant is ``name=old>>new||old>>new...``: text replacements applied to
 a copy of ``sonar_tpu_torch/csrc/`` as ``torch_kernel_variants.py`` applies
 them (its ``build``); every variant is built into a library of its own
-under ``build/variants/<name>/`` and timed at [8, 16, 499, 64] (D 1024) in
-bf16 and fp32, in turns (the variants in order, then in reverse), beside
-its error against the plain version. An
-empty spec (``base=``) is the source as it is. Ablations (a variant that
+under ``build/variants/<name>/`` and timed at ``TIMED`` (D 1024; [8, 16,
+499, 64] in bf16 and fp32, [16, 16, 999, 64] in bf16), in turns (the
+variants in order, then in reverse), beside its error against the plain
+version. An empty spec (``base=``) is the source as it is. Ablations (a variant that
 skips work) give wrong results by design: only their times mean anything.
 
     python3 scripts/torch_relpos_variants.py 'base=' \\
-        'nobd=wgmma_bf16_m64n64k16_ss(acc, wgmma_desc_sw128(w_base>>if (false) wgmma_bf16_m64n64k16_ss(acc, wgmma_desc_sw128(w_base'
+        'nowin=wgmma_bf16_m64n128k16_ss_kmajor(win,>>if (false) wgmma_bf16_m64n128k16_ss_kmajor(win,'
 
 A variant may also be named by itself, without ``=``: one of ``PROBES``,
 the variants kept for the repeat check below.
 
 With ``--repeats N`` each variant is instead called N times on the same
-bf16 inputs at the long shapes of ``REPEAT_SHAPES``, its workspace filled
-with NaN before every call; the script prints how many calls differ from
-the first bit for bit, how many hold a non-finite value, and the largest
-error against the plain version.
+bf16 inputs at the long shapes of ``REPEAT_SHAPES``, the memory its
+distance table gets filled with NaN before every call; the script prints
+how many calls differ from the first bit for bit, how many hold a
+non-finite value, and the largest error against the plain version.
 """
 
 from pathlib import Path
@@ -39,20 +39,6 @@ from sonar_tpu_torch.ops import _build  # noqa: E402
 from sonar_tpu_torch.ops.cuda import relpos_flash  # noqa: E402
 
 
-# Pass 2 reading the next key tile's scores while this one's P V runs.
-_PREFETCH = (
-    r"    for (int j0 = 0; j0 < S; j0 += RT_KT) {\n      float acc[8][4];\n"
-    r"      const float4* ld = tile_at(j0);\n#pragma unroll\n"
-    r"      for (int nt = 0; nt < 8; ++nt) {\n        const float4 x = __ldcg(ld + nt * 32);"
-    ">>"
-    r"    float4 nx[8];\n#pragma unroll\n"
-    r"    for (int nt = 0; nt < 8; ++nt) nx[nt] = __ldcg(tile_at(0) + nt * 32);\n"
-    r"    for (int j0 = 0; j0 < S; j0 += RT_KT) {\n      float acc[8][4];\n      float4 cur[8];\n"
-    r"#pragma unroll\n      for (int nt = 0; nt < 8; ++nt) cur[nt] = nx[nt];\n"
-    r"      if (j0 + RT_KT < S) {\n#pragma unroll\n"
-    r"        for (int nt = 0; nt < 8; ++nt) nx[nt] = __ldcg(tile_at(j0 + RT_KT) + nt * 32);\n"
-    r"      }\n#pragma unroll\n      for (int nt = 0; nt < 8; ++nt) {\n        const float4 x = cur[nt];"
-)
 # Pass 2 freeing its V slots with a cluster-scope release.
 _CLUSTER_RELEASE = (
     r"        release(s);\n      }\n    }\n\n    // -- the two key halves"
@@ -66,9 +52,8 @@ _CLUSTER_RELEASE = (
 # Clusters of one block: every tile loaded whole by the block that reads it.
 _NO_CLUSTER = "constexpr int RT_C = 2;>>constexpr int RT_C = 1;"
 PROBES = {
-    "prefetch": _PREFETCH,
-    "prefetch_cluster_release": _PREFETCH + "||" + _CLUSTER_RELEASE,
-    "prefetch_no_cluster": _PREFETCH + "||" + _NO_CLUSTER,
+    "cluster_release": _CLUSTER_RELEASE,
+    "no_cluster": _NO_CLUSTER,
 }
 
 
@@ -91,6 +76,9 @@ def inputs(b, h, s, dh, dtype, d=1024, seed=0):
     return q, k, v, wr, si, ci, basis, u, vb, kb.float()
 
 
+# Timed: S 499 in bf16 and fp32, and a batch of the speech cell in bf16.
+TIMED = ((8, 16, 499, 64, torch.bfloat16), (16, 16, 999, 64, torch.bfloat16),
+         (8, 16, 499, 64, torch.float32))
 REPEAT_SHAPES = ((1, 16, 2048, 64), (2, 16, 1999, 64), (8, 16, 1999, 64), (8, 16, 499, 64),
                  (1, 8, 2048, 128))
 
@@ -103,8 +91,9 @@ def repeats(libs, n: int) -> None:
             _build._lib = lib
             first, differ, nonfinite, err = None, 0, 0, 0.0
             for _ in range(n):
-                # The freed NaN block is what the wrapper's workspace gets next.
-                relpos_flash._workspace(b, h, s, 1024, torch.bfloat16, "cuda").fill_(float("nan"))
+                # The freed NaN block is what the wrapper's table gets next.
+                torch.full((h, 2 * s - 1 + relpos_flash.TABLE_PAD, dh), float("nan"),
+                           dtype=torch.bfloat16, device="cuda")
                 got = relpos_flash.relpos_flash_attention_v2(*args)
                 nonfinite += not bool(torch.isfinite(got).all())
                 if first is None:
@@ -130,15 +119,17 @@ def main(argv) -> None:
     if n_repeats:
         repeats(libs, n_repeats)
         return
-    for dtype in (torch.bfloat16, torch.float32):
-        args = inputs(8, 16, 499, 64, dtype)
+    for b, h, s, dh, dtype in TIMED:
+        args = inputs(b, h, s, dh, dtype)
         want = relpos_flash.relpos_flash_attention_v2_plain(*args).double()
         for name, lib in libs + libs[::-1]:
             _build._lib = lib
             got = relpos_flash.relpos_flash_attention_v2(*args).double()
             err = (got - want).abs().max().item()
             ms = timed(lambda: relpos_flash.relpos_flash_attention_v2(*args))
-            print(f"[8,16,499,64] {dtype} {name}: {ms:.4f} ms, max abs error {err:.2e}", flush=True)
+            print(f"[{b},{h},{s},{dh}] {dtype} {name}: {ms:.4f} ms, max abs error {err:.2e}",
+                  flush=True)
+        del args, want
 
 
 if __name__ == "__main__":

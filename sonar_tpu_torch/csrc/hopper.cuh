@@ -151,6 +151,17 @@ __device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// A box of a 4-D map written at `dst` in this block alone, completed on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -210,12 +221,10 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, u
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, bf16 x bf16 -> fp32, B K-major in
-// shared memory (128-byte swizzle). d[i][e] as an mma.sync m16n8 tile i of
-// the thread's warp: warp w of the warpgroup holds rows 16 w .. 16 w + 15.
-// SS: A K-major in shared memory too; RS: A from registers, laid out as
-// mma.sync's m16n8k16 A fragment of the warp's 16 rows. scale_d 0
-// overwrites D.
+// D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, bf16 x bf16 -> fp32, both
+// operands K-major in shared memory (128-byte swizzle). d[i][e] as an
+// mma.sync m16n8 tile i of the thread's warp: warp w of the warpgroup holds
+// rows 16 w .. 16 w + 15. scale_d 0 overwrites D.
 __device__ __forceinline__ void wgmma_bf16_m64n64k16_ss(float (&d)[8][4], uint64_t da,
                                                        uint64_t db, int scale_d) {
   asm volatile(
@@ -232,20 +241,29 @@ __device__ __forceinline__ void wgmma_bf16_m64n64k16_ss(float (&d)[8][4], uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_bf16_m64n64k16_rs(float (&d)[8][4], const uint32_t (&a)[4],
-                                                       uint64_t db, int scale_d) {
+// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T, bf16 x bf16 -> fp32, both
+// operands K-major in shared memory (wgmma_desc_sw128). d[i][e] as an
+// mma.sync m16n8 tile i of the thread's warp, as in the m64n64 products.
+__device__ __forceinline__ void wgmma_bf16_m64n128k16_ss_kmajor(float (&d)[16][4], uint64_t da,
+                                                               uint64_t db, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       :
         "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
         "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // Descriptor of an MN-major operand tile (N contiguous, a row-major [K, N]

@@ -3,46 +3,72 @@
 // Replaces the TPU kernels of sonar_tpu/ops/pallas/relpos_flash.py:
 //   sonar_relpos_flash_v2 <- relpos_flash_attention_v2 (_kernel_v2), the
 //     Conformer's path: the positional term bd is built inside the kernel
-//     from the trig-factored form, z = (q + v_bias) Wr_h^T, an i-rotation
-//     into w, and bd = w . basis_j;
+//     (the TPU kernel from the trig-factored form: z = (q + v_bias) Wr_h^T,
+//     an i-rotation into w, and bd = w . basis_j);
 //   sonar_relpos_flash_v1 <- relpos_flash_attention (_kernel): the same
 //     attention tail with bd read from a precomputed [B, H, S, S] tensor.
 // score_j = (ac_j + bd_j) * scale + key_bias_j, fp32 softmax with a true
-// division, P rounded to the value dtype, P V accumulated in fp32. The
-// rounding points are the TPU kernels': v2 rounds q + u, q + v_bias and w to
-// the model dtype, v1 keeps q + u in fp32.
+// division, P rounded to the value dtype, P V accumulated in fp32. v2 rounds
+// q + u and q + v_bias to the model dtype, v1 keeps q + u in fp32.
 //
-// What bounds it on the H100: the work is the bd product, B*H*S^2*D*2 flops
-// (65 GFLOP per layer at [8, 16, 499, 64], D 1024, against 4 for QK^T), and
-// the TPU kernel kept the whole [S, D] basis (4 MB in bf16 at S 2048) and a
-// (batch, head)'s K/V in VMEM, far past a block's 227 KB of shared memory.
-//
-// v2 in bf16, the Conformer's path (relpos_v2_rt_kernel): a block takes 64
-// query rows of one (batch, head), so that every basis tile it reads serves
-// 64 rows (16 rows a block, reading the basis from L2 straight into mma
-// fragments, moved ~5 GB through L2 a call at the speech shape). w [64, D]
-// (128 KB in bf16) stays in shared memory in the swizzled layout wgmma reads;
-// 64 fp32 score rows (512 KB at S 2048) do not fit beside it, so the scores
-// go to a workspace in device memory (32 KB a block per 128 keys, read back
-// by the thread that wrote it, mostly from L2). Pass 1 computes each score
-// once, stores it and keeps each row's running max and sum of exponentials;
-// pass 2 reads the scores back, forms P = exp(s - max) / sum, rounded to
-// bf16 in registers before P V, where the TPU kernel rounds it. The basis, K
-// and V stream through a ring of 16 KB slots that a producer warp fills by
-// TMA (mbarriers: full when a tile landed, empty when both blocks of a
-// cluster released it); the two blocks of a cluster load half of each tile
-// each, multicast into both. bd and ac run on wgmma (m64n64k16: w and the
-// tiles from shared memory, q + u from registers) into two accumulators,
-// added once as the TPU kernel adds them; z and P V on mma.sync, V through
-// ldmatrix.trans. What bounds it now: shared-memory bandwidth (each tile is
-// written by TMA and read by both warpgroups' wgmma, with w's rows: 48 KB
-// for 1 MFLOP).
-// One departure from the TPU kernel's rounding points: the row sum of
-// exp(s - max) is an online sum (each 128-key tile's share, rescaled when
-// the row's running max grows, then the two key halves' shares combined)
-// where the TPU kernel sums the whole row under its final max. The max,
-// each exponential and the division are the TPU kernel's; the sum may
-// differ from it in its last bits.
+// v2 in bf16, the Conformer's path: two launches, both named with the prefix
+// relpos_v2_rt_kernel. bd is computed in the rel-shift form, bd[i, j] =
+// (q_i + v_bias) . P[i - j], on the projected distance table P[m] = T[m] Wr_h
+// (T[m] the model's sinusoid of distance m in Wr_h's de-interleaved column
+// order), where the trig form costs 2 D flops a logit (16 times QK^T's at
+// D 1024, Dh 64) and the TPU kernel's workspace.
+//   - relpos_v2_rt_kernel_table: P [H, 2S - 1 (+ 128 zero rows before),
+//     Dh] for the distances -(S - 1) .. S - 1, built from the si / ci tables
+//     (reflected for m < 0: sin is odd, cos even), on mma.sync with fp32
+//     accumulators, stored in bf16 (8 MB at S 2000, H 16, Dh 64: it stays in
+//     L2). 2 (2S + 127) D Dh H flops a launch: against the attention's, 9%
+//     at [16, 16, 199, 64], 1% at S 1999.
+//   - relpos_v2_rt_kernel: a block takes 64 query rows of one (batch, head);
+//     per 128-key tile each warpgroup takes 64 keys: ac = (q + u) . K^T and
+//     the window product (q + v) . P_win^T over the 127 distances its 64 x
+//     64 block spans (128 table rows, m = q0 - j0 - 63 + w), both on wgmma
+//     into fp32 (A operands from shared memory); each warp writes the window
+//     columns its 16 rows reach to shared memory and reads bd[r, c] =
+//     win[r, r - c + 63] back along the skew. Two passes over the keys, as
+//     attention.cuh's tc_attn_two_pass: pass 1 keeps each row's max and sum
+//     of exponentials, pass 2 computes the scores again and forms P =
+//     exp(s - max) / sum with the true division, rounded to bf16 in
+//     registers, then P V on mma.sync. Scores never leave the chip: no
+//     workspace. K and V tiles (128 keys x 64 columns) and the table's 192
+//     rows of a tile (64 columns) come by TMA into a ring of 24 KB slots
+//     filled by a producer warpgroup (registers handed to the consumers by
+//     setmaxnreg); the two blocks of a cluster (consecutive row blocks of
+//     one head) load half of each K and V tile each, multicast into both,
+//     and each loads its own table rows. The next tile's products are
+//     issued before this tile's softmax work. The grid is persistent (as
+//     many clusters as the card holds, each walking its share of the (batch,
+//     head, row pair) units), so a unit's loads start while the unit before
+//     ends. Keys past S carry -inf; table rows past its ends are TMA's zero
+//     fill and the zero rows before it, so every index stays in the table.
+//   What bounds it (measured, PERF.md §6): not the tensor work (7 products
+//   of 64 x 64 x Dh a 64 x 64 block of logits: ac 2, the window 4 over the
+//   two passes, P V 1, against the rel-shift algorithm's 3) nor one part of
+//   the softmax work: taken away one at a time, the window product, the
+//   skew, either pass's exponentials or the division each save 5-18%; the
+//   consumer warps (two a scheduler) wait in turn on each step's latency.
+//   The shared-memory base is aligned by an offset from the shared array:
+//   aligned through an integer, the compiler lost the address space and the
+//   skew's loads and stores became generic ones (10% slower).
+//   Rounding: q + u, q + v_bias, P (the softmax's) and the output are
+//   rounded to bf16 where the TPU kernel rounds them; the TPU kernel's
+//   rounding of w [S, D] to bf16 is replaced by the rounding of the
+//   projected table P to bf16. In PyTorch on the CPU (``relpos_bd_shift_
+//   plain`` against the trig form's plain version, random inputs at [3, 2,
+//   130 | 257 | 499, 64 | 128] with a fully masked row): min row cosine
+//   0.999980, max-abs 0.0039-0.0056 of the output's scale; against fp64,
+//   cosine 0.999975-0.999984 where the trig form reads 0.999980-0.999986;
+//   bd's largest error over its scale 0.0028-0.0032, the trig form's
+//   0.0031-0.0033. On the card, the kernel against the trig form's plain
+//   version at [16, 16, 199 | 999 | 1999, 64], D 1024: min row cosine
+//   0.99996. The row sum of exp(s - max) is an online sum (each tile's
+//   share, rescaled when the row's running max grows, the two key halves'
+//   shares combined) where the TPU kernel sums the whole row under its
+//   final max: it may differ in its last bits.
 //
 // v2 in fp32 has no tensor-core path that keeps fp32: three launches,
 // relpos_w_kernel (w [S, D] per head into the workspace), sgemm_nt_kernel
@@ -106,15 +132,16 @@ struct RelposArgs {
   const void* wr;     // v2: [H, D, Dh], r_proj per head, input columns de-interleaved
   const void* si;     // v2: [S, D/2] sin(i w)
   const void* ci;     // v2: [S, D/2] cos(i w)
-  const void* basis;  // v2: [S, D] = [cos(j w) | sin(j w)]
+  const void* basis;  // v2 in fp32: [S, D] = [cos(j w) | sin(j w)]
   const void* bd;     // v1: [B, H, S, S]
   const void* u;      // [H, Dh] u_bias
   const void* vb;     // v2: [H, Dh] v_bias
   const float* key_bias;  // [B, S] additive, or null
   void* out;          // [B, H, S, Dh] contiguous
-  float* work;        // v2: the workspace of one launch (bf16: scores; fp32: w, then bd)
-  int H, S, D;
-  int b0;             // the launch's first batch row: blockIdx.z + b0 is the batch
+  float* work;        // v2 in fp32: the workspace of one launch (w, then bd)
+  void* table;        // v2 in bf16: the distance table [H, rt_table_rows(S), Dh]
+  int B, H, S, D;     // B: v2 in bf16, the batch
+  int b0;             // fp32 v2: the launch's first batch row: blockIdx.z + b0 is the batch
   float scale;
 };
 
@@ -124,16 +151,6 @@ __host__ __device__ inline int rp_score_ld(int S) {
 
 static size_t rp_smem_bytes(int S, int Dh) {
   return sizeof(float) * RP_BQ * ((size_t)rp_score_ld(S) + Dh + RP_QPAD);  // scores, q + u
-}
-
-// One 32-wide k chunk as two m16n8k16 products. Thread (g = lane / 4,
-// t = lane % 4) holds the 8 consecutive values at k offset 8t of A's rows g
-// (lo) and g + 8 (hi) and of B's column g: k step s uses the values
-// 4s .. 4s + 3 of each, so logical k {2t, 2t + 1, 2t + 8, 2t + 9} of step s
-// is physical k 8t + 4s + {0, 1, 2, 3}, the same permutation in A and B.
-__device__ __forceinline__ void mma_k32(float (&c)[4], uint4 lo, uint4 hi, uint4 b) {
-  mma_bf16(c, lo.x, hi.x, lo.y, hi.y, b.x, b.y);
-  mma_bf16(c, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
 }
 
 __device__ __forceinline__ uint4 ldg16(const bf16* p) {
@@ -683,22 +700,133 @@ __global__ void __launch_bounds__(SG_THREADS) sgemm_nt_kernel(const float* A, co
   }
 }
 
-// -- v2 in bf16: the tensor-core kernel ---------------------------------------------
+// -- v2 in bf16: the distance table, then the tensor-core kernel --------------------
+
+constexpr int RT_PAD = 128;   // zero rows before the table's first distance, -(S - 1)
+constexpr int TB_ROWS = 64;   // table rows of a block of relpos_v2_rt_kernel_table
+constexpr int TB_PITCH = 72;  // bf16 of a staged table row (64 values): 144 bytes
+
+// Rows of the distance table [H, rows, Dh]: RT_PAD rows of zeros, then the
+// distances -(S - 1) .. S - 1 in order.
+__host__ __device__ inline int rt_table_rows(int S) { return 2 * S - 1 + RT_PAD; }
+
+// P[h, p, :] = T[m] Wr_h for the distance m = p - RT_PAD - (S - 1), with
+// T[m] = [sin(m w) | cos(m w)] (the de-interleaved column order of Wr_h)
+// built from the i-rotation tables: si and ci at |m|, the sines negated for
+// m < 0; rows of no distance are zeros. One block of 4 warps takes 64 rows of
+// one head, warp w rows 16 w .. 16 w + 15: per 64 columns of D it stages T's
+// and Wr_h's rows in shared memory (the next 64 loaded into registers
+// meanwhile) and multiplies on mma.sync, fp32 accumulators, rounded to bf16
+// once at the end.
+template <int DH>
+__global__ void __launch_bounds__(128) relpos_v2_rt_kernel_table(RelposArgs a) {
+  constexpr int BP = DH + 8;        // bf16 of a staged Wr_h row: 144 or 272 bytes
+  constexpr int NB = DH / 16;       // 16-byte chunks of Wr_h a thread stages
+  __shared__ __align__(16) bf16 As[TB_ROWS * TB_PITCH];  // T: [row][64 columns of D]
+  __shared__ __align__(16) bf16 Bs[64 * BP];             // Wr_h: [64 columns of D][DH]
+  const int S = a.S, D = a.D, half = D / 2, rows = rt_table_rows(S);
+  const int p0 = blockIdx.x * TB_ROWS, h = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const bf16* si = reinterpret_cast<const bf16*>(a.si);
+  const bf16* ci = reinterpret_cast<const bf16*>(a.ci);
+  const bf16* wr = reinterpret_cast<const bf16*>(a.wr) + (long long)h * D * DH;
+
+  uint4 ra[4], rb[NB];  // this thread's chunks of the next 64 columns
+  auto load = [&](int d0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // T: 64 rows x 8 chunks
+      const int e = tid + 128 * i, row = e >> 3, d = d0 + 8 * (e & 7);
+      const int m = p0 + row - RT_PAD - (S - 1), am = m < 0 ? -m : m;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (am < S) {
+        if (d < half) {
+          x = ldg16(si + (long long)am * half + d);
+          if (m < 0) {  // sin(-x) = -sin(x): the sign bits, exactly
+            x.x ^= 0x80008000u; x.y ^= 0x80008000u; x.z ^= 0x80008000u; x.w ^= 0x80008000u;
+          }
+        } else {
+          x = ldg16(ci + (long long)am * half + d - half);
+        }
+      }
+      ra[i] = x;
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {  // Wr_h: 64 rows x DH / 8 chunks
+      const int e = tid + 128 * i, row = e / (DH / 8), ch = e % (DH / 8);
+      rb[i] = ldg16(wr + (long long)(d0 + row) * DH + 8 * ch);
+    }
+  };
+
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  // ldmatrix rows: lanes 0-7 rows 0-7, 8-15 rows 8-15 (A: of the warp's rows;
+  // B: along k), 16-31 the same at 8 columns further.
+  const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
+  load(0);
+  for (int d0 = 0; d0 < D; d0 += 64) {
+    __syncthreads();  // every warp is done with the last chunk
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + 128 * i;
+      *reinterpret_cast<uint4*>(As + (e >> 3) * TB_PITCH + 8 * (e & 7)) = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int e = tid + 128 * i;
+      *reinterpret_cast<uint4*>(Bs + (e / (DH / 8)) * BP + 8 * (e % (DH / 8))) = rb[i];
+    }
+    __syncthreads();
+    if (d0 + 64 < D) load(d0 + 64);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t af[4];
+      ldmatrix_x4(af, As + (16 * warp + lr) * TB_PITCH + 16 * kk + lc);
+#pragma unroll
+      for (int n = 0; n < DH / 16; ++n) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, Bs + (16 * kk + lr) * BP + 16 * n + lc);
+        mma_bf16(acc[2 * n], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+        mma_bf16(acc[2 * n + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+      }
+    }
+  }
+  bf16* out = reinterpret_cast<bf16*>(a.table) + (long long)h * rows * DH;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int p = p0 + 16 * warp + g + 8 * rr;
+    if (p < rows) {
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt)
+        *reinterpret_cast<uint32_t*>(out + (long long)p * DH + 8 * nt + 2 * t4) =
+            bf16x2_bits(acc[nt][2 * rr], acc[nt][2 * rr + 1]);
+    }
+  }
+}
 
 constexpr int RT_BQ = 64;                 // query rows of a block: 4 row groups of 16
 constexpr int RT_C = 2;                   // blocks of a cluster: consecutive row blocks of a head
 constexpr int RT_KT = 128;                // keys of a tile
-constexpr int RT_ITEM = RT_KT * 128;      // one ring slot: 128 keys x 128 bytes (64 bf16)
-constexpr int RT_SLICE = RT_ITEM / RT_C;  // the part of a slot each block of the cluster loads
-constexpr int RT_ST = 4;                  // ring slots
-constexpr int RT_THREADS = RP_THREADS + 32;  // 8 consumer warps + the producer warp
+constexpr int RT_KV = RT_KT * 128;        // a K or V item: 128 keys x 128 bytes (64 bf16)
+constexpr int RT_SLICE = RT_KV / RT_C;    // the part of a K or V item each block of the cluster loads
+constexpr int RT_SLOT = (RT_KT + RT_BQ) * 128;  // a ring slot: a table item, 192 distances x 128 bytes
+constexpr int RT_TBOX = 64;               // rows of a table item's TMA box
+constexpr int RT_WLD = 88;                // floats of a staged window row (80 used)
+constexpr int RT_THREADS = RP_THREADS + 128;  // 8 consumer warps + the producer's warpgroup
+constexpr int RT_PRODUCER_REGS = 40;      // registers a thread: the producer's warpgroup
+constexpr int RT_CONSUMER_REGS = 232;     // and the consumers' (2 x 128 x 232 + 128 x 40 <= 64 K)
 
-__host__ __device__ inline int rt_keys(int S) { return (S + RT_KT - 1) / RT_KT * RT_KT; }
+// Ring slots: the consumers hold the next tile's table and K items (2 DH /
+// 64) while they take this tile's V items one by one, and a V item's slot
+// must be one that an earlier tile freed (at Dh 128 five slots deadlock).
+constexpr int RT_ST = 6;
 
-static size_t rt_smem(int S, int D) {
-  return (size_t)RT_ST * RT_ITEM + sizeof(bf16) * RT_BQ * (size_t)D +
-         sizeof(float2) * 2 * RT_BQ + sizeof(float) * rt_keys(S) + 2 * RT_ST * sizeof(uint64_t) +
-         1024;
+static size_t rt_smem(int DH) {
+  return (size_t)RT_ST * RT_SLOT + 2 * sizeof(bf16) * RT_BQ * (size_t)DH +
+         sizeof(float) * RP_WARPS * 16 * RT_WLD + sizeof(float2) * 2 * RT_BQ +
+         2 * RT_ST * sizeof(uint64_t) + 1024;
 }
 
 // Row `row` (0..127), 16-byte chunk `chunk` (0..7) of a ring slot, where
@@ -707,16 +835,41 @@ __device__ __forceinline__ const void* rt_at(const unsigned char* slot, int row,
   return slot + row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
-// Element (row, col) of w [64, D] in shared memory, laid out for wgmma's A
-// operand as TMA lays out a K-major tile: column blocks of 64 (64 rows x
-// 128 bytes, 8 KB apart), the 16-byte chunks of a row swizzled by row % 8.
-__device__ __forceinline__ bf16* rt_w_at(bf16* Ws, int row, int col) {
-  return Ws + (col >> 6) * (RT_BQ * 64) + row * 64 + ((((col >> 3) & 7) ^ (row & 7)) << 3) +
+// Element (row, col) of a [64, n] bf16 tile in shared memory, laid out for
+// wgmma's A operand as TMA lays out a K-major tile: column blocks of 64 (64
+// rows x 128 bytes, 8 KB apart), the 16-byte chunks of a row swizzled by
+// row % 8.
+__device__ __forceinline__ bf16* rt_a_at(bf16* A, int row, int col) {
+  return A + (col >> 6) * (RT_BQ * 64) + row * 64 + ((((col >> 3) & 7) ^ (row & 7)) << 3) +
          (col & 7);
+}
+
+// Eight bf16 values plus eight, each sum in fp32 rounded to bf16.
+__device__ __forceinline__ uint4 rt_add8(uint4 x, uint4 y) {
+  const uint32_t* a = reinterpret_cast<const uint32_t*>(&x);
+  const uint32_t* b = reinterpret_cast<const uint32_t*>(&y);
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 u = *reinterpret_cast<const __nv_bfloat162*>(a + i);
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(b + i);
+    r[i] = bf16x2_bits(__fadd_rn(to_float(u.x), to_float(v.x)),
+                       __fadd_rn(to_float(u.y), to_float(v.y)));
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
 }
 
 __device__ __forceinline__ void consumer_sync() {  // the 8 consumer warps only
   asm volatile("bar.sync 1, %0;\n" :: "n"(RP_THREADS) : "memory");
+}
+
+// The registers a thread of this warpgroup may hold, lowered or raised
+// (every warp of the warpgroup executes it).
+template <int N> __device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N> __device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // exp(m - n) for a running maximum m that may still be -inf.
@@ -724,35 +877,51 @@ __device__ __forceinline__ float rescale(float m, float n) {
   return m == -INFINITY ? 0.f : expf(m - n);
 }
 
-// One block of 8 consumer warps and a producer warp per (batch, head, 64
-// query rows); warp (rg, kh) takes rows 16 rg .. 16 rg + 15 and keys
-// 64 kh .. 64 kh + 63 of every 128-key tile. Pass 1 computes the scores,
-// stores them in the workspace (a.work, 32 KB a block per 128 keys) and
-// keeps each row's max and sum of exponentials; pass 2 reads them back,
-// forms P = exp(s - max) / sum rounded to bf16 in registers (the A fragments
-// of P V) and multiplies V. The basis, K and V stream through a ring of 16 KB slots (128 keys x 64
-// columns, TMA with the 128-byte swizzle, read with ldmatrix); each block of
-// a cluster loads its share of a tile, multicast into both blocks' slots. A
-// slot is refilled when all 16 consumer warps of the cluster released it.
+// A persistent grid of clusters, as many as the card holds at once; cluster
+// c takes the work units c, c + clusters, ...: a unit is two consecutive
+// 64-row blocks of one (batch, head), one to each block of the cluster
+// (block `rank` takes query rows q0 = 64 (2 pair + rank) ..). In a block 8
+// consumer warps and a producer warpgroup (one thread of which loads); warp
+// (rg, kh) takes rows 16 rg .. 16 rg + 15 and keys 64 kh .. 64 kh + 63 of
+// every 128-key tile j0. Each pass over the keys computes the scores of a
+// tile: ac = (q + u) . k_j, and the window product of (q + v_bias) with the
+// 127 table rows its warpgroup's keys reach, whose skew gives bd; the next
+// tile's products are issued (wgmma is asynchronous) before this tile's
+// softmax work. Pass 1 keeps each row's max and sum of exponentials; pass 2
+// computes the scores again, forms P = exp(s - max) / sum rounded to bf16 in
+// registers (the A fragments of P V) and multiplies V. Tiles stream through
+// a ring of 24 KB slots (TMA, 128-byte swizzle), from one unit into the
+// next: K and V (128 keys x 64 columns) loaded half by each block of the
+// cluster and multicast into both; the table's 192 rows m = q0 - j0 - 127
+// .. q0 - j0 + 64 (64 columns), which differ between the blocks, loaded by
+// each block alone. A slot is refilled when all 16 consumer warps of the
+// cluster released it.
 template <int DH>
 __global__ void __cluster_dims__(RT_C, 1, 1) __launch_bounds__(RT_THREADS, 1)
-    relpos_v2_rt_kernel(const __grid_constant__ CUtensorMap map_basis,
+    relpos_v2_rt_kernel(const __grid_constant__ CUtensorMap map_table,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v, RelposArgs a) {
+  constexpr int ST = RT_ST, CB = DH / 64;  // CB: 64-column items of a tile
   extern __shared__ unsigned char rt_raw[];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(rt_raw) + 1023) & ~(uintptr_t)1023);
-  const int S = a.S, D = a.D, half = D / 2;
-  bf16* Ws = reinterpret_cast<bf16*>(ring + RT_ST * RT_ITEM);  // w, [64, D] (rt_w_at)
-  float2* stats = reinterpret_cast<float2*>(Ws + RT_BQ * D);   // [2 key halves][64] (max, sum)
-  float* kbs = reinterpret_cast<float*>(stats + 2 * RT_BQ);      // key bias; -inf past S
-  uint64_t* full = reinterpret_cast<uint64_t*>(kbs + rt_keys(S));
-  uint64_t* empty = full + RT_ST;
+  // 1024-byte aligned for the swizzled tiles; an offset from the shared
+  // array (not an integer round trip), so every pointer below is known to
+  // be shared memory and compiles to shared loads and stores.
+  unsigned char* ring = rt_raw + ((1024 - (smem_u32(rt_raw) & 1023)) & 1023);
+  const int S = a.S;
+  bf16* Qv = reinterpret_cast<bf16*>(ring + ST * RT_SLOT);  // q + v_bias [64, DH] (rt_a_at)
+  bf16* Qu = Qv + RT_BQ * DH;                                // q + u [64, DH]
+  // [8 warps][16][RT_WLD]: the staged windows; at a unit's end the second
+  // key half's output partials [64][DH]
+  float* windows = reinterpret_cast<float*>(Qu + RT_BQ * DH);
+  float2* stats = reinterpret_cast<float2*>(windows + RP_WARPS * 16 * RT_WLD);  // [2][64] (max, sum)
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * RT_BQ);
+  uint64_t* empty = full + ST;
 
-  const int q0 = blockIdx.x * RT_BQ, h = blockIdx.y, b = blockIdx.z + a.b0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)cluster_rank(), clusters = gridDim.x / RT_C;
+  const int pairs = (S + RT_C * RT_BQ - 1) / (RT_C * RT_BQ), units = a.B * a.H * pairs;
   if (tid == 0) {
-    for (int s = 0; s < RT_ST; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, RP_WARPS * RT_C);
     }
@@ -760,321 +929,308 @@ __global__ void __cluster_dims__(RT_C, 1, 1) __launch_bounds__(RT_THREADS, 1)
   }
   cluster_sync();  // every block's barriers are set before any multicast lands
 
-  if (warp == RP_WARPS) {
-    // The producer: the tiles in the order the consumers take them. Pass 1,
-    // per 128 keys: D / 64 basis tiles and DH / 64 K tiles; pass 2: DH / 64
-    // V tiles. Keys past S are TMA's zero fill.
-    if (lane == 0) {
-      const int rank = (int)cluster_rank();
+  if (warp >= RP_WARPS) {
+    regs_dec<RT_PRODUCER_REGS>();
+    // The producer: the tiles in the order the consumers take them. A unit's
+    // pass 1, per 128 keys: CB table items, CB K items. Pass 2: tile 0's
+    // table and K items, then per tile the next tile's table and K items and
+    // this tile's V items. Rows past the table and keys past S are TMA's
+    // zero fill.
+    if (warp == RP_WARPS && lane == 0) {
       int item = 0;
-      auto issue = [&](const CUtensorMap* map, int col, int key0, int c2, int c3) {
-        const int s = item % RT_ST;
-        if (item >= RT_ST) mbar_wait(empty + s, (item / RT_ST - 1) & 1);
-        mbar_expect_tx(full + s, RT_ITEM);
-        tma_load_4d_multicast(ring + s * RT_ITEM + rank * RT_SLICE, map, full + s, col,
-                              key0 + rank * (RT_KT / RT_C), c2, c3, (1 << RT_C) - 1);
+      auto slot_of = [&](uint32_t bytes) {  // the next slot, free, expecting `bytes`
+        const int s = item % ST;
+        if (item >= ST) mbar_wait(empty + s, (item / ST - 1) & 1);
+        mbar_expect_tx(full + s, bytes);
         ++item;
+        return s;
       };
-      for (int j0 = 0; j0 < S; j0 += RT_KT) {
-        for (int c = 0; c < D; c += 64) issue(&map_basis, c, j0, 0, 0);
-        for (int e = 0; e < DH; e += 64) issue(&map_k, e, j0, h, b);
+      for (int u = blockIdx.x / RT_C; u < units; u += clusters) {
+        const int pair = u % pairs, h = (u / pairs) % a.H, b = u / (pairs * a.H);
+        const int q0 = (RT_C * pair + rank) * RT_BQ;
+        auto table_tile = [&](int j0) {  // m = q0 - j0 - 127 ..
+          const int row0 = q0 - j0 - (RT_KT - 1) + (S - 1) + RT_PAD;
+          for (int c = 0; c < DH; c += 64) {
+            const int s = slot_of(RT_SLOT);
+            for (int r = 0; r < RT_KT + RT_BQ; r += RT_TBOX)
+              tma_load_4d(ring + s * RT_SLOT + r * 128, &map_table, full + s, c, row0 + r, h, 0);
+          }
+        };
+        auto keys_tile = [&](const CUtensorMap* map, int j0) {
+          for (int e = 0; e < DH; e += 64) {
+            const int s = slot_of(RT_KV);
+            tma_load_4d_multicast(ring + s * RT_SLOT + rank * RT_SLICE, map, full + s, e,
+                                  j0 + rank * (RT_KT / RT_C), h, b, (1 << RT_C) - 1);
+          }
+        };
+        for (int j0 = 0; j0 < S; j0 += RT_KT) {
+          table_tile(j0);
+          keys_tile(&map_k, j0);
+        }
+        table_tile(0);
+        keys_tile(&map_k, 0);
+        for (int j0 = 0; j0 < S; j0 += RT_KT) {
+          if (j0 + RT_KT < S) {
+            table_tile(j0 + RT_KT);
+            keys_tile(&map_k, j0 + RT_KT);
+          }
+          keys_tile(&map_v, j0);
+        }
       }
-      for (int j0 = 0; j0 < S; j0 += RT_KT)
-        for (int e = 0; e < DH; e += 64) issue(&map_v, e, j0, h, b);
     }
   } else {
+    regs_inc<RT_CONSUMER_REGS>();
     const int g = lane >> 2, t4 = lane & 3, mat = lane >> 3;
     const int rg = warp & 3, kh = warp >> 2;
-    const int r_lo = q0 + 16 * rg + g, r_hi = r_lo + 8;  // this thread's query rows
-    const bf16* qb = reinterpret_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const bf16* ub = reinterpret_cast<const bf16*>(a.u) + h * DH;
-    const bf16* vbb = reinterpret_cast<const bf16*>(a.vb) + h * DH;
-    const float* kbias = a.key_bias ? a.key_bias + (long long)b * S : nullptr;
     int item = 0;
     auto take = [&](int& s) {  // wait for the next tile; its slot index in s
-      s = item % RT_ST;
-      mbar_wait(full + s, (item / RT_ST) & 1);
+      s = item % ST;
+      mbar_wait(full + s, (item / ST) & 1);
       ++item;
-      return ring + s * RT_ITEM;
+      return ring + s * RT_SLOT;
     };
     auto release = [&](int s) {  // lane r tells block r of the cluster
       __syncwarp();
       if (lane < RT_C) mbar_arrive_cluster(empty + s, lane);
     };
-    // Columns d, d + 1 of (q + bias) in row i, rounded to bf16 as the TPU
-    // kernel rounds them (rows past S read as 0), as one bf16x2 register.
-    auto qpair = [&](int i, int d, const bf16* bias) {
-      const float x0 = i < S ? to_float(qb[(long long)i * a.q_ss + d]) : 0.f;
-      const float x1 = i < S ? to_float(qb[(long long)i * a.q_ss + d + 1]) : 0.f;
-      return bf16x2_bits(__fadd_rn(x0, to_float(bias[d])), __fadd_rn(x1, to_float(bias[d + 1])));
-    };
+    const uint32_t qv_base = smem_u32(Qv), qu_base = smem_u32(Qu);
+    float* stage = windows + warp * 16 * RT_WLD;
 
-    for (int j = tid; j < rt_keys(S); j += RP_THREADS)
-      kbs[j] = j >= S ? -INFINITY : kbias ? kbias[j] : 0.f;
+    for (int u = blockIdx.x / RT_C; u < units; u += clusters) {
+      const int pair = u % pairs, h = (u / pairs) % a.H, b = u / (pairs * a.H);
+      const int q0 = (RT_C * pair + rank) * RT_BQ;
+      const float* kbias = a.key_bias ? a.key_bias + (long long)b * S : nullptr;
 
-    // -- w = rotate(qv Wr_h^T), [64, D], into shared memory ------------------
-    {
-      const bf16* wr = reinterpret_cast<const bf16*>(a.wr) + (long long)h * D * DH;
-      const bf16* si = reinterpret_cast<const bf16*>(a.si);
-      const bf16* ci = reinterpret_cast<const bf16*>(a.ci);
-      uint4 alo[DH / 32], ahi[DH / 32];
+      // q + u and q + v_bias, [64, DH] each, rounded to bf16 as the TPU
+      // kernel rounds them (rows past S read as 0), into shared memory: the
+      // A operands of ac and of the window product. (The unit before read
+      // them last before its final consumer_sync.)
+      {
+        const bf16* qb = reinterpret_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+        const bf16* ub = reinterpret_cast<const bf16*>(a.u) + h * DH;
+        const bf16* vbb = reinterpret_cast<const bf16*>(a.vb) + h * DH;
 #pragma unroll
-      for (int c = 0; c < DH / 32; ++c) {
-        const int d = 32 * c + 8 * t4;
-        alo[c] = make_uint4(qpair(r_lo, d, vbb), qpair(r_lo, d + 2, vbb), qpair(r_lo, d + 4, vbb),
-                            qpair(r_lo, d + 6, vbb));
-        ahi[c] = make_uint4(qpair(r_hi, d, vbb), qpair(r_hi, d + 2, vbb), qpair(r_hi, d + 4, vbb),
-                            qpair(r_hi, d + 6, vbb));
-      }
-      // Tiles of 8 columns, paired with the tile half a row further so that
-      // z_s and z_c of one column meet in one thread's accumulators.
-#pragma unroll 4
-      for (int p = kh; p < half / 8; p += 2) {
-        float zs[4] = {0.f, 0.f, 0.f, 0.f}, zc[4] = {0.f, 0.f, 0.f, 0.f};
-        const bf16* w1 = wr + (long long)(p * 8 + g) * DH + 8 * t4;
-        const bf16* w2 = w1 + (long long)half * DH;
-#pragma unroll
-        for (int c = 0; c < DH / 32; ++c) {
-          mma_k32(zs, alo[c], ahi[c], ldg16(w1 + 32 * c));
-          mma_k32(zc, alo[c], ahi[c], ldg16(w2 + 32 * c));
-        }
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int row = 16 * rg + g + 8 * rr, i = q0 + row, col = p * 8 + 2 * t4;
-          float s0 = 0.f, s1 = 0.f, c0 = 0.f, c1 = 0.f;
-          if (i < S) {
-            s0 = to_float(si[(long long)i * half + col]);
-            s1 = to_float(si[(long long)i * half + col + 1]);
-            c0 = to_float(ci[(long long)i * half + col]);
-            c1 = to_float(ci[(long long)i * half + col + 1]);
-          }
-          const int e = 2 * rr;
-          *reinterpret_cast<uint32_t*>(rt_w_at(Ws, row, col)) = bf16x2_bits(
-              rot_first(zs[e], zc[e], s0, c0), rot_first(zs[e + 1], zc[e + 1], s1, c1));
-          *reinterpret_cast<uint32_t*>(rt_w_at(Ws, row, col + half)) = bf16x2_bits(
-              rot_second(zs[e], zc[e], s0, c0), rot_second(zs[e + 1], zc[e + 1], s1, c1));
+        for (int i = 0; i < RT_BQ * DH / 8 / RP_THREADS; ++i) {
+          const int e = tid + i * RP_THREADS, row = e / (DH / 8), col = 8 * (e % (DH / 8));
+          const int qi = q0 + row;
+          const uint4 x =
+              qi < S ? ldg16(qb + (long long)qi * a.q_ss + col) : make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(rt_a_at(Qu, row, col)) = rt_add8(x, ldg16(ub + col));
+          *reinterpret_cast<uint4*>(rt_a_at(Qv, row, col)) = rt_add8(x, ldg16(vbb + col));
         }
       }
-      fence_proxy_async();  // w is read by wgmma
-    }
-    // (q + u) as the A fragments of ac, k = head dim.
-    uint32_t qa[DH / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const int d = 16 * kk + 2 * t4;
-      qa[kk][0] = qpair(r_lo, d, ub);
-      qa[kk][1] = qpair(r_hi, d, ub);
-      qa[kk][2] = qpair(r_lo, d + 8, ub);
-      qa[kk][3] = qpair(r_hi, d + 8, ub);
-    }
-    consumer_sync();
+      fence_proxy_async();  // read by wgmma
+      consumer_sync();
 
-    // -- the scores of one key tile, on wgmma: warpgroup kh multiplies all 64
-    // rows by its 64 keys. bd = w . basis_j (both from shared memory) and
-    // ac = (q + u) . k_j (q + u from registers), each in its own fp32
-    // accumulator, then (ac + bd) * scale + key bias (-inf past S).
-    // acc[nt][e]: row 16 rg + g + 8 (e / 2), key j0 + 64 kh + 8 nt + 2 t4 + e % 2.
-    const uint32_t w_base = smem_u32(Ws);
-    auto scores = [&](int j0, float (&acc)[8][4]) {
-      int prev = -1;
-      auto consume = [&](int s) {  // this tile's products issued: free the one before
-        wgmma_commit();
-        wgmma_wait<1>();
-        if (prev >= 0) release(prev);
-        prev = s;
-      };
-      for (int c = 0; c < D; c += 64) {
-        int s;
-        const unsigned char* slot = take(s);
-        const uint32_t b_base = smem_u32(slot) + kh * 64 * 128;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16_m64n64k16_ss(acc, wgmma_desc_sw128(w_base + c * RT_BQ * 2 + kk * 32),
-                                  wgmma_desc_sw128(b_base + kk * 32), c > 0 || kk > 0);
-        consume(s);
-      }
-      float ac[8][4];
-#pragma unroll
-      for (int e = 0; e < DH / 64; ++e) {
-        int s;
-        const unsigned char* slot = take(s);
-        const uint32_t b_base = smem_u32(slot) + kh * 64 * 128;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_bf16_m64n64k16_rs(ac, qa[4 * e + kk], wgmma_desc_sw128(b_base + kk * 32),
-                                  e > 0 || kk > 0);
-        consume(s);
-      }
-      wgmma_wait<0>();
-      release(prev);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float2 kb = *reinterpret_cast<const float2*>(kbs + j0 + 64 * kh + 8 * nt + 2 * t4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[nt][e] = score_of(ac[nt][e], acc[nt][e], a.scale, e & 1 ? kb.y : kb.x);
-      }
-    };
-
-    // This thread's scores in the workspace: per 128-key tile, float4 nt of
-    // lane `lane` of warp `warp` (its acc[nt]), written and read by it alone.
-    const long long blk = ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    float4* mine = reinterpret_cast<float4*>(a.work) +
-                   (blk * (rt_keys(S) / RT_KT) * RP_WARPS + warp) * 8 * 32 + lane;
-    auto tile_at = [&](int j0) { return mine + (j0 / RT_KT) * RP_WARPS * 8 * 32; };
-
-    // -- pass 1: the scores, stored; each row's max and sum of exp(s - max),
-    // online ------------------------------------------------------------------
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
-    for (int j0 = 0; j0 < S; j0 += RT_KT) {
-      float acc[8][4];
-      scores(j0, acc);
-      float4* st = tile_at(j0);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        __stcg(st + nt * 32, make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]));
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        float n = m[rr];
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) n = fmaxf(n, fmaxf(acc[nt][2 * rr], acc[nt][2 * rr + 1]));
-        float sum = l[rr] * rescale(m[rr], n);
+      // -- the products of one key tile, issued: warpgroup kh multiplies all
+      // 64 rows by the 128 table rows m = q0 - (j0 + 64 kh) - 63 + w, w <
+      // 128, into `win` (window column w of row r is bd of key 63 + r - w of
+      // its 64), and by its 64 keys into `ac`. The slots stay held until
+      // `land`.
+      float win[16][4], ac[8][4];
+      float kb[8][2];  // the issued tile's key bias at this thread's keys; -inf past S
+      int held[2 * CB];
+      auto issue = [&](int j0) {
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
-          sum += expf(acc[nt][2 * rr] - n) + expf(acc[nt][2 * rr + 1] - n);
-        m[rr] = n;
-        l[rr] = sum;
-      }
-    }
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {  // the quad's four lanes hold other keys of the row
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        const float mo = __shfl_xor_sync(0xffffffffu, m[rr], o);
-        const float lo = __shfl_xor_sync(0xffffffffu, l[rr], o);
-        const float n = fmaxf(m[rr], mo);
-        l[rr] = l[rr] * rescale(m[rr], n) + lo * rescale(mo, n);
-        m[rr] = n;
-      }
-      if (t4 == 0) stats[kh * RT_BQ + 16 * rg + g + 8 * rr] = make_float2(m[rr], l[rr]);
-    }
-    consumer_sync();
-    float rl[2];  // 1 / sum, correctly rounded (tc_normalise divides with it)
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {  // both key halves: the row's max and sum
-      const float2 s0 = stats[16 * rg + g + 8 * rr], s1 = stats[RT_BQ + 16 * rg + g + 8 * rr];
-      m[rr] = fmaxf(s0.x, s1.x);
-      l[rr] = s0.y * rescale(s0.x, m[rr]) + s1.y * rescale(s1.x, m[rr]);
-      rl[rr] = __frcp_rn(l[rr]);
-    }
-
-    // -- pass 2: the scores read back; P = exp(s - max) / sum, true division,
-    // rounded to bf16; P V in fp32 over this warp's keys. The scores are read
-    // at the top of the iteration (reading the next tile's ahead, while this
-    // one's P V runs, gains no speed). ------------------------------------------
-    float o[DH / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-    for (int j0 = 0; j0 < S; j0 += RT_KT) {
-      float acc[8][4];
-      const float4* ld = tile_at(j0);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float4 x = __ldcg(ld + nt * 32);
-        acc[nt][0] = x.x; acc[nt][1] = x.y; acc[nt][2] = x.z; acc[nt][3] = x.w;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] = expf(acc[nt][e] - m[e >> 1]);
-      tc_normalise(acc, l, rl);  // as __fdiv_rn rounds, bit for bit
-      uint32_t pa[4][4];  // k16 step kk: keys 16 kk .. of this warp's 64
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int hl = 0; hl < 2; ++hl)
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const float* c = acc[2 * kk + hl] + 2 * rr;
-            pa[kk][2 * hl + rr] = bf16x2_bits(c[0], c[1]);
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + 64 * kh + 8 * nt + 2 * t4 + e;
+            kb[nt][e] = j >= S ? -INFINITY : kbias ? __ldg(kbias + j) : 0.f;
           }
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < DH / 64; ++e) {
-        int s;
-        const unsigned char* slot = take(s);
+        for (int c = 0; c < CB; ++c) {
+          const unsigned char* slot = take(held[c]);
+          const uint32_t b_base = smem_u32(slot) + (1 - kh) * RT_BQ * 128;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_bf16_m64n128k16_ss_kmajor(
+                win, wgmma_desc_sw128(qv_base + c * RT_BQ * 128 + kk * 32),
+                wgmma_desc_sw128(b_base + kk * 32), c > 0 || kk > 0);
+        }
+#pragma unroll
+        for (int e = 0; e < CB; ++e) {
+          const unsigned char* slot = take(held[CB + e]);
+          const uint32_t b_base = smem_u32(slot) + kh * 64 * 128;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_bf16_m64n64k16_ss(ac, wgmma_desc_sw128(qu_base + e * RT_BQ * 128 + kk * 32),
+                                    wgmma_desc_sw128(b_base + kk * 32), e > 0 || kk > 0);
+        }
+        wgmma_commit();
+      };
+      // -- the issued tile's products landed, its slots released, and its
+      // scores into sc: each warp stages the 79 window columns its 16 rows
+      // reach (16 rg .. 16 rg + 78) in shared memory and reads bd[r][c] =
+      // win[r][r - c + 63] back along the skew; then (ac + bd) * scale + key
+      // bias (-inf past S).
+      // sc[nt][e]: row 16 rg + g + 8 (e / 2), key j0 + 64 kh + 8 nt + 2 t4 + e % 2.
+      auto land = [&](float (&sc)[8][4]) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 2 * CB; ++i) release(held[i]);
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          if (nt >= 2 * rg && nt < 2 * rg + 10) {
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr)
+              *reinterpret_cast<float2*>(stage + (g + 8 * rr) * RT_WLD + 8 * nt - 16 * rg +
+                                         2 * t4) = make_float2(win[nt][2 * rr], win[nt][2 * rr + 1]);
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = g + 8 * (e >> 1), c = 8 * nt + 2 * t4 + (e & 1);
+            sc[nt][e] = score_of(ac[nt][e], stage[r * RT_WLD + r - c + 63], a.scale, kb[nt][e & 1]);
+          }
+        __syncwarp();  // the stage is read before the next tile writes it
+      };
+
+      // -- pass 1: each row's max and sum of exp(s - max), online -------------
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8
+      issue(0);
+      for (int j0 = 0; j0 < S; j0 += RT_KT) {
+        float sc[8][4];
+        land(sc);
+        if (j0 + RT_KT < S) issue(j0 + RT_KT);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float n = m[rr];
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) n = fmaxf(n, fmaxf(sc[nt][2 * rr], sc[nt][2 * rr + 1]));
+          float sum = l[rr] * rescale(m[rr], n);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+            sum += expf(sc[nt][2 * rr] - n) + expf(sc[nt][2 * rr + 1] - n);
+          m[rr] = n;
+          l[rr] = sum;
+        }
+      }
+      issue(0);  // pass 2's first tile, while the rows' statistics are combined
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {  // the quad's four lanes hold other keys of the row
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float mo = __shfl_xor_sync(0xffffffffu, m[rr], o);
+          const float lo = __shfl_xor_sync(0xffffffffu, l[rr], o);
+          const float n = fmaxf(m[rr], mo);
+          l[rr] = l[rr] * rescale(m[rr], n) + lo * rescale(mo, n);
+          m[rr] = n;
+        }
+        if (t4 == 0) stats[kh * RT_BQ + 16 * rg + g + 8 * rr] = make_float2(m[rr], l[rr]);
+      }
+      consumer_sync();
+      float rl[2];  // 1 / sum, correctly rounded (tc_normalise divides with it)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {  // both key halves: the row's max and sum
+        const float2 s0 = stats[16 * rg + g + 8 * rr], s1 = stats[RT_BQ + 16 * rg + g + 8 * rr];
+        m[rr] = fmaxf(s0.x, s1.x);
+        l[rr] = s0.y * rescale(s0.x, m[rr]) + s1.y * rescale(s1.x, m[rr]);
+        rl[rr] = __frcp_rn(l[rr]);
+      }
+
+      // -- pass 2: the scores again; P = exp(s - max) / sum, true division,
+      // rounded to bf16; P V in fp32 over this warp's keys -------------------
+      float o[DH / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+      for (int j0 = 0; j0 < S; j0 += RT_KT) {
+        float sc[8][4];
+        land(sc);
+        if (j0 + RT_KT < S) issue(j0 + RT_KT);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[nt][e] = expf(sc[nt][e] - m[e >> 1]);
+        tc_normalise(sc, l, rl);  // as __fdiv_rn rounds, bit for bit
+        uint32_t pa[4][4];  // k16 step kk: keys 16 kk .. of this warp's 64
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int np = 0; np < 4; ++np) {  // V's B fragments: keys along k, ldmatrix.trans
-            uint32_t vf[4];
-            ldmatrix_x4_trans(vf, rt_at(slot, 64 * kh + 16 * kk + (mat & 1) * 8 + (lane & 7),
-                                        2 * np + (mat >> 1)));
-            mma_bf16(o[8 * e + 2 * np], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3], vf[0], vf[1]);
-            mma_bf16(o[8 * e + 2 * np + 1], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3], vf[2],
-                     vf[3]);
-          }
-        release(s);
-      }
-    }
-
-    // -- the two key halves' sums, then the output rounded to bf16 -------------
-    consumer_sync();  // every tile has landed and been read: the ring is free
-    float* part = reinterpret_cast<float*>(ring);  // [64 rows][DH], key half 1
-    const int row_lo = 16 * rg + g;
-    if (kh == 1) {
+          for (int hl = 0; hl < 2; ++hl)
 #pragma unroll
-      for (int nt = 0; nt < DH / 8; ++nt)
+            for (int rr = 0; rr < 2; ++rr) {
+              const float* c = sc[2 * kk + hl] + 2 * rr;
+              pa[kk][2 * hl + rr] = bf16x2_bits(c[0], c[1]);
+            }
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          part[(row_lo + 8 * (e >> 1)) * DH + 8 * nt + 2 * t4 + (e & 1)] = o[nt][e];
-    }
-    consumer_sync();
-    if (kh == 0) {
-      bf16* ob = reinterpret_cast<bf16*>(a.out) + ((long long)b * a.H + h) * S * DH;
+        for (int e = 0; e < CB; ++e) {
+          int s;
+          const unsigned char* slot = take(s);
 #pragma unroll
-      for (int nt = 0; nt < DH / 8; ++nt)
+          for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int row = row_lo + 8 * rr, i = q0 + row, col = 8 * nt + 2 * t4;
-          if (i < S)
-            *reinterpret_cast<uint32_t*>(ob + (long long)i * DH + col) =
-                bf16x2_bits(__fadd_rn(o[nt][2 * rr], part[row * DH + col]),
-                            __fadd_rn(o[nt][2 * rr + 1], part[row * DH + col + 1]));
+            for (int np = 0; np < 4; ++np) {  // V's B fragments: keys along k, ldmatrix.trans
+              uint32_t vf[4];
+              ldmatrix_x4_trans(vf, rt_at(slot, 64 * kh + 16 * kk + (mat & 1) * 8 + (lane & 7),
+                                          2 * np + (mat >> 1)));
+              mma_bf16(o[8 * e + 2 * np], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3], vf[0],
+                       vf[1]);
+              mma_bf16(o[8 * e + 2 * np + 1], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3], vf[2],
+                       vf[3]);
+            }
+          release(s);
         }
+      }
+
+      // -- the two key halves' sums, then the output rounded to bf16 -----------
+      consumer_sync();  // every warp is done with its stage
+      float* part = windows;  // [64 rows][DH], key half 1
+      const int row_lo = 16 * rg + g;
+      if (kh == 1) {
+#pragma unroll
+        for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            part[(row_lo + 8 * (e >> 1)) * DH + 8 * nt + 2 * t4 + (e & 1)] = o[nt][e];
+      }
+      consumer_sync();
+      if (kh == 0) {
+        bf16* ob = reinterpret_cast<bf16*>(a.out) + ((long long)b * a.H + h) * S * DH;
+#pragma unroll
+        for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int row = row_lo + 8 * rr, i = q0 + row, col = 8 * nt + 2 * t4;
+            if (i < S)
+              *reinterpret_cast<uint32_t*>(ob + (long long)i * DH + col) =
+                  bf16x2_bits(__fadd_rn(o[nt][2 * rr], part[row * DH + col]),
+                              __fadd_rn(o[nt][2 * rr + 1], part[row * DH + col + 1]));
+          }
+      }
     }
   }
   cluster_sync();  // no block leaves while its peer may still write to it
 }
 
-// The tile maps of the basis [S, D] and of K, V [B, H, S, Dh] (any strides
-// that are multiples of 8), boxes of 64 columns x RT_KT / RT_C rows.
+// A tile map of [batch, heads, rows, cols] bf16 (any strides that are
+// multiples of 8), boxes of 64 columns x box_rows rows.
 static bool rt_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
-                   uint64_t heads, uint64_t batch, long long ss, long long sh, long long sb) {
+                   uint64_t heads, uint64_t batch, long long ss, long long sh, long long sb,
+                   uint32_t box_rows) {
   const uint64_t dims[4] = {cols, rows, heads, batch};
   const uint64_t strides[3] = {(uint64_t)ss * 2, (uint64_t)sh * 2, (uint64_t)sb * 2};
-  const uint32_t box[4] = {64, RT_KT / RT_C, 1, 1};
+  const uint32_t box[4] = {64, box_rows, 1, 1};
   return tma_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, dims, strides, box);
 }
 
-// Workspace bytes of one batch row of a v2 launch: in bf16 the scores of
-// its blocks, in fp32 w [H, S, D] and bd [H, S, S].
-static long long v2_work_per_batch(int H, int S, int D, int kind) {
-  if (kind == KIND_BF16) {
-    const long long blocks_x = ((S + RT_BQ - 1) / RT_BQ + RT_C - 1) / RT_C * RT_C;
-    return blocks_x * H * (rt_keys(S) / RT_KT) * (long long)(RP_WARPS * 8 * 32 * sizeof(float4));
-  }
+// Workspace bytes of one batch row of an fp32 v2 launch: w [H, S, D] and
+// bd [H, S, S].
+static long long v2_work_per_batch(int H, int S, int D) {
   return (long long)H * S * (D + S) * (long long)sizeof(float);
 }
 
 // The batch in chunks whose workspace fits in work_bytes: launch(a, rows)
 // for each, a.b0 its first batch row.
 template <typename F>
-static cudaError_t by_chunks(RelposArgs a, int B, long long work_bytes, int kind, F launch) {
-  const long long fit = work_bytes / v2_work_per_batch(a.H, a.S, a.D, kind);
+static cudaError_t by_chunks(RelposArgs a, int B, long long work_bytes, F launch) {
+  const long long fit = work_bytes / v2_work_per_batch(a.H, a.S, a.D);
   if (fit < 1) return cudaErrorInvalidValue;
   const int chunk = (int)(fit < B ? fit : B);
   for (a.b0 = 0; a.b0 < B; a.b0 += chunk) {
@@ -1084,25 +1240,44 @@ static cudaError_t by_chunks(RelposArgs a, int B, long long work_bytes, int kind
   return cudaSuccess;
 }
 
+// The table (table_bytes at a.table, at least [H, rt_table_rows(S), DH]),
+// then the attention over the whole batch in one launch.
 template <int DH>
-static cudaError_t launch_relpos_v2_rt(const RelposArgs& args, int B, long long work_bytes,
+static cudaError_t launch_relpos_v2_rt(const RelposArgs& a, int B, long long table_bytes,
                                        cudaStream_t stream) {
-  const size_t smem = rt_smem(args.S, args.D);
-  if (smem > RP_MAX_SMEM) return cudaErrorInvalidValue;
-  const long long plane = (long long)args.S * args.D;
-  CUtensorMap mb, mk, mv;
-  if (!rt_map(&mb, args.basis, args.D, args.S, 1, 1, args.D, plane, plane) ||
-      !rt_map(&mk, args.k, DH, args.S, args.H, B, args.k_ss, args.k_sh, args.k_sb) ||
-      !rt_map(&mv, args.v, DH, args.S, args.H, B, args.v_ss, args.v_sh, args.v_sb))
+  const size_t smem = rt_smem(DH);
+  const int rows = rt_table_rows(a.S);
+  const long long plane = (long long)rows * DH;
+  if (smem > RP_MAX_SMEM || table_bytes < a.H * plane * (long long)sizeof(bf16))
+    return cudaErrorInvalidValue;
+  CUtensorMap mt, mk, mv;
+  if (!rt_map(&mt, a.table, DH, rows, a.H, 1, DH, plane, plane * a.H, RT_TBOX) ||
+      !rt_map(&mk, a.k, DH, a.S, a.H, B, a.k_ss, a.k_sh, a.k_sb, RT_KT / RT_C) ||
+      !rt_map(&mv, a.v, DH, a.S, a.H, B, a.v_ss, a.v_sh, a.v_sb, RT_KT / RT_C))
     return cudaErrorInvalidValue;
   cudaError_t err = allow_dynamic_smem(relpos_v2_rt_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  const int row_blocks = (args.S + RT_BQ - 1) / RT_BQ;
-  return by_chunks(args, B, work_bytes, KIND_BF16, [&](const RelposArgs& a, int rows) {
-    dim3 grid((row_blocks + RT_C - 1) / RT_C * RT_C, a.H, rows);
-    relpos_v2_rt_kernel<DH><<<grid, RT_THREADS, smem, stream>>>(mb, mk, mv, a);
-    return cudaGetLastError();
-  });
+  // As many clusters as the card holds at once (asked once a process), or
+  // as many as there are units.
+  static int resident = 0;
+  if (resident == 0) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(RT_C, 1, 1);
+    cfg.blockDim = dim3(RT_THREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    err = cudaOccupancyMaxActiveClusters(&resident, relpos_v2_rt_kernel<DH>, &cfg);
+    if (err != cudaSuccess) return err;
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+  }
+  relpos_v2_rt_kernel_table<DH><<<dim3((rows + TB_ROWS - 1) / TB_ROWS, a.H), 128, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long units = (long long)B * a.H * ((a.S + RT_C * RT_BQ - 1) / (RT_C * RT_BQ));
+  RelposArgs args = a;
+  args.B = B;
+  dim3 grid(RT_C * (int)(units < resident ? units : resident), 1, 1);
+  relpos_v2_rt_kernel<DH><<<grid, RT_THREADS, smem, stream>>>(mt, mk, mv, args);
+  return cudaGetLastError();
 }
 
 template <int DH>
@@ -1112,7 +1287,7 @@ static cudaError_t launch_relpos_v2_f32(const RelposArgs& args, int B, long long
   if (smem > RP_MAX_SMEM) return cudaErrorInvalidValue;
   cudaError_t err = allow_dynamic_smem(relpos_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  return by_chunks(args, B, work_bytes, KIND_F32, [&](RelposArgs a, int rows) {
+  return by_chunks(args, B, work_bytes, [&](RelposArgs a, int rows) {
     const int S = a.S, row_blocks = (S + RP_BQ - 1) / RP_BQ, tiles = (S + SG_BM - 1) / SG_BM;
     float* bd = a.work + (long long)rows * a.H * S * a.D;
     relpos_w_kernel<DH><<<dim3(row_blocks, a.H, rows), RP_THREADS, 0, stream>>>(a);
@@ -1182,17 +1357,20 @@ static RelposArgs relpos_args(const void* q, const void* k, const void* v, const
   return a;
 }
 
+// fp32 v2's workspace bytes a batch row (bf16 v2 takes none: kind must be 0).
 extern "C" int sonar_relpos_v2_workspace(int H, int S, int D, int kind, long long* per_batch) {
-  if (H < 1 || S < 1 || D < 64) return cudaErrorInvalidValue;
-  *per_batch = v2_work_per_batch(H, S, D, kind);
+  if (H < 1 || S < 1 || D < 64 || kind != KIND_F32) return cudaErrorInvalidValue;
+  *per_batch = v2_work_per_batch(H, S, D);
   return cudaSuccess;
 }
 
+// `scratch` (scratch_bytes): in fp32 the workspace, in bf16 the distance
+// table [H, rt_table_rows(S), Dh], both written by the launch.
 extern "C" int sonar_relpos_flash_v2(const void* q, const void* k, const void* v,
                                      const void* wr, const void* si, const void* ci,
                                      const void* basis, const void* u, const void* vb,
-                                     const float* key_bias, void* out, float* work,
-                                     long long work_bytes, int B, int H, int S, int Dh, int D,
+                                     const float* key_bias, void* out, void* scratch,
+                                     long long scratch_bytes, int B, int H, int S, int Dh, int D,
                                      long long q_sb, long long q_sh, long long q_ss,
                                      long long k_sb, long long k_sh, long long k_ss,
                                      long long v_sb, long long v_sh, long long v_ss, int kind,
@@ -1201,15 +1379,16 @@ extern "C" int sonar_relpos_flash_v2(const void* q, const void* k, const void* v
                              k_ss, v_sb, v_sh, v_ss);
   a.wr = wr; a.si = si; a.ci = ci; a.basis = basis; a.vb = vb;
   a.D = D;
-  a.work = work;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (S < 1 || D < 64 || D % 64 != 0 || work == nullptr) return cudaErrorInvalidValue;
+  if (S < 1 || D < 64 || D % 64 != 0 || scratch == nullptr) return cudaErrorInvalidValue;
   if (kind == KIND_BF16) {
-    if (Dh == 64) return launch_relpos_v2_rt<64>(a, B, work_bytes, st);
-    if (Dh == 128) return launch_relpos_v2_rt<128>(a, B, work_bytes, st);
+    a.table = scratch;
+    if (Dh == 64) return launch_relpos_v2_rt<64>(a, B, scratch_bytes, st);
+    if (Dh == 128) return launch_relpos_v2_rt<128>(a, B, scratch_bytes, st);
   } else {
-    if (Dh == 64) return launch_relpos_v2_f32<64>(a, B, work_bytes, st);
-    if (Dh == 128) return launch_relpos_v2_f32<128>(a, B, work_bytes, st);
+    a.work = static_cast<float*>(scratch);
+    if (Dh == 64) return launch_relpos_v2_f32<64>(a, B, scratch_bytes, st);
+    if (Dh == 128) return launch_relpos_v2_f32<128>(a, B, scratch_bytes, st);
   }
   return cudaErrorInvalidValue;
 }

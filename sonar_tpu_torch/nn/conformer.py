@@ -10,7 +10,10 @@ w_i = [z_s sin(i w) + z_c cos(i w) | z_c sin(i w) - z_s cos(i w)] and
 basis_j = [cos(j w) | sin(j w)], where z = (q_i + v_bias) r_proj per head
 with r_proj's input columns de-interleaved (even table columns first).
 bd is one product against the [S, D] basis; no [B, H, S, 2S - 1] table and
-no rel-shift.
+no rel-shift. That is the plain path's form (and the card's fp32 kernels');
+the card's bf16 kernel computes the same bd in the rel-shift form, on the
+distance table projected by r_proj per head ([H, 2S - 1, Dh], bf16) and
+skewed inside each tile (``ops/cuda/relpos_flash.py``).
 
 Dispatch is the JAX package's, on shapes: 128 <= S <= 2048, head dim 64 or
 128 and a key-padding bias take ``relpos_flash_attention_v2`` (its wrapper

@@ -4,14 +4,19 @@ Port of ``sonar_tpu/ops/pallas/relpos_flash.py``; the CUDA kernels are
 ``csrc/relpos_flash.cu``.
 
 - ``relpos_flash_attention_v2`` (the Conformer's path) builds the positional
-  term inside the kernel: z = (q + v_bias) Wr_h^T, the i-rotation
-  w = [z_s si + z_c ci | z_c si - z_s ci], and bd = w . basis_j; with
-  ac = (q + u) . k_j, score = (ac + bd) * Dh^-0.5 + key_bias.
+  term inside the kernel; with ac = (q + u) . k_j, score = (ac + bd) *
+  Dh^-0.5 + key_bias. Its plain version (the CPU's) and the card's fp32
+  kernels keep the TPU kernel's trig form: z = (q + v_bias) Wr_h^T, the
+  i-rotation w = [z_s si + z_c ci | z_c si - z_s ci], and bd = w . basis_j.
+  The card's bf16 kernel uses the rel-shift form on the projected distance
+  table (``relpos_bd_shift_plain``): P[m] = T[m] Wr_h for m = -(S - 1) ..
+  S - 1, rounded to bf16, and bd[i, j] = (q_i + v_bias) . P[i - j].
 - ``relpos_flash_attention`` (v1) takes bd precomputed [B, H, S, S].
 
 Both: fp32 softmax with a true division, P rounded to the value dtype, P V
-accumulated in fp32. v2 rounds q + u, q + v_bias and w to the model dtype
-(the TPU kernel's casts); v1 keeps q + u in fp32.
+accumulated in fp32. v2 rounds q + u, q + v_bias and w (bf16 kernel: the
+table P) to the model dtype (the TPU kernel's casts); v1 keeps q + u in
+fp32.
 
 Masked keys carry ``finfo(float32).min`` in ``key_bias``; a row whose every
 key is masked comes out as the uniform average of its S values. (The JAX
@@ -33,9 +38,12 @@ import torch
 LAUNCHES = 0      # relpos_flash_attention_v2 kernel launches
 V1_LAUNCHES = 0   # relpos_flash_attention kernel launches
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
-# v2's workspace (bf16: the scores; fp32: w and bd) is at most this large,
-# or one batch row's: a larger batch is launched in chunks that fit.
+# fp32 v2's workspace (w and bd) is at most this large, or one batch row's:
+# a larger batch is launched in chunks that fit. bf16 v2 takes none.
 WORKSPACE_BYTES = 512 << 20
+# Zero rows before the first distance of bf16 v2's table [H, 2S - 1 +
+# TABLE_PAD, Dh] (``csrc/relpos_flash.cu``: RT_PAD).
+TABLE_PAD = 128
 
 
 def _tail(ac: torch.Tensor, bd: torch.Tensor, v: torch.Tensor,
@@ -63,6 +71,28 @@ def relpos_bd_plain(
     si32, ci32 = si.float(), ci.float()
     w = torch.cat([z_s * si32 + z_c * ci32, z_c * si32 - z_s * ci32], dim=-1).to(dt)
     return w.float() @ basis.float().transpose(0, 1)
+
+
+def relpos_bd_shift_plain(
+    q: torch.Tensor, wr_heads: torch.Tensor, si: torch.Tensor, ci: torch.Tensor,
+    v_bias: torch.Tensor,
+) -> torch.Tensor:
+    """bd [B, H, S, S] in fp32 in the rel-shift form of the card's bf16
+    kernel: the distance table T[m] = [sin(m w) | cos(m w)] (Wr_h's
+    de-interleaved column order) from si / ci by reflection (sin odd, cos
+    even), P = T Wr_h [H, 2S - 1, Dh] rounded to the model dtype, and
+    bd[i, j] = round(q_i + v_bias) . P[i - j]. Products in fp32."""
+    dt = q.dtype
+    s = si.shape[0]
+    m = torch.arange(-(s - 1), s, device=q.device)
+    sign = torch.where(m < 0, -1.0, 1.0)[:, None]
+    table = torch.cat([si.float()[m.abs()] * sign, ci.float()[m.abs()]], dim=-1)  # [2S - 1, D]
+    p = torch.einsum("md,hde->hme", table, wr_heads.float()).to(dt).float()
+    qv = (q.float() + v_bias.float()[None, :, None, :]).to(dt).float()
+    window = qv @ p.transpose(-1, -2)[None]                          # [B, H, S, 2S - 1]
+    i = torch.arange(s, device=q.device)
+    rel = (i[:, None] - i[None, :] + (s - 1)).expand(*window.shape[:2], s, s)
+    return window.gather(-1, rel)
 
 
 def relpos_flash_attention_v2_plain(
@@ -118,14 +148,13 @@ def _strides(*ts: torch.Tensor) -> list:
     return [st for t in ts for st in t.stride()[:3]]
 
 
-def _workspace(b: int, h: int, s: int, d: int, dtype: torch.dtype,
-               device: torch.device) -> torch.Tensor:
-    """v2's workspace (bf16: the scores; fp32: w and bd; float32 elements):
-    as many batch rows as fit in WORKSPACE_BYTES (one at least), each of
-    the size the kernel asks for."""
+def _workspace(b: int, h: int, s: int, d: int, device: torch.device) -> torch.Tensor:
+    """fp32 v2's workspace (w and bd; float32 elements): as many batch rows
+    as fit in WORKSPACE_BYTES (one at least), each of the size the kernel
+    asks for."""
     per_batch = ctypes.c_longlong()
     _build.check(_build.library().sonar_relpos_v2_workspace(
-        h, s, d, _KIND[dtype], ctypes.byref(per_batch)), "relpos_flash_attention_v2")
+        h, s, d, _KIND[torch.float32], ctypes.byref(per_batch)), "relpos_flash_attention_v2")
     rows = max(1, min(b, WORKSPACE_BYTES // per_batch.value))
     return torch.empty(rows * per_batch.value // 4, dtype=torch.float32, device=device)
 
@@ -139,7 +168,8 @@ def relpos_flash_attention_v2(
     """q, k, v [B, H, S, Dh] (pre-bias; any strides with a unit last one);
     wr_heads [H, D, Dh]; si, ci [S, D/2]; basis [S, D]; u_bias, v_bias
     [H, Dh], all in the model dtype; key_bias [B, S] fp32 or None.
-    -> [B, H, S, Dh]."""
+    -> [B, H, S, Dh]. In bf16: two launches (the distance table, then the
+    attention), counted as one."""
     if not q.is_cuda:
         return relpos_flash_attention_v2_plain(q, k, v, wr_heads, si, ci, basis,
                                                u_bias, v_bias, key_bias)
@@ -152,12 +182,19 @@ def relpos_flash_attention_v2(
         check_cuda(name, t, q.device, dtype=q.dtype, shape=shape)
     key_bias = _key_bias(key_bias, b, s, q.device)
     out = torch.empty((b, h, s, dh), dtype=q.dtype, device=q.device)
-    work = _workspace(b, h, s, d, q.dtype, q.device)
+    if q.dtype == torch.bfloat16:
+        # The kernels read Wr_h, the trig tables and the biases as 16-byte vectors.
+        require(all(t.data_ptr() % 16 == 0 for t in (wr_heads, si, ci, u_bias, v_bias)),
+                "wr_heads, si, ci, u_bias and v_bias must be 16-byte aligned")
+        scratch = torch.empty((h, 2 * s - 1 + TABLE_PAD, dh), dtype=q.dtype, device=q.device)
+    else:
+        scratch = _workspace(b, h, s, d, q.device)
     _build.check(
         _build.library().sonar_relpos_flash_v2(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), wr_heads.data_ptr(), si.data_ptr(),
             ci.data_ptr(), basis.data_ptr(), u_bias.data_ptr(), v_bias.data_ptr(),
-            _build.ptr(key_bias), out.data_ptr(), work.data_ptr(), 4 * work.numel(),
+            _build.ptr(key_bias), out.data_ptr(), scratch.data_ptr(),
+            scratch.numel() * scratch.element_size(),
             b, h, s, dh, d,
             *_strides(q, k, v), _KIND[q.dtype], _build.stream_of(q),
         ),

@@ -460,12 +460,74 @@ def test_relpos_v2_kernel_edges(dev, dtype, b, h, s, dh):
         assert (got[1].float() - mean).abs().max().item() <= 2e-2 * mean.abs().max().item()
 
 
+# The bf16 kernel (the rel-shift form on the projected distance table, in
+# two launches): the gate's ends, a key tile of one key, the speech cell's
+# batch shapes (S 199, 999, 1999 at [16, 16, S, 64], D 1024) and Dh 128; a
+# row of length 0 and one of length S // 3.
+RT_SHAPES = [pytest.param(3, 2, 128, 64, 256, id="128-64"),
+             pytest.param(3, 2, 129, 64, 256, id="129-64"),
+             pytest.param(3, 4, 199, 64, 512, id="199-64"),
+             pytest.param(16, 16, 999, 64, 1024, id="999-64-full"),
+             pytest.param(16, 16, 1999, 64, 1024, id="1999-64-full"),
+             pytest.param(3, 2, 2048, 64, 256, id="2048-64"),
+             pytest.param(3, 2, 257, 128, 512, id="257-128")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,dh,d", RT_SHAPES)
+def test_relpos_v2_bf16_kernel_rel_shift(dev, b, h, s, dh, d):
+    """Against the plain version (the trig form) at the file's tolerance,
+    the output's max-abs within 2e-2 of its scale, and the fully masked
+    row the mean of V."""
+    bf16 = torch.bfloat16
+    q, k, v = (_rand(dev, b, h, s, dh, dtype=bf16, seed=i) for i in range(3))
+    wr = _rand(dev, h, d, dh, scale=d ** -0.5, dtype=bf16, seed=3)
+    u, vb = (_rand(dev, h, dh, scale=0.1, dtype=bf16, seed=4 + i) for i in range(2))
+    si, ci, basis = _trig_tables(s, d, bf16, dev)
+    bias = _key_bias(dev, ([s, s // 3, 0] * b)[:b], s)
+    args = (q, k, v, wr, si, ci, basis, u, vb, bias)
+    got = _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention_v2(*args))
+    want = relpos_flash.relpos_flash_attention_v2_plain(*args)
+    _assert_close(got, want)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
+    mean = v[2].float().mean(dim=-2, keepdim=True).expand(h, s, dh)
+    assert (got[2].float() - mean).abs().max().item() <= 2e-2 * mean.abs().max().item()
+
+
+def _relpos_kernels(fn):
+    """fn() under torch.profiler on the card -> the names of the device
+    kernels it ran whose names hold ``relpos_v2_rt_kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if not str(e.device_type()).endswith("CPU") and "relpos_v2_rt_kernel" in e.name()]
+
+
+@pytest.mark.gpu
+def test_relpos_v2_bf16_launches_table_and_attention(dev):
+    """One bf16 call adds 1 to LAUNCHES and runs the two kernels of the
+    ``relpos_v2_rt_kernel`` prefix (the benchmark's reader sums them): the
+    table, then the attention."""
+    args = _relpos_inputs(dev, torch.bfloat16, 499, 64, h=16, b=8)
+    relpos_flash.relpos_flash_attention_v2(*args)  # built and warm
+    torch.cuda.synchronize()
+    names = _relpos_kernels(
+        lambda: _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention_v2(*args)))
+    assert len(names) == 2
+    assert sum("relpos_v2_rt_kernel_table" in n for n in names) == 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,s,dh", [(1, 16, 2048, 64), (2, 16, 1999, 64)])
 def test_relpos_v2_kernel_repeats_bit_for_bit(dev, b, h, s, dh):
-    """The bf16 kernel keeps its scores in a workspace between its passes
+    """The bf16 kernel builds its distance table in a launch of its own
     and shares tiles across a cluster: twelve calls on the same inputs give
-    the same bits, whatever the workspace held before (NaN here)."""
+    the same bits, whatever the memory the table gets held before (NaN
+    here: the zero rows before the first distance are written too)."""
     d = 1024
     q, k, v = (_rand(dev, b, h, s, dh, dtype=torch.bfloat16, seed=i) for i in range(3))
     wr = _rand(dev, h, d, dh, scale=d ** -0.5, dtype=torch.bfloat16, seed=3)
@@ -474,8 +536,9 @@ def test_relpos_v2_kernel_repeats_bit_for_bit(dev, b, h, s, dh):
     args = (q, k, v, wr, si, ci, basis, u, vb, _key_bias(dev, [s, s - 37][:b], s))
     outs = []
     for _ in range(12):
-        # The freed NaN block is what the wrapper's workspace gets next.
-        relpos_flash._workspace(b, h, s, d, torch.bfloat16, dev).fill_(float("nan"))
+        # The freed NaN block is what the wrapper's table gets next.
+        torch.full((h, 2 * s - 1 + relpos_flash.TABLE_PAD, dh), float("nan"),
+                   dtype=torch.bfloat16, device=dev)
         outs.append(relpos_flash.relpos_flash_attention_v2(*args))
     assert torch.isfinite(outs[0]).all()
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
@@ -485,10 +548,24 @@ def test_relpos_v2_kernel_repeats_bit_for_bit(dev, b, h, s, dh):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_relpos_v2_kernel_in_batch_chunks(dev, dtype, monkeypatch):
-    """A workspace of one batch row: the batch goes through in three launches."""
+    """fp32: a workspace of one batch row, the batch goes through in three
+    launches. bf16 takes no workspace: a batch of 32 goes through in one
+    launch of each kernel, whatever WORKSPACE_BYTES says."""
     monkeypatch.setattr(relpos_flash, "WORKSPACE_BYTES", 1)
-    args = _relpos_inputs(dev, dtype, 257, 64)
-    got = _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention_v2(*args))
+    if dtype == torch.bfloat16:
+        def no_workspace(*a, **k):
+            raise AssertionError("bf16 v2 asked for a workspace")
+
+        monkeypatch.setattr(relpos_flash, "_workspace", no_workspace)
+        args = _relpos_inputs(dev, dtype, 257, 64, b=32)
+        out = []
+        names = _relpos_kernels(lambda: out.append(
+            _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention_v2(*args))))
+        assert len(names) == 2
+        got = out[0]
+    else:
+        args = _relpos_inputs(dev, dtype, 257, 64)
+        got = _launched(relpos_flash, lambda: relpos_flash.relpos_flash_attention_v2(*args))
     _assert_close(got, relpos_flash.relpos_flash_attention_v2_plain(*args))
 
 

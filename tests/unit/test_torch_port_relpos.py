@@ -132,6 +132,22 @@ def test_v2_plain_matches_pallas_kernel(s, dh, dtype):
     _check_rows(got, np.asarray(want, np.float32), lens, s, dtype)
 
 
+@pytest.mark.parametrize("s,dh", [(130, 64), (257, 128)])
+def test_bd_shift_plain_matches_trig_form(s, dh):
+    """The rel-shift form of the card's bf16 kernel (the distance table from
+    si / ci by reflection, then (q + v) . P[i - j]) against the trig form in
+    fp32, to 2e-5 of bd's scale: the sign of i - j, the de-interleaved
+    columns and the reflection."""
+    inp, _ = _kernel_inputs(s, dh, "float32", seed=3)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    assert t["u"].abs().min() > 0 and t["vb"].abs().min() > 0
+    got = relpos_flash.relpos_bd_shift_plain(t["q"], t["wr"], t["si"], t["ci"], t["vb"])
+    want = relpos_flash.relpos_bd_plain(t["q"], t["wr"], t["si"], t["ci"], t["basis"], t["vb"])
+    assert got.shape == want.shape == (3, 2, s, s)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * scale, rtol=0)
+
+
 # v1's cases: those of v2 (their ids as before), S 499 (the speech batch's
 # length: not a multiple of the bf16 kernel's 64-key tile) and bd scaled by
 # 30, so that a few keys hold each row and most exponentials are tiny.
