@@ -18,6 +18,9 @@ import numpy as np
 from sonar_tpu_torch.data.collate import SequenceBatch
 from sonar_tpu_torch.utils.profiling import span
 
+# The fewest rows a batch holds, however long its bucket.
+MIN_BATCH = 8
+
 
 class StaticShapeBatcher:
     def __init__(
@@ -25,20 +28,10 @@ class StaticShapeBatcher:
         pad_value: int,
         len_buckets: Sequence[int] = (16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512),
         tokens_per_batch: int = 16384,
-        min_batch: int = 8,
-        flush_merge: bool = True,
     ):
         self.pad_value = pad_value
         self.len_buckets = tuple(sorted(len_buckets))
         self.tokens_per_batch = tokens_per_batch
-        self.min_batch = min_batch
-        # At end-of-stream, promote sparsely-filled remainder batches into a
-        # longer bucket's partial batch: a few extra pad tokens per item beats
-        # emitting a mostly-empty full-shape batch.
-        self.flush_merge = flush_merge
-        # Fill diagnostics of the last ``batches()`` run: per emitted batch
-        # (bucket_len, rows_used, rows_total, real_tokens).
-        self.last_stats: List[Tuple[int, int, int, int]] = []
 
     def bucket_of(self, n: int) -> int:
         for b in self.len_buckets:
@@ -47,8 +40,8 @@ class StaticShapeBatcher:
         return self.len_buckets[-1]
 
     def batch_size_for(self, bucket: int) -> int:
-        b = max(self.min_batch, self.tokens_per_batch // bucket)
-        return max(self.min_batch, (b // 8) * 8)  # sublane-friendly batch
+        b = max(MIN_BATCH, self.tokens_per_batch // bucket)
+        return max(MIN_BATCH, (b // 8) * 8)  # sublane-friendly batch
 
     def batches(
         self,
@@ -62,39 +55,35 @@ class StaticShapeBatcher:
         ``yield_indices`` each yield is ``(batch, input_positions)`` so a
         caller can restore input order across the bucket interleaving.
         """
-        # Per-generator state: two interleaved batches() runs on one batcher
-        # must not share yield shape or stats. ``self.last_stats`` stays a
-        # public diagnostic pointing at the most recently started run's own
-        # list (never mutated by another run).
-        stats: List[Tuple[int, int, int, int]] = []
-        self.last_stats = stats
         pending: Dict[int, list] = {b: [] for b in self.len_buckets}
         for pos, item in enumerate(token_lists):
             item = (pos, list(item)[: self.len_buckets[-1]])
             b = self.bucket_of(len(item[1]))
             pending[b].append(item)
             if len(pending[b]) >= self.batch_size_for(b):
-                yield self._make(pending[b], b, stats, yield_indices)
+                yield self._make(pending[b], b, yield_indices)
                 pending[b] = []
         # Flush: ascending buckets; sparsely-filled remainders promote to the
         # nearest longer bucket that has a partial batch of its own, when
         # the added length padding is cheaper than the empty rows of a
-        # dedicated batch. (Into a bucket with no partial batch they would
-        # fill a batch of their own, of about the same padded tokens with
-        # longer rows: no row saved, and more attention work.)
+        # dedicated batch: a few extra pad tokens per item beat a
+        # mostly-empty full-shape batch. (Into a bucket with no partial
+        # batch they would fill a batch of their own, of about the same
+        # padded tokens with longer rows: no row saved, and more attention
+        # work.)
         for bi, b in enumerate(self.len_buckets):
             items = pending[b]
             if not items:
                 continue
             bsz = self.batch_size_for(b)
             while len(items) >= bsz:
-                yield self._make(items[:bsz], b, stats, yield_indices)
+                yield self._make(items[:bsz], b, yield_indices)
                 items = items[bsz:]
             if not items:
                 continue
             nb = next((c for c in self.len_buckets[bi + 1:]
                        if len(pending[c]) % self.batch_size_for(c)), None)
-            if self.flush_merge and nb is not None:
+            if nb is not None:
                 # cost of emitting the partial batch here = its empty rows;
                 # cost of promoting = the extra per-item length padding
                 # (the items then fill nb's batch; cascades greedily).
@@ -103,10 +92,10 @@ class StaticShapeBatcher:
                 if promote_cost < own_cost:
                     pending[nb] = items + pending[nb]
                     continue
-            yield self._make(items, b, stats, yield_indices)
+            yield self._make(items, b, yield_indices)
 
     def _make(self, items: List[Tuple[int, Sequence[int]]], bucket: int,
-              stats: list, yield_indices: bool):
+              yield_indices: bool):
         bsz = self.batch_size_for(bucket)
         with span("pipeline.batch", bucket=bucket, used=len(items), rows=bsz) as s:
             seqs = np.full((bsz, bucket), self.pad_value, np.int32)
@@ -114,8 +103,7 @@ class StaticShapeBatcher:
             for i, (_, it) in enumerate(items):
                 seqs[i, : len(it)] = np.asarray(it, np.int32)
                 lens[i] = len(it)
-            stats.append((bucket, len(items), bsz, int(lens.sum())))
-            s.set(tokens=stats[-1][3])
+            s.set(tokens=int(lens.sum()))
         batch = SequenceBatch(seqs=seqs, seq_lens=lens, true_batch=len(items))
         if yield_indices:
             return batch, np.asarray([pos for pos, _ in items], np.int64)
@@ -142,7 +130,7 @@ def optimal_len_buckets(
     Only length-rounding waste is modeled; remainder-batch waste (the last
     partial batch per bucket) grows with k, so past ~k=40 the marginal
     rounding gain loses to fragmentation — measure end-to-end via
-    ``StaticShapeBatcher.last_stats`` when picking k.
+    ``TorchTextEncoder.stats`` when picking k.
     """
     lens = np.asarray(list(lengths), np.int64)
     if lens.size == 0:

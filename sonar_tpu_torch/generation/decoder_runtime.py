@@ -68,15 +68,9 @@ from sonar_tpu_torch.ops import cuda as kernels
 from sonar_tpu_torch.ops.cuda.graph_loop import WhileGraph
 from sonar_tpu_torch.ops.cuda.gumbel_max import M32, prng_key
 from sonar_tpu_torch.ops.gates import kernel_settings
-from sonar_tpu_torch.ops.precision import matmul_precision_for
-from sonar_tpu_torch.parallel.comm import any_over, gather_blocks, model_parallel
-from sonar_tpu_torch.parallel.mesh import (
-    SINGLE_MESH,
-    Mesh,
-    data_sharding,
-    pad_rows,
-    shard_params,
-)
+from sonar_tpu_torch.parallel.comm import any_over
+from sonar_tpu_torch.parallel.mesh import Mesh
+from sonar_tpu_torch.runtime import POW2_ROWS, SCORE_ROWS, ModelRuntime, row_split, split_rows
 from sonar_tpu_torch.utils.profiling import span
 import torch
 
@@ -235,7 +229,7 @@ class _SampleGraph(_LoopGraph):
         self.key[1].fill_(int(seed) & M32)
 
 
-class TorchTextDecoder:
+class TorchTextDecoder(ModelRuntime):
     """A ``ConditionalTransformerDecoder`` on one device (``device=None``
     means the GPU). ``decode_steps`` counts the decoder steps the decodes
     took (prefix steps included; read from each loop's device step
@@ -259,31 +253,18 @@ class TorchTextDecoder:
 
     def __init__(self, model: ConditionalTransformerDecoder, quantize: bool = False,
                  device: Any = None, mesh: Optional[Mesh] = None):
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        self.mesh = SINGLE_MESH if mesh is None else mesh
-        params = model.params.tree()
-        if quantize:
-            # The JAX runtime quantizes the checkpoint layout as it is (the
-            # decoder fuses no projections), and so does the port.
-            from sonar_tpu_torch.ops.quantization import quantize_params_int8
-
-            params = quantize_params_int8(params)
-        params = shard_params(params, self.mesh)
-        self.model = ConditionalTransformerDecoder(
-            model.config, params, dtype=model.dtype
-        ).to(self.device)
+        device = resolve_device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        # The JAX runtime quantizes the checkpoint layout as it is (the
+        # decoder fuses no projections), and so does the port.
+        super().__init__(model, model.params.tree(), quantize, device, mesh)
         self.decode_steps = 0
         self.device_steps = 0
         self._graphs: "collections.OrderedDict[Any, _LoopGraph]" = collections.OrderedDict()
         self._lock = threading.Lock()
         self._pool: Any = None
         self._free: Any = None  # the event after the last captured decode's copies
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.model.dtype
 
     @property
     def max_target_len(self) -> int:
@@ -298,28 +279,13 @@ class TorchTextDecoder:
         return upload(torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, dtype=dtype),
                       self.device)
 
-    def _rows(self, x: torch.Tensor, pad: bool = False) -> Tuple[torch.Tensor, int]:
-        """This rank's rows of a global batch padded as the JAX runtime pads
-        it (zeros, to a power of two and a multiple of ``data``) and the
-        padded row count; ``x`` itself under ``data=1`` unless ``pad``."""
-        if self.mesh.data == 1 and not pad:
-            return x, x.shape[0]
-        b_pad = pad_rows(round_up_pow2(x.shape[0]), self.mesh)
-        if b_pad != x.shape[0]:
-            x = torch.cat([x, x.new_zeros((b_pad - x.shape[0],) + tuple(x.shape[1:]))])
-        if self.mesh.data == 1:
-            return x, b_pad
-        return x[data_sharding(self.mesh, b_pad)], b_pad
-
-    def _scope(self) -> Any:
-        return model_parallel(self.mesh.model_group)
-
     def _agree(self, flag: bool) -> bool:
         return any_over(flag, self.mesh.world, self.device)
 
     def _gathered(self, *outs: torch.Tensor, rows: int) -> Tuple[np.ndarray, ...]:
-        """The outputs of every data rank in row order, the first ``rows``."""
-        return tuple(gather_blocks(t, self.mesh.data_group)[:rows].cpu().numpy() for t in outs)
+        """The outputs of every data rank in row order, the first ``rows``,
+        on the host."""
+        return tuple(self.gather(t, rows).cpu().numpy() for t in outs)
 
     # -- scoring (teacher-forced logits) --------------------------------------
 
@@ -328,10 +294,11 @@ class TorchTextDecoder:
         fp32 logits."""
         seqs_t = self._tensor(seqs, torch.int32)
         b = seqs_t.shape[0]
-        seqs_t, _ = self._rows(seqs_t)
-        lens_t = None if seq_lens is None else self._rows(self._tensor(seq_lens, torch.int32))[0]
-        mem, _ = self._rows(self._tensor(memory, torch.float32))
-        with torch.inference_mode(), matmul_precision_for(self.dtype), self._scope():
+        seqs_t = split_rows(seqs_t, self.mesh, SCORE_ROWS)
+        lens_t = (None if seq_lens is None else
+                  split_rows(self._tensor(seq_lens, torch.int32), self.mesh, SCORE_ROWS))
+        mem = split_rows(self._tensor(memory, torch.float32), self.mesh, SCORE_ROWS)
+        with self.scope():
             logits = self.model(seqs_t, lens_t, mem)
             return self._gathered(logits, rows=b)[0]
 
@@ -406,11 +373,11 @@ class TorchTextDecoder:
         with the captured program, on a card): the same setup, body and
         tail, the exit flag read after every ``chunk`` steps."""
         b = mem.shape[0]
-        mem, _ = self._rows(mem, pad=True)
+        mem = split_rows(mem, self.mesh, POW2_ROWS)
         prefix = torch.tensor(list(prefix_ids), dtype=torch.long, device=self.device)
         prefix = prefix[None, :].expand(mem.shape[0], -1)
         agree = self._agree if self.mesh.world.size > 1 else None
-        with torch.inference_mode(), matmul_precision_for(self.dtype), self._scope():
+        with self.scope():
             start, step = self._beam_program(config, len(prefix_ids))
             state = start(mem, prefix)
             ran = run_chunks(state, step, chunk, agree)
@@ -441,8 +408,7 @@ class TorchTextDecoder:
             if not cuda:
                 return _BeamHandle(self._beam_eager(mem, prefix_ids, config), None, b)
             key = _graph_key(b_pad, len(prefix_ids), _static_config(config))
-            with self._lock, torch.inference_mode(), matmul_precision_for(self.dtype), \
-                    self._scope():
+            with self._lock, self.scope():
                 # The graphs share their static buffers' pool: one decode at a
                 # time, whatever stream each caller queues on.
                 if self._free is not None:
@@ -548,8 +514,8 @@ class TorchTextDecoder:
         batch; a hook is asked for the whole padded batch's draw and each
         rank reads its rows."""
         b = mem.shape[0]
-        mem, b_pad = self._rows(mem, pad=True)
-        rows = data_sharding(self.mesh, b_pad)
+        b_pad, rows = row_split(b, self.mesh, POW2_ROWS)
+        mem = split_rows(mem, self.mesh, POW2_ROWS)
         if noise is not None and self.mesh.data > 1:
             draw = noise
 
@@ -560,7 +526,7 @@ class TorchTextDecoder:
         prefix = torch.tensor(list(prefix_ids), dtype=torch.long, device=self.device)
         prefix = prefix[None, :].expand(mem.shape[0], -1)
         agree = self._agree if self.mesh.world.size > 1 else None
-        with torch.inference_mode(), matmul_precision_for(self.dtype), self._scope():
+        with self.scope():
             start, step = self._sample_program(sampler, len(prefix_ids), max_gen_len,
                                                min_gen_len, rows.start, noise)
             state = start(mem, prefix, prng_key(seed, self.device))
@@ -603,8 +569,7 @@ class TorchTextDecoder:
         b_pad = round_up_pow2(b)
         key = _graph_key("sample", b_pad, len(prefix_ids), sampler, max_gen_len, min_gen_len)
         stream = torch.cuda.current_stream(self.device)
-        with self._lock, torch.inference_mode(), matmul_precision_for(self.dtype), \
-                self._scope():
+        with self._lock, self.scope():
             if self._free is not None:
                 stream.wait_event(self._free)
             graph = self._graph(key, lambda pool: _SampleGraph(

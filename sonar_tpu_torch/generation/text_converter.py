@@ -7,17 +7,18 @@ and SentencePiece-decoded with control tokens filtered.
 
 As in the JAX package, a batch's decode can be dispatched and resolved
 later (``dispatch_convert`` / ``finish_convert``, ``dispatch_translate``),
-and ``translate_stream`` keeps a window of batches in flight.
+and ``translate_stream`` keeps a window of batches in flight
+(``runtime.stream_in_window``).
 """
 
 from __future__ import annotations
 
-from collections import deque
-from typing import Any, Deque, Iterable, Iterator, List, Sequence
+from typing import Any, Iterable, Iterator, List, Sequence
 
 import numpy as np
 from sonar_tpu_torch.data.collate import Collater, DEFAULT_LEN_BUCKETS
 from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
+from sonar_tpu_torch.runtime import stream_in_window
 from sonar_tpu_torch.utils.profiling import span
 import torch
 
@@ -71,19 +72,6 @@ class EmbeddingToTextConverter:
             return handle
         tokens, _, lens = self.decoder.materialize_beam(handle)
         return _decode_hypotheses(self.tokenizer, tokens[:, 0], lens[:, 0])
-
-
-def stream_in_window(handles: Iterable[Any], finish: Any, window: int = 2) -> Iterator[Any]:
-    """``finish`` of each handle, in order, keeping up to ``window``
-    dispatched beyond the one being finished: the dispatch of batch i + 1
-    (pulled from ``handles``) runs before batch i is finished."""
-    pending: Deque[Any] = deque()
-    for handle in handles:
-        pending.append(handle)
-        if len(pending) > window:
-            yield finish(pending.popleft())
-    while pending:
-        yield finish(pending.popleft())
 
 
 class TextTranslator:

@@ -26,25 +26,23 @@ from __future__ import annotations
 from dataclasses import dataclass
 from fractions import Fraction
 from pathlib import Path
-import threading
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 from sonar_tpu_torch.data.audio import AudioDecoder, FileMapper
-from sonar_tpu_torch.data.collate import round_up_pow2
 from sonar_tpu_torch.data.pipeline import DataPipelineBuilder, read_sequence, read_text
-from sonar_tpu_torch.device import resolve_device, upload
+from sonar_tpu_torch.device import upload
 from sonar_tpu_torch.inference_pipelines.utils import add_progress_bar
 from sonar_tpu_torch.models.sonar_speech.model import SonarSpeechEncoder
 from sonar_tpu_torch.ops.fbank import FbankConfig, batched_fbank, num_frames
-from sonar_tpu_torch.ops.precision import matmul_precision_for
-from sonar_tpu_torch.parallel.comm import gather_blocks, model_parallel
-from sonar_tpu_torch.parallel.mesh import (
-    SINGLE_MESH,
-    Mesh,
-    data_sharding,
-    pad_rows,
-    shard_params,
+from sonar_tpu_torch.parallel.mesh import Mesh
+from sonar_tpu_torch.runtime import (
+    POW2_ROWS,
+    Counters,
+    ModelRuntime,
+    restore,
+    row_split,
+    stream_in_window,
 )
 from sonar_tpu_torch.utils.profiling import span
 import torch
@@ -78,42 +76,7 @@ def _normalize_fbank_dtype(dt: Any) -> Optional[torch.dtype]:
     raise ValueError(f"unsupported fbank_dtype: {dt!r}")
 
 
-class SpeechEncodeStats:
-    """Thread-safe counts over every ``encode_waveforms`` call: ``clips``,
-    ``batches``, the clips' Conformer positions ``true_seq`` (the sum of
-    their encoder lengths S_i, fbank frames // stride), ``true_seq_sq``
-    (the sum of S_i^2: attention grows with it) and ``padded_seq`` (rows
-    run on the device x the batch's padded S)."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.clips = 0
-        self.batches = 0
-        self.true_seq = 0
-        self.true_seq_sq = 0
-        self.padded_seq = 0
-
-    def add(self, seq_lens: np.ndarray, rows: int, seq: int) -> None:
-        """Count one batch: its clips' encoder lengths, the rows it runs
-        and its padded length."""
-        n = np.asarray(seq_lens, np.int64)
-        with self._lock:
-            self.clips += int(n.size)
-            self.batches += 1
-            self.true_seq += int(n.sum())
-            self.true_seq_sq += int((n * n).sum())
-            self.padded_seq += int(rows) * int(seq)
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            out = {"clips": self.clips, "batches": self.batches, "true_seq": self.true_seq,
-                   "true_seq_sq": self.true_seq_sq, "padded_seq": self.padded_seq}
-        p = out["padded_seq"]
-        out["padding_waste"] = round(1.0 - out["true_seq"] / p, 4) if p else 0.0
-        return out
-
-
-class TorchSpeechEncoder:
+class TorchSpeechEncoder(ModelRuntime):
     """Waveform batches -> embeddings, fbank and encoder on one device.
 
     ``quantize`` stores the linear weights as int8 with per-output-channel
@@ -126,35 +89,26 @@ class TorchSpeechEncoder:
     to a multiple of ``data``, is split over the data axis; each rank runs
     fbank and the encoder on its rows with its share of the heads and FFN
     columns, and the rows are gathered over the data group.
+
+    ``stats`` counts over every ``encode_waveforms`` call: ``clips``,
+    ``batches``, the clips' Conformer positions ``true_seq`` (the sum of
+    their encoder lengths S_i, fbank frames // stride), ``true_seq_sq``
+    (the sum of S_i^2: attention grows with it) and ``padded_seq`` (rows
+    run on the device x the batch's padded S).
     """
 
     def __init__(self, model: SonarSpeechEncoder, fbank_config: Optional[FbankConfig] = None,
                  quantize: bool = False, fbank_dtype: Any = None, device: Any = None,
                  mesh: Optional[Mesh] = None):
-        self.device = resolve_device(device)
-        self.mesh = SINGLE_MESH if mesh is None else mesh
         if fbank_config is None:
             # The mel-bin count follows the model's frontend, so every arch
             # (the 8-bin toy too) works through the pipeline.
             fbank_config = FbankConfig(num_mel_bins=model.config.frontend.num_fbank_channels)
         self.fbank_config = fbank_config
         self.fbank_dtype = _normalize_fbank_dtype(fbank_dtype)
-        params = model.params.tree()
-        if quantize:
-            from sonar_tpu_torch.ops.quantization import quantize_params_int8
-
-            params = quantize_params_int8(params)
-        params = shard_params(params, self.mesh)
-        self.model = SonarSpeechEncoder(model.config, params, dtype=model.dtype).to(self.device)
-        self.stats = SpeechEncodeStats()
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.model.dtype
-
-    @property
-    def model_dim(self) -> int:
-        return self.model.config.model_dim
+        super().__init__(model, model.params.tree(), quantize, device, mesh)
+        self.stats = Counters("clips", "batches", "true_seq", "true_seq_sq", "padded_seq",
+                              true="true_seq", padded="padded_seq")
 
     def warmup(self, batch_size: int = 3, max_wave_len: int = 160000) -> int:
         """Encode one silent batch per ``WAVE_BUCKETS`` entry up to
@@ -180,10 +134,9 @@ class TorchSpeechEncoder:
         (the encoder's launches: ``rows`` run, ``length`` the padded S) and
         ``runtime.copy_out``."""
         b = len(waves)
-        mesh = self.mesh
         with span("pipeline.batch", rows=b) as s:
             max_t = _bucket_len(max(w.shape[0] for w in waves))
-            b_pad = pad_rows(round_up_pow2(b), mesh)
+            b_pad, mine = row_split(b, self.mesh, POW2_ROWS)
             batch = np.zeros((b_pad, max_t), np.float32)
             lens = np.zeros((b_pad,), np.int32)
             for i, w in enumerate(waves):
@@ -193,24 +146,20 @@ class TorchSpeechEncoder:
         cfg, stride = self.fbank_config, self.model.config.frontend.fbank_stride
         max_frames = num_frames(max_t, cfg)
         seq = max_frames // stride
-        self.stats.add([num_frames(int(n), cfg) // stride for n in lens[:b]], b_pad, seq)
-        rows = data_sharding(mesh, b_pad)
+        clip_seq = np.asarray([num_frames(int(n), cfg) // stride for n in lens[:b]], np.int64)
+        self.stats.add(clips=b, batches=1, true_seq=clip_seq.sum(),
+                       true_seq_sq=(clip_seq * clip_seq).sum(), padded_seq=b_pad * seq)
         with span("runtime.upload"):
-            waves_t = upload(torch.from_numpy(batch[rows]), self.device)
-            lens_t = upload(torch.from_numpy(lens[rows]), self.device)
-        with torch.inference_mode(), matmul_precision_for(self.dtype), \
-                model_parallel(mesh.model_group):
+            waves_t = upload(torch.from_numpy(batch[mine]), self.device)
+            lens_t = upload(torch.from_numpy(lens[mine]), self.device)
+        with self.scope():
             with span("runtime.fbank"):
                 feats, frame_lens = batched_fbank(waves_t, lens_t, max_frames, cfg)
                 if self.fbank_dtype is not None:
                     feats = feats.to(self.fbank_dtype)
             with span("runtime.enqueue", rows=b_pad, length=seq):
-                emb = self.model(feats, frame_lens).sentence_embeddings
-                emb = gather_blocks(emb, mesh.data_group)[:b]
-        if not materialize:
-            return emb
-        with span("runtime.copy_out", rows=b):
-            return emb.float().cpu().numpy()
+                emb = self.gather(self.model(feats, frame_lens).sentence_embeddings, b)
+        return self.to_host(emb) if materialize else emb
 
 
 def _resolve_speech_encoder(encoder: Any, fbank_dtype: Any = None,
@@ -303,10 +252,7 @@ class SpeechToEmbeddingModelPipeline(SpeechModelPipelineInterface):
             results = list(iter(iterable))
             if not results:
                 return np.zeros((0, self.model.model_dim), np.float32)
-            out = np.concatenate(results, axis=0)
-            if sorting_index is not None:
-                out = out[np.argsort(sorting_index, kind="stable")]
-            return out
+            return restore(results, sorting_index)
 
 
 class SpeechToTextModelPipeline(SpeechModelPipelineInterface):
@@ -335,14 +281,11 @@ class SpeechToTextModelPipeline(SpeechModelPipelineInterface):
     ) -> List[str]:
         """Clips in arrival order, ``batch_size`` at a time: each batch is
         encoded and its embeddings go, still on the device, into the beam
-        search, with up to 2 batches in flight (``text_converter.
-        stream_in_window``): batch i + 1's fbank, encode and decode dispatch
-        run while batch i decodes."""
+        search, with up to 2 batches in flight (``runtime.stream_in_window``):
+        batch i + 1's fbank, encode and decode dispatch run while batch i
+        decodes."""
         from sonar_tpu_torch.generation.beam_search import BeamSearchConfig
-        from sonar_tpu_torch.generation.text_converter import (
-            EmbeddingToTextConverter,
-            stream_in_window,
-        )
+        from sonar_tpu_torch.generation.text_converter import EmbeddingToTextConverter
 
         gen_config = BeamSearchConfig.from_kwargs(self.decoder.max_target_len,
                                                   **generator_kwargs)

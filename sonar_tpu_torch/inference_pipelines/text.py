@@ -24,9 +24,7 @@ whole result.
 
 from __future__ import annotations
 
-from collections import deque
 from pathlib import Path
-import threading
 from typing import Any, Iterable, List, Optional, Sequence, Union
 import warnings
 
@@ -39,18 +37,18 @@ from sonar_tpu_torch.data.collate import (
     round_up_pow2,
 )
 from sonar_tpu_torch.data.pipeline import read_iterator, read_sequence, read_text
-from sonar_tpu_torch.device import resolve_device, upload
+from sonar_tpu_torch.device import upload
 from sonar_tpu_torch.inference_pipelines.utils import add_progress_bar
 from sonar_tpu_torch.models.sonar_text.model import SonarTextEncoder
 from sonar_tpu_torch.nn.core import Params
-from sonar_tpu_torch.ops.precision import matmul_precision_for
-from sonar_tpu_torch.parallel.comm import gather_blocks, model_parallel
-from sonar_tpu_torch.parallel.mesh import (
-    SINGLE_MESH,
-    Mesh,
-    data_sharding,
-    pad_rows,
-    shard_params,
+from sonar_tpu_torch.parallel.mesh import Mesh
+from sonar_tpu_torch.runtime import (
+    ENCODER_ROWS,
+    Counters,
+    ModelRuntime,
+    restore,
+    split_rows,
+    stream_in_window,
 )
 from sonar_tpu_torch.utils.profiling import span
 import torch
@@ -75,37 +73,7 @@ def _static_len_buckets_for(max_len: int) -> tuple:
 _STATIC_ENCODE_WINDOW = 64
 
 
-class EncodeStats:
-    """Thread-safe padded-vs-true token accounting over every encode call."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.batches = 0
-        self.true_tokens = 0
-        self.padded_tokens = 0
-
-    def add(self, batch: SequenceBatch) -> int:
-        """Count ``batch``; returns its true tokens."""
-        padded = int(np.prod(batch.seqs.shape))
-        true = int(np.asarray(batch.seq_lens)[: batch.true_batch].sum())
-        with self._lock:
-            self.batches += 1
-            self.true_tokens += true
-            self.padded_tokens += padded
-        return true
-
-    def snapshot(self) -> dict:
-        with self._lock:
-            b, t, p = self.batches, self.true_tokens, self.padded_tokens
-        return {
-            "batches": b,
-            "true_tokens": t,
-            "padded_tokens": p,
-            "padding_waste": round(1.0 - t / p, 4) if p else 0.0,
-        }
-
-
-class TorchTextEncoder:
+class TorchTextEncoder(ModelRuntime):
     """A ``SonarTextEncoder`` bound for serving on one device.
 
     ``fuse_qkv`` concatenates each self-attention's q/k/v projections into
@@ -124,59 +92,36 @@ class TorchTextEncoder:
     kernel gate stays as it is; under ``model > 1`` the whole-block int8
     kernels (#2, #3) are off and the attention kernels run on the rank's
     heads (``nn.transformer``).
+
+    ``stats`` counts the batches it encodes and their tokens, true and
+    padded.
     """
 
     def __init__(self, model: SonarTextEncoder, fuse_qkv: bool = True,
                  quantize: bool = False, device: Any = None, mesh: Optional[Mesh] = None):
-        self.device = resolve_device(device)
         params: Params = model.params.tree()
         if fuse_qkv:
             from sonar_tpu_torch.nn.transformer import fuse_qkv as _fuse
 
             params = _fuse(params)
-        if quantize:
-            from sonar_tpu_torch.ops.quantization import quantize_params_int8
-
-            params = quantize_params_int8(params)
-        self.mesh = SINGLE_MESH if mesh is None else mesh
-        params = shard_params(params, self.mesh)
-        self.model = SonarTextEncoder(model.config, params, dtype=model.dtype).to(self.device)
-        self.stats = EncodeStats()
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.model.dtype
-
-    @property
-    def model_dim(self) -> int:
-        return self.model.config.model_dim
+        super().__init__(model, params, quantize, device, mesh)
+        self.stats = Counters("batches", "true_tokens", "padded_tokens",
+                              true="true_tokens", padded="padded_tokens")
 
     @property
     def max_source_len(self) -> int:
         return self.model.max_source_len
 
     def _encode(self, seqs: np.ndarray, lens: np.ndarray) -> torch.Tensor:
-        mesh = self.mesh
-        seqs, lens = np.asarray(seqs), np.asarray(lens)
-        pad = pad_rows(len(seqs), mesh) - len(seqs)
-        if pad:
-            seqs = np.pad(seqs, ((0, pad), (0, 0)), constant_values=1)
-            lens = np.pad(lens, (0, pad))
-        rows = data_sharding(mesh, len(seqs))
+        """The embeddings of the global batch's rows, on the device."""
+        rows = len(seqs)
+        seqs = split_rows(np.asarray(seqs), self.mesh, ENCODER_ROWS, fill=1)
+        lens = split_rows(np.asarray(lens), self.mesh, ENCODER_ROWS)
         with span("runtime.upload"):
-            seqs_t = upload(torch.from_numpy(np.ascontiguousarray(seqs[rows], np.int32)),
-                            self.device)
-            lens_t = upload(torch.from_numpy(np.ascontiguousarray(lens[rows], np.int32)),
-                            self.device)
-        with torch.inference_mode(), matmul_precision_for(self.dtype), \
-                model_parallel(mesh.model_group):
-            emb = self.model(seqs_t, lens_t).sentence_embeddings
-            return gather_blocks(emb, mesh.data_group)
-
-    @staticmethod
-    def _to_host(emb: torch.Tensor) -> np.ndarray:
-        with span("runtime.copy_out", rows=emb.shape[0]):
-            return emb.float().cpu().numpy()
+            seqs_t = upload(torch.from_numpy(np.ascontiguousarray(seqs, np.int32)), self.device)
+            lens_t = upload(torch.from_numpy(np.ascontiguousarray(lens, np.int32)), self.device)
+        with self.scope():
+            return self.gather(self.model(seqs_t, lens_t).sentence_embeddings, rows)
 
     def warmup(self, len_buckets: Optional[Sequence[int]] = None,
                tokens_per_batch: int = 8192) -> int:
@@ -197,17 +142,17 @@ class TorchTextEncoder:
     def encode_batch(self, batch: SequenceBatch, materialize: bool = True) -> Any:
         """Embeddings of the batch's real rows; ``materialize=False`` keeps
         them on the device."""
-        tokens = self.stats.add(batch)
+        tokens = int(np.asarray(batch.seq_lens)[: batch.true_batch].sum())
+        self.stats.add(batches=1, true_tokens=tokens, padded_tokens=np.prod(batch.seqs.shape))
         with span("runtime.enqueue", rows=batch.true_batch, length=batch.seqs.shape[1],
                   tokens=tokens):
             emb = self._encode(batch.seqs, batch.seq_lens)[: batch.true_batch]
-        return self._to_host(emb) if materialize else emb
+        return self.to_host(emb) if materialize else emb
 
     def encode_batches(self, batches: List[SequenceBatch]) -> List[np.ndarray]:
         """Encode many batches: all are enqueued on the device before the
         first result is copied out."""
-        pending = [self.encode_batch(b, materialize=False) for b in batches]
-        return [self._to_host(e) for e in pending]
+        return self.encode_batches_iter(batches, max_pending=len(batches))
 
     def encode_batches_iter(self, batch_iter: Iterable[SequenceBatch],
                             max_pending: int = 64) -> List[np.ndarray]:
@@ -215,14 +160,8 @@ class TorchTextEncoder:
         from a (typically prefetch-threaded) iterator; at most
         ``max_pending`` results wait on the device, oldest copied out first.
         Returns per-batch embeddings in input order."""
-        out: List[np.ndarray] = []
-        pending: deque = deque()
-        for b in batch_iter:
-            pending.append(self.encode_batch(b, materialize=False))
-            while len(pending) > max_pending:
-                out.append(self._to_host(pending.popleft()))
-        out.extend(self._to_host(e) for e in pending)
-        return out
+        return list(stream_in_window((self.encode_batch(b, materialize=False)
+                                      for b in batch_iter), self.to_host, max_pending))
 
 
 def _resolve_encoder(encoder: Any, dtype: Any = None, device: Any = None) -> TorchTextEncoder:
@@ -368,9 +307,9 @@ class TextToEmbeddingModelPipeline:
                 if not embs:
                     return empty
                 with span("pipeline.restore") as s:
-                    out = np.concatenate(embs, axis=0)
+                    out = restore(embs, np.concatenate(positions))
                     s.set(rows=len(out))
-                    return out[np.argsort(np.concatenate(positions), kind="stable")]
+                    return out
 
             collater = Collater(pad_idx, len_buckets=_len_buckets_for(max_seq_len))
             pipeline = (
@@ -399,10 +338,8 @@ class TextToEmbeddingModelPipeline:
             if not results:
                 return empty
             with span("pipeline.restore") as s:
-                embeddings = np.concatenate(results, axis=0)
+                embeddings = restore(results, sorting_index)
                 s.set(rows=len(embeddings))
-                if sorting_index is not None:
-                    embeddings = embeddings[np.argsort(sorting_index, kind="stable")]
             return embeddings
 
 

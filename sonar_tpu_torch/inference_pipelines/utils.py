@@ -1,8 +1,8 @@
 """Pipeline utilities (``sonar_tpu.inference_pipelines.utils``).
 
 The JAX package's ``precision_context`` has its counterpart in
-``sonar_tpu_torch.ops.precision.matmul_precision_for``, which every runtime
-of the port enters itself.
+``sonar_tpu_torch.ops.precision.matmul_precision_for``, which every model
+runtime of the port enters in its scope (``runtime.ModelRuntime.scope``).
 """
 
 from __future__ import annotations

@@ -39,7 +39,6 @@ from sonar_tpu_torch.generation.decoder_runtime import TorchTextDecoder  # noqa:
 from sonar_tpu_torch.generation.text_converter import (  # noqa: E402
     EmbeddingToTextConverter,
     TextTranslator,
-    stream_in_window,
 )
 from sonar_tpu_torch.models.sonar_text import (  # noqa: E402
     sonar_text_decoder_archs,
@@ -47,6 +46,7 @@ from sonar_tpu_torch.models.sonar_text import (  # noqa: E402
 )
 from sonar_tpu_torch.nn import position as tpos  # noqa: E402
 from sonar_tpu_torch.nn import transformer as ttr  # noqa: E402
+from sonar_tpu_torch.runtime import stream_in_window  # noqa: E402
 from sonar_tpu_torch.tokenizers.nllb import NllbTokenizer  # noqa: E402
 
 TEXTS = ["hello world", "my name is paul", "i work as a teacher", "bonjour", "the cat sat",
