@@ -21,7 +21,7 @@ Phases, each printing ``#`` lines:
     sm_90a) and prints the build time and the compiler's register report;
 (c) kernels: the bf16 attention core's softmax division against
     ``__fdiv_rn``, bit for bit, on 2^36 operand pairs (``csrc/div_check.cu``);
-    each of the eleven kernels against its plain PyTorch version on
+    each of the twelve kernels against its plain PyTorch version on
     the card, at the main paths' shapes, with the tolerance stated, and
     both timed with CUDA events (plain, kernel, kernel, plain; the kernels
     line gives each kernel's first timed shape, v2 is timed in fp32 too),
@@ -72,6 +72,12 @@ Phases, each printing ``#`` lines:
     kernel) at [32, 256206] and [128, 256206] over 48 steps, its noise and
     tokens equal to the plain version's bit for bit, timed at [32, 256206]
     beside its bound (integer operations over the INT32 lanes' rate);
+    ``add_layer_norm`` (the Conformer block's residual add + LayerNorm,
+    which replaces no Pallas kernel) at the speech cell's rows of 1,024 in
+    bf16 (M 3,184, 15,984, 31,984; with x_out, without, without a branch)
+    and fp32 (M 3,184), x_out equal to the eager sum bit for bit, each bf16
+    shape timed warm and with a cold L2 beside its bytes bound, the plain
+    version and ``layer_norm`` after an add (a yardstick);
 (d) the slice: the ``basic`` SONAR text encoder at full width (24 layers,
     D 1024, 16 heads, FFN 8192, vocabulary 256,206) with seeded random
     weights, behind ``TextToEmbeddingModelPipeline.predict`` with a
@@ -93,7 +99,8 @@ Phases, each printing ``#`` lines:
     3-20 s and 8 of 25-40 s (the v2 kernel, S up to 1999), 8 of 45-50 s
     (plain, S 2499). bf16 and fp32; clips/s and RTFx; the launch counters
     and the plain-path calls are zeroed before and read after each run:
-    v2 and the plain path must be > 0. Four clips (1.5, 2, 2.5 s in one
+    v2 and the plain path must be > 0, ``add_layer_norm`` 5 a layer in
+    every batch. Four clips (1.5, 2, 2.5 s in one
     batch with a padding row; 10 s alone) are held against the same
     pipeline on the CPU: cosine >= 0.999 in bf16, max-abs <= 1e-3 of the
     embeddings' scale in fp32.
@@ -370,6 +377,10 @@ KERNELS = {  # name -> (CUDA source, TPU kernel it replaces, wrapper module, its
     # computes in the JAX package.
     "gumbel_max": ("sonar_tpu_torch/csrc/gumbel_max.cu", "sonar_tpu/generation/sampling.py:123",
                    "gumbel_max", "LAUNCHES"),
+    # No Pallas kernel: the Conformer block's residual adds and LayerNorms,
+    # which XLA fuses in the JAX package.
+    "add_layer_norm": ("sonar_tpu_torch/csrc/add_layer_norm.cu",
+                       "sonar_tpu/nn/conformer.py:353", "layer_norm", "LAUNCHES"),
 }
 # Kernels that no driven path launches (no JAX path calls them either): their
 # counts are read like the others' and must stay 0.
@@ -1258,6 +1269,51 @@ def check_kernels(torch):
                 f"({bound_by}); {bound_ms / k_ms:.1%} of the bound")
         del lp, nucleus, noise, want_noise
 
+    # K13 (replaces no Pallas kernel): the Conformer block's residual add +
+    # LayerNorm, x_out = x + s * f and ln = LN(x_out), at the speech cell's
+    # batches (rows of 1,024 in bf16: M 3,184, 15,984 and 31,984, the
+    # parameters in bf16 as the model stores them), with x_out (s 0.5),
+    # without it, and without a branch (the block's first LN); in fp32 at
+    # M 3,184. x_out equal to the eager `x + s * f` bit for bit; ln to one
+    # bf16 ulp of the output scale (2^-7; fp32 1e-5: the two differ only by
+    # the order of the fp32 sums), row cosine >= 0.99999. Timed beside the
+    # plain version (the eager composition) and, as a yardstick only (the
+    # port never calls it), torch.nn.functional.layer_norm after an add; warm
+    # and with a cold L2. Bound: the bytes over 3.35 TB/s (4, 3 and 2 rows
+    # of D sizeof(T)) against 10 fp32 operations an element.
+    from sonar_tpu_torch.ops.cuda import layer_norm as aln
+
+    for dt, ms in ((bf16, (3184, 15984, 31984)), (f32, (3184,))):
+        dm = 1024
+        lnp = {"weight": (1 + rand(dm, scale=0.1)).to(dt), "bias": rand(dm, scale=0.1).to(dt)}
+        for m in ms:
+            x, br = rand(m, dm, dtype=dt), rand(m, dm, dtype=dt)
+            for case, branch, scale, want_sum, rows in (("x_out", br, 0.5, True, 4),
+                                                        ("no x_out", br, 0.5, False, 3),
+                                                        ("no branch", None, 1.0, False, 2)):
+                got_sum, _ = aln.add_layer_norm(x, branch, lnp, scale, want_sum)
+                eager_sum, _ = aln.add_layer_norm_plain(x, branch, lnp, scale)
+                if want_sum and not torch.equal(got_sum, eager_sum):
+                    failures.append(f"add_layer_norm [{m},{dm}] x_out")
+                    log(f"check add_layer_norm [{m},{dm}] {str(dt)[6:]}: x_out differs from "
+                        f"the eager sum FAIL")
+                added = (lambda: x + scale * br) if branch is not None else (lambda: x)
+                check("add_layer_norm", f"[{m},{dm}] {str(dt)[6:]} {case}",
+                      lambda: aln.add_layer_norm(x, branch, lnp, scale, want_sum),
+                      lambda: aln.add_layer_norm_plain(x, branch, lnp, scale, want_sum),
+                      2.0 ** -7, 0.99999, timed=dt == bf16, atol=1e-5 if dt == f32 else None,
+                      pick=lambda out: out[1],
+                      cost=(rows * nbytes(x), {"fp32": 10 * m * dm}),
+                      library_fn=lambda: F.layer_norm(added(), (dm,), lnp["weight"],
+                                                      lnp["bias"], 1e-5))
+                if dt == bf16:
+                    cold = _timed_cold(torch, lambda: aln.add_layer_norm(
+                        x, branch, lnp, scale, want_sum), 21)
+                    bound_ms = rows * nbytes(x) / HBM_BYTES_S * 1e3
+                    log(f"time add_layer_norm [{m},{dm}] bf16 {case} cold L2: {cold:.4f} ms, "
+                        f"{bound_ms / cold:.1%} of the bound")
+            del x, br
+
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return results
@@ -1505,11 +1561,13 @@ def run_speech(torch, card, handoff):
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         conformer.PLAIN_CALLS = 0
+        batches = pipe.model.stats.snapshot()["batches"]
         t0 = time.perf_counter()
         emb = pipe.predict(clips, batch_size=8)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts, plain = read_launches(), conformer.PLAIN_CALLS
+        batches = pipe.model.stats.snapshot()["batches"] - batches
         v2 = counts["relpos_flash_attention_v2"]
         launches = {name: launches[name] + counts[name] for name in KERNELS}
         if emb.shape != (len(clips), cfg.model_dim) or not np.isfinite(emb).all():
@@ -1523,6 +1581,11 @@ def run_speech(torch, card, handoff):
         if v2 == 0 or plain == 0:
             raise AssertionError(f"speech {mode}: a rel-pos path was not taken (v2 {v2}, "
                                  f"plain {plain})")
+        # Every block's five residual adds + LayerNorms, in every batch.
+        if counts["add_layer_norm"] != 5 * c.num_layers * batches:
+            raise AssertionError(f"speech {mode}: add_layer_norm launched "
+                                 f"{counts['add_layer_norm']} times over {batches} batches of "
+                                 f"{c.num_layers} layers, not 5 a layer")
         on_card = pipe.predict(ref, batch_size=3)
 
         t0 = time.perf_counter()

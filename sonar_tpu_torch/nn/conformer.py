@@ -26,6 +26,13 @@ takes ``rel_pos_attend_plain``, the math of the JAX package's XLA lowering.
 trained r_proj is never read through a stale copy. ``conformer_stack(remat=
 True)`` recomputes each block in the backward pass.
 
+Each residual add and the LayerNorm after it are one call
+(``ops.cuda.layer_norm``): five a block, the first an LN alone. A
+contiguous CUDA x of a width the kernel takes (D a multiple of 256 up to
+2048, bf16 or fp32) goes through ``add_layer_norm``, one launch each,
+unless autograd records or a ``no_cuda_kernels()`` scope is on; otherwise
+``add_layer_norm_plain`` runs the JAX block's expression as it stands.
+
 Under a model split (``parallel.comm.model_parallel``) a rank runs its
 H / model heads and its share of each half-FFN's columns, as in
 ``nn.transformer``; r_proj, u_bias and v_bias stay whole (as in the JAX
@@ -42,9 +49,10 @@ import math
 from typing import Callable, Optional, Tuple
 
 import numpy as np
-from sonar_tpu_torch.nn.core import Params, layer_norm, linear, row_linear
+from sonar_tpu_torch.nn.core import Params, linear, row_linear
 from sonar_tpu_torch.nn.transformer import _merge_heads, _split_heads, local_heads, run_layers
 from sonar_tpu_torch.ops.attention import softmax
+from sonar_tpu_torch.ops.cuda import layer_norm as aln
 from sonar_tpu_torch.ops.gates import attention_impl, kernels_allowed
 from sonar_tpu_torch.parallel.comm import Group, copy_to_group, model_group
 import torch
@@ -274,6 +282,20 @@ def _half_ffn(params: Params, x: torch.Tensor) -> torch.Tensor:
     return row_linear(params["output_proj"], h * torch.sigmoid(h), group)
 
 
+_LAYER_NORMS = ("ffn1_layer_norm", "self_attn_layer_norm", "conv_layer_norm",
+                "ffn2_layer_norm", "layer_norm")
+
+
+def _use_add_ln_kernel(params: Params, x: torch.Tensor) -> bool:
+    """Each residual add and the LayerNorm after it go to ``add_layer_norm``
+    (one launch) for a contiguous CUDA x of a width and dtype the kernel
+    takes, unless autograd records or a ``no_cuda_kernels()`` scope is on;
+    otherwise the block runs the eager expression."""
+    lns = [params[name] for name in _LAYER_NORMS]
+    return (x.is_cuda and x.is_contiguous() and all(aln.kernel_takes(x, p) for p in lns)
+            and kernels_allowed(x, *(t for p in lns for t in (p["weight"], p["bias"]))))
+
+
 def conformer_block(
     params: Params,
     x: torch.Tensor,
@@ -281,12 +303,17 @@ def conformer_block(
     pad_mask: Optional[torch.Tensor],
     cfg: ConformerConfig,
 ) -> torch.Tensor:
-    x = x + 0.5 * _half_ffn(params["ffn1"], layer_norm(params["ffn1_layer_norm"], x))
-    x = x + rel_pos_attention(params["self_attn"], layer_norm(params["self_attn_layer_norm"], x),
-                              attn_bias, cfg)
-    x = x + conv_module(params["conv"], layer_norm(params["conv_layer_norm"], x), pad_mask)
-    x = x + 0.5 * _half_ffn(params["ffn2"], layer_norm(params["ffn2_layer_norm"], x))
-    return layer_norm(params["layer_norm"], x)
+    """x + 0.5 ffn1 -> + attention -> + conv -> + 0.5 ffn2 -> LayerNorm, each
+    residual add fused with the LayerNorm that follows it: (x, h) =
+    add_ln(x, branch(h)) is x + scale * branch(h) and the next sub-block's
+    LN of that sum."""
+    add_ln = aln.add_layer_norm if _use_add_ln_kernel(params, x) else aln.add_layer_norm_plain
+    _, h = add_ln(x, None, params["ffn1_layer_norm"], want_sum=False)
+    x, h = add_ln(x, _half_ffn(params["ffn1"], h), params["self_attn_layer_norm"], 0.5)
+    x, h = add_ln(x, rel_pos_attention(params["self_attn"], h, attn_bias, cfg),
+                  params["conv_layer_norm"])
+    x, h = add_ln(x, conv_module(params["conv"], h, pad_mask), params["ffn2_layer_norm"])
+    return add_ln(x, _half_ffn(params["ffn2"], h), params["layer_norm"], 0.5, want_sum=False)[1]
 
 
 def conformer_stack(

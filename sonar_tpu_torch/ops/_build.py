@@ -56,6 +56,7 @@ _SIGNATURES = {
     "sonar_graph_while": [_P, _P, ctypes.POINTER(_P)],
     "sonar_graph_launch": [_P, _P],
     "sonar_graph_exec_destroy": [_P],
+    "sonar_add_layer_norm": [_P, _P, _I, _LL, _I, ctypes.c_float, _P, _P, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

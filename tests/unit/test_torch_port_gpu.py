@@ -25,6 +25,7 @@ from sonar_tpu_torch.ops.cuda import (  # noqa: E402
     beam_attend,
     ffn,
     flash,
+    layer_norm,
     relpos_flash,
     short_attn,
 )
@@ -937,6 +938,174 @@ def test_no_path_launches_the_half_ffn(dev):
     assert beam_attend.MASKED_LAUNCHES > masked
 
 
+# The residual add + LayerNorm (csrc/add_layer_norm.cu): x_out bit for bit
+# as the eager `x + s * f`; ln bit for bit as a mirror of the kernel's
+# order of fp32 sums (per lane over its vectors, then the warp's xor
+# butterfly; the rest of the eager path's roundings as they are). Against
+# the eager path's ln, which differs only by the order of those sums: bf16
+# within one bf16 ulp at the larger of the output and its terms (|v| +
+# |mean|) rstd |w| + |b|; fp32 to max-abs 1e-5 (outputs of scale ~1-8; the
+# two orders move the mean and the variance by a few fp32 ulps, so an
+# output near a cancellation moves by more ulps of its own than one).
+
+
+def _ulp(v, dtype):
+    mant = 7 if dtype == torch.bfloat16 else 23
+    a = v.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - mant)
+
+
+def _add_ln_mirror(v, params, dtype):
+    """LN of the fp32 rows ``v`` (the sums as T gives them) in the kernel's
+    order: lane l sums its values of vectors l, l + 32, ... in turn, then
+    the warp adds lanes l and l ^ o for o = 16 .. 1. -> (ln in ``dtype``,
+    the scale of its terms)."""
+    m, d = v.shape
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+    vv = v.view(m, d // (32 * e), 32, e)
+    lane = torch.arange(32, device=v.device)
+    dd = torch.tensor(float(d), device=v.device)
+
+    def mean_of(terms):
+        s = torch.zeros(m, 32, device=v.device)
+        for j in range(vv.shape[1]):
+            for k in range(e):
+                s = s + terms(vv[:, j, :, k])
+        for o in (16, 8, 4, 2, 1):
+            s = s + s[:, lane ^ o]
+        return s[:, :1] / dd
+
+    mean = mean_of(lambda t: t)
+    rstd = torch.rsqrt(mean_of(lambda t: (t - mean) * (t - mean)) + 1e-5)
+    w, b = params["weight"].float(), params["bias"].float()
+    y = ((v - mean) * rstd) * w + b
+    return y.to(dtype), (v.abs() + mean.abs()) * rstd * w.abs() + b.abs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 7, 3184, 31984])
+@pytest.mark.parametrize("d", [256, 1024, 2048])
+@pytest.mark.parametrize("case", ["sum", "no_sum", "no_branch"])
+def test_add_layer_norm_kernel(dev, dtype, m, d, case):
+    """M 1 to the speech cell's 31,984 rows, D 256 to 2048, both dtypes,
+    with and without x_out, without a branch; the parameters in x's dtype
+    and (without x_out) in fp32."""
+    x = _rand(dev, m, d, scale=2.0, dtype=dtype) + 0.25
+    branch = None if case == "no_branch" else _rand(dev, m, d, scale=1.5, dtype=dtype, seed=1)
+    pdt = torch.float32 if case == "no_sum" else dtype
+    params = {"weight": (_rand(dev, d, scale=0.3, seed=2) + 1).to(pdt),
+              "bias": _rand(dev, d, scale=0.2, seed=3).to(pdt)}
+    res_scale = 0.5 if case == "sum" else 1.0
+    got_sum, got_ln = _launched(layer_norm, lambda: layer_norm.add_layer_norm(
+        x, branch, params, res_scale, want_sum=case != "no_sum"))
+    want_sum, want_ln = layer_norm.add_layer_norm_plain(x, branch, params, res_scale)
+    if case == "sum":
+        assert got_sum.dtype == dtype and torch.equal(got_sum, want_sum)
+    elif case == "no_sum":
+        assert got_sum is None
+    else:
+        assert got_sum is x
+    mirror, terms = _add_ln_mirror(want_sum.float(), params, dtype)
+    assert got_ln.dtype == dtype and torch.equal(got_ln, mirror)
+    diff = (got_ln.float() - want_ln.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5
+    else:
+        assert (diff <= _ulp(torch.maximum(want_ln.float().abs(), terms), dtype)).all()
+
+
+@pytest.mark.gpu
+def test_add_layer_norm_raises_on_what_the_kernel_does_not_take(dev):
+    def args(d, dtype=torch.bfloat16, pdt=None):
+        return (_rand(dev, 8, d, dtype=dtype), _rand(dev, 8, d, dtype=dtype, seed=1),
+                {"weight": _rand(dev, d, seed=2).to(pdt or dtype),
+                 "bias": _rand(dev, d, seed=3).to(pdt or dtype)})
+
+    for d in (96, 4096):
+        with pytest.raises(ValueError):
+            layer_norm.add_layer_norm(*args(d))
+    x, branch, params = args(1024)
+    with pytest.raises(ValueError):  # a non-contiguous x
+        layer_norm.add_layer_norm(x.t().contiguous().t(), branch, params)
+    with pytest.raises(ValueError):  # a dtype outside _KIND
+        layer_norm.add_layer_norm(*args(1024, torch.float16))
+    with pytest.raises(ValueError):  # a branch of another shape
+        layer_norm.add_layer_norm(x, branch[:4], params)
+    with pytest.raises(ValueError):  # fp32 x, bf16 parameters
+        layer_norm.add_layer_norm(*args(1024, torch.float32, torch.bfloat16))
+
+
+def _full_width_conformer(dev, dtype, layers):
+    """``layers`` Conformer blocks of the ``english`` encoder's widths (D
+    1024, 16 heads of 64, FFN 4096, kernel 31) from seeded numpy weights,
+    their LayerNorms and batch-norm not the identity."""
+    import dataclasses
+
+    import numpy as np
+
+    from sonar_tpu_torch.assets.convert import init_speech_encoder_params
+    from sonar_tpu_torch.models.sonar_speech import sonar_speech_encoder_archs
+    from sonar_tpu_torch.nn import conformer
+
+    base = sonar_speech_encoder_archs.get("english")
+    cfg = dataclasses.replace(base.conformer, num_layers=layers)
+    tree = init_speech_encoder_params(dataclasses.replace(base, conformer=cfg),
+                                      seed=0)["encoder"]["layers"]
+    rng = np.random.default_rng(1)
+    d = cfg.model_dim
+    for name in conformer._LAYER_NORMS:
+        tree[name] = {"weight": rng.uniform(0.5, 1.5, (layers, d)).astype(np.float32),
+                      "bias": (rng.standard_normal((layers, d)) * 0.1).astype(np.float32)}
+    tree["conv"]["batch_norm"]["running_var"] = rng.uniform(0.5, 1.5, (layers, d)).astype(
+        np.float32)
+
+    def to_torch(node):
+        if isinstance(node, dict):
+            return {k: to_torch(v) for k, v in node.items()}
+        return torch.from_numpy(np.asarray(node)).to(device=dev, dtype=dtype)
+
+    return to_torch(tree), cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conformer_block_takes_add_layer_norm(dev, dtype, monkeypatch):
+    """Two full-width Conformer blocks at [4, 300]: 5 launches of the
+    residual add + LN a layer, #6's too, and the eager block's output at
+    the #6 block tests' tolerance (cosine >= 0.9999 a row, max-abs within
+    2e-2 of the scale); under autograd no launch, and a backward."""
+    from sonar_tpu_torch.nn import conformer
+    from sonar_tpu_torch.ops import masks
+
+    stacked, cfg = _full_width_conformer(dev, dtype, 2)
+    x = _rand(dev, 4, 300, 1024, dtype=dtype, seed=4)
+    mask = masks.length_mask(torch.tensor([300, 251, 130, 7], device=dev), 300)
+    bias = masks.additive_bias(mask)[:, None, None, :]
+    with torch.inference_mode():
+        before, rel = layer_norm.LAUNCHES, relpos_flash.LAUNCHES
+        got = conformer.conformer_stack(stacked, x, bias, mask, cfg)
+        torch.cuda.synchronize()
+        assert layer_norm.LAUNCHES == before + 5 * 2
+        assert relpos_flash.LAUNCHES == rel + 2
+        monkeypatch.setattr(conformer, "_use_add_ln_kernel", lambda *a: False)
+        want = conformer.conformer_stack(stacked, x, bias, mask, cfg)
+        assert layer_norm.LAUNCHES == before + 5 * 2
+        monkeypatch.undo()
+    rows = mask.reshape(-1)
+    _assert_close(got.reshape(-1, 1024), want.reshape(-1, 1024), rows=rows)
+    scale = want.float()[mask].abs().max().item()
+    assert (got.float() - want.float())[mask].abs().max().item() <= 2e-2 * scale
+    leaves = [t.requires_grad_(True) for t in (stacked["layer_norm"]["weight"],
+                                                stacked["ffn1"]["inner_proj"]["kernel"])]
+    before = layer_norm.LAUNCHES
+    out = conformer.conformer_stack(stacked, x, bias, mask, cfg)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert layer_norm.LAUNCHES == before
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
+
+
 @pytest.mark.gpu
 def test_sampling_card_matches_cpu(dev):
     """Top-p sampling of a small decoder on the card and on the CPU, the
@@ -1144,7 +1313,7 @@ def _all_launches():
     return (short_attn.LAUNCHES, flash.LAUNCHES, attn_block.LAUNCHES, ffn.LAUNCHES,
             ffn.BF16_LAUNCHES, relpos_flash.LAUNCHES, relpos_flash.V1_LAUNCHES,
             beam_attend.MASKED_LAUNCHES, beam_attend.DIAG_LAUNCHES,
-            beam_attend.REORDER_LAUNCHES)
+            beam_attend.REORDER_LAUNCHES, layer_norm.LAUNCHES)
 
 
 def _wide_translation(dtype, device, s):
