@@ -12,7 +12,8 @@ runtime does, and runs one device program per batch, as JAX's
 the prefix steps) and one step of its body (``generation.beam_search.
 beam_step``, which reads nothing back to the host) are captured as CUDA
 graphs (``torch.cuda.CUDAGraph``) once per (padded batch, prefix length,
-static config, kernel settings), and a decode replays the setup, then loops
+static config, kernel settings; and, for a sequence memory, its padded
+length), and a decode replays the setup, then loops
 the step on the card until its exit flag says done (a conditional WHILE
 node, ``ops.cuda.graph_loop``). A replay launches the kernels its capture
 recorded, so the key holds ``ops.gates.kernel_settings()`` read at call
@@ -70,7 +71,14 @@ from sonar_tpu_torch.ops.cuda.gumbel_max import M32, prng_key
 from sonar_tpu_torch.ops.gates import kernel_settings
 from sonar_tpu_torch.parallel.comm import any_over
 from sonar_tpu_torch.parallel.mesh import Mesh
-from sonar_tpu_torch.runtime import POW2_ROWS, SCORE_ROWS, ModelRuntime, row_split, split_rows
+from sonar_tpu_torch.runtime import (
+    POW2_ROWS,
+    SCORE_ROWS,
+    Counters,
+    ModelRuntime,
+    row_split,
+    split_rows,
+)
 from sonar_tpu_torch.utils.profiling import span
 import torch
 
@@ -85,6 +93,22 @@ import torch
 # [B, V] log-probabilities and its sort's buffers. The intermediates of all
 # of a runtime's graphs share one memory pool.
 MAX_GRAPHS = 8
+
+# The lengths a sequence memory (an encoder-decoder model's source, with its
+# lengths) is padded to on the card: one captured program, and one cache,
+# serves every source up to 128 tokens.
+MEMORY_BUCKETS = (128, 256, 512, 1024)
+
+
+def memory_bucket(length: int) -> int:
+    """The padded length of a sequence memory of ``length`` positions (1
+    for the SONAR decoder's length-1 memory)."""
+    if length == 1:
+        return 1
+    for b in MEMORY_BUCKETS:
+        if length <= b:
+            return b
+    return length
 
 
 def _graph_key(*parts: Any) -> Tuple[Any, ...]:
@@ -146,17 +170,22 @@ def _static_config(config: BeamSearchConfig) -> BeamSearchConfig:
 
 
 class _LoopGraph:
-    """A captured decode of one key: static inputs (memory [B, 1, D] and
-    prefix [B, P], zero and EOS until ``load`` fills them), the setup graph,
+    """A captured decode of one key: static inputs (memory [B, S_mem, D],
+    S_mem 1 for the SONAR decoder's embedding or a source's padded length
+    (``memory_bucket``), with its lengths [B] for a sequence memory, and
+    prefix [B, P]; zero and EOS until ``load`` fills them), the setup graph,
     whose outputs are the cache and the loop's state, and ``loop``, which
     steps that state in place on the card until it is done.
     ``setup_launches`` / ``step_launches``: the kernels one replay of the
     setup and one step launch, by ``ops.cuda`` counter."""
 
-    def __init__(self, runtime: "TorchTextDecoder", b_pad: int, prefix_len: int):
+    def __init__(self, runtime: "TorchTextDecoder", b_pad: int, prefix_len: int,
+                 mem_len: int = 1):
         dev = runtime.device
-        self.mem = torch.zeros((b_pad, 1, runtime.model.config.model_dim), dtype=torch.float32,
-                               device=dev)
+        self.mem = torch.zeros((b_pad, mem_len, runtime.model.config.model_dim),
+                               dtype=torch.float32, device=dev)
+        self.mem_lens = (torch.ones((b_pad,), dtype=torch.int32, device=dev) if mem_len > 1
+                         else None)
         self.prefix = torch.full((b_pad, prefix_len), runtime.vocab_info.eos_idx,
                                  dtype=torch.long, device=dev)
 
@@ -184,11 +213,19 @@ class _LoopGraph:
             step(self.state)
         self.loop = WhileGraph(body, self.state.done)
 
-    def load(self, mem: torch.Tensor, prefix_ids: Sequence[int]) -> None:
+    def load(self, mem: torch.Tensor, prefix_ids: Sequence[int],
+             mem_lens: Optional[torch.Tensor] = None) -> None:
         """Copy one call's inputs into the static buffers (zero rows past
-        ``mem``'s, as the JAX runtime pads)."""
-        b = mem.shape[0]
-        self.mem[:b].copy_(mem)
+        ``mem``'s, as the JAX runtime pads; a sequence memory's positions
+        past its length zero too, and a padding row one position long)."""
+        b, s = mem.shape[0], mem.shape[1]
+        if self.mem_lens is None:
+            self.mem[:b].copy_(mem)
+        else:
+            self.mem[:b, :s].copy_(mem)
+            self.mem[:b, s:].zero_()
+            self.mem_lens[:b].copy_(mem_lens)
+            self.mem_lens[b:].fill_(1)
         self.mem[b:].zero_()
         for j, tok in enumerate(prefix_ids):
             self.prefix[:, j].fill_(int(tok))
@@ -199,14 +236,15 @@ class _BeamGraph(_LoopGraph):
     penalties, so that one capture serves every value."""
 
     def __init__(self, runtime: "TorchTextDecoder", b_pad: int, prefix_len: int,
-                 config: BeamSearchConfig, pool: Any):
-        super().__init__(runtime, b_pad, prefix_len)
+                 config: BeamSearchConfig, pool: Any, mem_len: int = 1):
+        super().__init__(runtime, b_pad, prefix_len, mem_len)
         self.knobs = beam_knobs(config, runtime.device)
         start, step = runtime._beam_program(config, prefix_len, self.knobs)
-        self._capture(runtime, start, step, (self.mem, self.prefix), pool)
+        self._capture(runtime, start, step, (self.mem, self.prefix, self.mem_lens), pool)
 
-    def load(self, mem: torch.Tensor, prefix_ids: Sequence[int], config: BeamSearchConfig) -> None:
-        super().load(mem, prefix_ids)
+    def load(self, mem: torch.Tensor, prefix_ids: Sequence[int], config: BeamSearchConfig,
+             mem_lens: Optional[torch.Tensor] = None) -> None:
+        super().load(mem, prefix_ids, mem_lens)
         for knob, value in zip(self.knobs, (config.len_penalty, config.unk_penalty,
                                             config.min_gen_len)):
             knob.fill_(value)
@@ -258,13 +296,18 @@ class TorchTextDecoder(ModelRuntime):
             device = torch.device("cuda", torch.cuda.current_device())
         # The JAX runtime quantizes the checkpoint layout as it is (the
         # decoder fuses no projections), and so does the port.
-        super().__init__(model, model.params.tree(), quantize, device, mesh)
+        super().__init__(model, self._runtime_params(model), quantize, device, mesh)
         self.decode_steps = 0
         self.device_steps = 0
         self._graphs: "collections.OrderedDict[Any, _LoopGraph]" = collections.OrderedDict()
         self._lock = threading.Lock()
         self._pool: Any = None
         self._free: Any = None  # the event after the last captured decode's copies
+
+    @staticmethod
+    def _runtime_params(model: Any) -> Any:
+        """The weight tree this runtime places (the model's, as it is)."""
+        return model.params.tree()
 
     @property
     def max_target_len(self) -> int:
@@ -318,21 +361,28 @@ class TorchTextDecoder(ModelRuntime):
         return config
 
     def warmup(self, config: BeamSearchConfig, prefix_len: int = 2,
-               batch_sizes: Sequence[int] = (32,)) -> int:
+               batch_sizes: Sequence[int] = (32,), memory_len: int = 1) -> int:
         """Run one beam decode per batch size (this builds the CUDA kernels
-        and captures the beam program of each padded batch); returns the
-        number of batch sizes."""
+        and captures the beam program of each padded batch; ``memory_len``
+        > 1: over a sequence memory of that length, for an encoder-decoder
+        model); returns the number of batch sizes."""
         eos = self.vocab_info.eos_idx
         d = self.model.config.model_dim
         for b in batch_sizes:
-            self.generate_beam(np.zeros((b, 1, d), np.float32), [eos] * prefix_len, config)
+            lens = np.full((b,), memory_len, np.int32) if memory_len > 1 else None
+            self.generate_beam(np.zeros((b, memory_len, d), np.float32), [eos] * prefix_len,
+                               config, memory_lens=lens)
         return len(tuple(batch_sizes))
 
-    def generate_beam(self, memory: Any, prefix_ids: Sequence[int],
-                      config: BeamSearchConfig) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """memory: [B, 1, D] (numpy or a tensor, which may stay on the
-        device); returns (tokens [B, K, T], scores [B, K], lens [B, K])."""
-        return self.materialize_beam(self.generate_beam_async(memory, prefix_ids, config))
+    def generate_beam(self, memory: Any, prefix_ids: Sequence[int], config: BeamSearchConfig,
+                      memory_lens: Any = None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """memory: [B, 1, D] (the SONAR decoder's embedding) or a sequence
+        memory [B, S_mem, D] with its lengths ``memory_lens`` [B] (an
+        encoder-decoder model's source), numpy or tensors, which may stay
+        on the device; returns (tokens [B, K, T], scores [B, K], lens [B,
+        K])."""
+        return self.materialize_beam(self.generate_beam_async(memory, prefix_ids, config,
+                                                              memory_lens))
 
     def _search_config(self, config: BeamSearchConfig, prefix_len: int) -> BeamSearchConfig:
         # normalize_scores=False is len_penalty 0, as in the JAX runtime.
@@ -344,9 +394,12 @@ class TorchTextDecoder(ModelRuntime):
     def _beam_program(self, config: BeamSearchConfig, prefix_len: int,
                       knobs: Optional[Tuple[torch.Tensor, ...]] = None
                       ) -> Tuple[Callable, Callable]:
-        """(start(memory [B, 1, D], prefix [B, P]) -> BeamState,
-        step(state)): the search's setup and one step of its body on this
-        decoder."""
+        """(start(memory [B, S_mem, D], prefix [B, P], memory_lens [B] or
+        None) -> BeamState, step(state)): the search's setup and one step of
+        its body on this decoder. A length-1 memory is copied to each beam
+        (the cache precomputes its cross-attention); a sequence memory, with
+        its lengths, is kept once a sentence, its K/V projected once for the
+        sentence's beams."""
         vocab, k = self.vocab_info, config.beam_size
         cache_len = prefix_len + config.max_gen_len + 1
         unk = vocab.unk_idx if config.unk_penalty else None
@@ -354,9 +407,12 @@ class TorchTextDecoder(ModelRuntime):
         def step_fn(tokens, cache, ancestry):
             return self.model.step(tokens, cache, ancestry=ancestry, beam_size=k)
 
-        def start(mem, prefix):
-            mem = mem[:, None].expand(-1, k, -1, -1).reshape(-1, *mem.shape[1:])
-            cache = self.model.init_cache(mem, cache_len, beam_size=k)
+        def start(mem, prefix, mem_lens=None):
+            if mem_lens is None:
+                mem = mem[:, None].expand(-1, k, -1, -1).reshape(-1, *mem.shape[1:])
+                cache = self.model.init_cache(mem, cache_len, beam_size=k)
+            else:
+                cache = self.model.init_cache(mem, cache_len, beam_size=k, memory_lens=mem_lens)
             return beam_setup(step_fn, cache, prefix, vocab.eos_idx, vocab.size, config,
                               pad_idx=vocab.pad_idx or 0, cache_len=cache_len, knobs=knobs)
 
@@ -366,7 +422,8 @@ class TorchTextDecoder(ModelRuntime):
         return start, step
 
     def _beam_eager(self, mem: torch.Tensor, prefix_ids: Sequence[int],
-                    config: BeamSearchConfig, chunk: int = CHUNK_STEPS
+                    config: BeamSearchConfig, chunk: int = CHUNK_STEPS,
+                    mem_lens: Optional[torch.Tensor] = None
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The search run eagerly in this thread (the CPU; a mesh of several
         ranks, whose exit test is agreed once a chunk; and, to compare it
@@ -374,12 +431,14 @@ class TorchTextDecoder(ModelRuntime):
         tail, the exit flag read after every ``chunk`` steps."""
         b = mem.shape[0]
         mem = split_rows(mem, self.mesh, POW2_ROWS)
+        if mem_lens is not None:
+            mem_lens = split_rows(mem_lens, self.mesh, POW2_ROWS, fill=1)
         prefix = torch.tensor(list(prefix_ids), dtype=torch.long, device=self.device)
         prefix = prefix[None, :].expand(mem.shape[0], -1)
         agree = self._agree if self.mesh.world.size > 1 else None
         with self.scope():
             start, step = self._beam_program(config, len(prefix_ids))
-            state = start(mem, prefix)
+            state = start(mem, prefix, mem_lens)
             ran = run_chunks(state, step, chunk, agree)
             outs = self._gathered(*beam_finish(state, self.vocab_info.eos_idx, config), rows=b)
             self.decode_steps += len(prefix_ids) + int(state.step)
@@ -387,7 +446,7 @@ class TorchTextDecoder(ModelRuntime):
             return outs
 
     def generate_beam_async(self, memory: Any, prefix_ids: Sequence[int],
-                            config: BeamSearchConfig) -> _BeamHandle:
+                            config: BeamSearchConfig, memory_lens: Any = None) -> _BeamHandle:
         """Dispatch a beam decode and return without blocking: on a card the
         captured program of this batch's key (captured here first if it is
         new) is queued on the caller's stream, behind the work queued there
@@ -395,27 +454,37 @@ class TorchTextDecoder(ModelRuntime):
         outputs' copies to pinned host memory behind a CUDA event. Pipelined
         callers (``TextTranslator.translate_stream``) dispatch batch i + 1
         before materializing batch i. On the CPU, or over a mesh of several
-        ranks, the decode runs here and the handle comes back resolved."""
+        ranks, the decode runs here and the handle comes back resolved.
+
+        ``memory`` is [B, 1, D], or a sequence memory [B, S_mem, D] with its
+        lengths ``memory_lens`` [B] (or a ``SequenceMemory``, which carries
+        both); on a card a sequence memory is padded to its
+        ``memory_bucket``, which the key holds."""
         config = self._search_config(config, len(prefix_ids))
+        if memory_lens is None and hasattr(memory, "lens"):
+            memory, memory_lens = memory.seqs, memory.lens
         with span("runtime.dispatch", prefix=len(prefix_ids)) as dispatch:
             cuda = self.device.type == "cuda" and self.mesh.world.size == 1
             stream = torch.cuda.current_stream(self.device) if cuda else None
             loop = _LoopEvents(stream, dispatch) if cuda and dispatch else None
             mem = self._tensor(memory, torch.float32)
+            lens = None if memory_lens is None else self._tensor(memory_lens, torch.int32)
             b = mem.shape[0]
             b_pad = round_up_pow2(b)
+            mem_len = 1 if lens is None else memory_bucket(mem.shape[1])
             dispatch.set(b_pad=b_pad)
             if not cuda:
-                return _BeamHandle(self._beam_eager(mem, prefix_ids, config), None, b)
-            key = _graph_key(b_pad, len(prefix_ids), _static_config(config))
+                return _BeamHandle(self._beam_eager(mem, prefix_ids, config, mem_lens=lens),
+                                   None, b)
+            key = _graph_key(b_pad, len(prefix_ids), mem_len, _static_config(config))
             with self._lock, self.scope():
                 # The graphs share their static buffers' pool: one decode at a
                 # time, whatever stream each caller queues on.
                 if self._free is not None:
                     stream.wait_event(self._free)
                 graph = self._graph(key, lambda pool: _BeamGraph(self, b_pad, len(prefix_ids),
-                                                                 config, pool))
-                graph.load(mem, prefix_ids, config)
+                                                                 config, pool, mem_len))
+                graph.load(mem, prefix_ids, config, lens)
                 graph.setup.replay()
                 if loop is not None:
                     loop.start.record(stream)
@@ -585,3 +654,50 @@ class TorchTextDecoder(ModelRuntime):
         copied.synchronize()
         self._settle(graph, len(prefix_ids), host[3])
         return tuple(np.array(t.numpy()[:b]) for t in host[:3])
+
+
+class TorchEncoderDecoder(TorchTextDecoder):
+    """An encoder-decoder translation model (``models.nllb_moe.NllbMoeModel``)
+    bound on one device: the decoder's runtime (beam search through the
+    captured loop, over a sequence memory kept once a sentence) and its
+    encoder's (``encode_batch``, as ``TorchTextEncoder`` has it, which
+    returns the [B, S, D] memory and its lengths, ``SequenceMemory``). The
+    encoder's self-attention projections are fused into one (``fuse_qkv``,
+    a runtime copy; the decoder's stay split for its cache). ``stats``
+    counts the batches encoded and their tokens, true and padded."""
+
+    def __init__(self, model: Any, device: Any = None, mesh: Optional[Mesh] = None):
+        super().__init__(model, quantize=False, device=device, mesh=mesh)
+        self.stats = Counters("batches", "true_tokens", "padded_tokens",
+                              true="true_tokens", padded="padded_tokens")
+
+    @staticmethod
+    def _runtime_params(model: Any) -> Any:
+        from sonar_tpu_torch.nn.transformer import fuse_qkv
+
+        params = model.params.tree()
+        return dict(params, encoder=fuse_qkv(params["encoder"]))
+
+    @property
+    def max_source_len(self) -> int:
+        return self.model.max_source_len
+
+    def encode_batch(self, batch: Any, materialize: bool = True) -> Any:
+        """The memory of a ``SequenceBatch``'s real rows and their lengths (a
+        ``SequenceMemory``), on the device, or on the host with
+        ``materialize``."""
+        from sonar_tpu_torch.models.nllb_moe.model import SequenceMemory
+
+        lens = np.asarray(batch.seq_lens)
+        tokens = int(lens[: batch.true_batch].sum())
+        self.stats.add(batches=1, true_tokens=tokens, padded_tokens=np.prod(batch.seqs.shape))
+        with span("runtime.encode_memory", rows=batch.true_batch, length=batch.seqs.shape[1],
+                  tokens=tokens):
+            seqs_t = self._tensor(np.ascontiguousarray(batch.seqs, np.int32), torch.int32)
+            lens_t = self._tensor(np.ascontiguousarray(lens, np.int32), torch.int32)
+            with self.scope():
+                memory = self.model.encode(seqs_t, lens_t)[: batch.true_batch]
+            lens_t = lens_t[: batch.true_batch]
+        if materialize:
+            return SequenceMemory(self.to_host(memory), lens_t.cpu().numpy())
+        return SequenceMemory(memory, lens_t)

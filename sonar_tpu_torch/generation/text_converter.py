@@ -3,7 +3,10 @@
 
 The NLLB decoder prompt is ``[</s>, <target_lang>]`` (the tokenizer's
 target-mode prefix); the best hypothesis of each row is cut at its length
-and SentencePiece-decoded with control tokens filtered.
+and SentencePiece-decoded with control tokens filtered. An encoder-decoder
+model's encoder (``TorchEncoderDecoder``) hands the decoder a sequence
+memory and its lengths (``SequenceMemory``) in place of the embedding; the
+decode goes through the same entry points.
 
 As in the JAX package, a batch's decode can be dispatched and resolved
 later (``dispatch_convert`` / ``finish_convert``, ``dispatch_translate``),
@@ -55,6 +58,11 @@ class EmbeddingToTextConverter:
         handle with ``finish_convert``. Beam decode dispatches
         (``generate_beam_async``); sampling runs its loop here and returns
         the strings, as the JAX package's does."""
+        if hasattr(embeddings, "lens"):  # a sequence memory and its lengths
+            if self.sampler is not None:
+                raise NotImplementedError("sampling decodes a length-1 memory only")
+            return self.decoder.generate_beam_async(embeddings, self.prefix_ids,
+                                                    self.gen_config)
         if torch.is_tensor(embeddings):
             memory = embeddings.float()[:, None, :]
         else:
@@ -75,7 +83,9 @@ class EmbeddingToTextConverter:
 
 
 class TextTranslator:
-    """Source texts -> embeddings (encoder) -> target texts (decoder)."""
+    """Source texts -> embeddings (encoder) -> target texts (decoder); or,
+    for an encoder-decoder model, source texts -> the source's memory ->
+    target texts."""
 
     def __init__(self, encoder: Any, decoder: Any, tokenizer: Any, source_lang: str,
                  target_lang: str, gen_config: BeamSearchConfig):

@@ -11,7 +11,9 @@ CUDA kernels and runs each serving shape once.
 restoration) and the static-shape batching of the JAX package, on the
 port's copy of the host pipeline (``sonar_tpu_torch.data``).
 
-``TextToTextModelPipeline`` (texts -> embeddings -> texts) and
+``TextToTextModelPipeline`` (texts -> embeddings -> texts, or, given an
+encoder-decoder model such as NLLB-200 MoE, texts -> the source's memory ->
+texts) and
 ``EmbeddingToTextModelPipeline`` decode through ``TorchTextDecoder``, with
 beam search or (``EmbeddingToTextModelPipeline.predict(sampler=...)``) top-p
 / top-k sampling; ``quantize=True`` decodes with int8 weights.
@@ -344,13 +346,20 @@ class TextToEmbeddingModelPipeline:
 
 
 class TextToTextModelPipeline:
-    """Texts -> translated texts through the 1024-d embedding bottleneck."""
+    """Texts -> translated texts through the 1024-d embedding bottleneck, or
+    through an encoder-decoder model's sequence memory: an ``NllbMoeModel``
+    (or its ``TorchEncoderDecoder``) given as the encoder, and as the
+    decoder or None, is both."""
 
-    def __init__(self, encoder: Union[str, TorchTextEncoder, SonarTextEncoder],
+    def __init__(self, encoder: Union[str, TorchTextEncoder, SonarTextEncoder, Any],
                  decoder: Any, tokenizer: Any, device: Any = None, dtype: Any = None,
                  quantize: bool = False) -> None:
-        self.model = _resolve_encoder(encoder, dtype, device)
-        self.decoder = _resolve_decoder(decoder, dtype, quantize=quantize, device=device)
+        both = _resolve_encoder_decoder(encoder, decoder, device)
+        if both is not None:
+            self.model = self.decoder = both
+        else:
+            self.model = _resolve_encoder(encoder, dtype, device)
+            self.decoder = _resolve_decoder(decoder, dtype, quantize=quantize, device=device)
         self.tokenizer = _resolve_tokenizer(tokenizer)
 
     def warmup(self, batch_size: int = 5, target_lang: Optional[str] = None,
@@ -374,9 +383,13 @@ class TextToTextModelPipeline:
                 seq_lens=np.full((b_pad,), bucket, np.int32), true_batch=b_pad,
             ), materialize=False)
             n += 1
+        from sonar_tpu_torch.generation.decoder_runtime import MEMORY_BUCKETS
+
+        memory_len = MEMORY_BUCKETS[0] if self.model is self.decoder else 1
         return n + self.decoder.warmup(gen_config, prefix_len=_prefix_len(self.tokenizer,
                                                                            target_lang),
-                                       batch_sizes=_padded_sizes(batch_size))
+                                       batch_sizes=_padded_sizes(batch_size),
+                                       memory_len=memory_len)
 
     def predict(self, input: Union[str, Path, Sequence[str]], source_lang: str,
                 target_lang: str, batch_size: int = 5, progress_bar: bool = False,
@@ -388,8 +401,16 @@ class TextToTextModelPipeline:
                                                   **generator_kwargs)
         translator = TextTranslator(self.model, self.decoder, self.tokenizer, source_lang,
                                     target_lang, gen_config)
-        builder = (read_text(Path(input)) if isinstance(input, (str, Path))
-                   else read_sequence(list(input)))
+        order = None
+        if isinstance(input, (str, Path)):
+            builder = read_text(Path(input))
+        else:
+            # A list is translated sorted by length, as fairseq batches a
+            # translation job: a batch's sources pad to the bucket of
+            # sources of about one length. The order is restored below.
+            texts = list(input)
+            order = np.argsort([len(s) for s in texts], kind="stable")
+            builder = read_sequence([texts[i] for i in order])
         # Up to 2 batches in flight: batch i + 1's tokenizing and dispatches
         # overlap batch i's decode, and batch i's materialize and
         # detokenizing batch i + 1's compute.
@@ -397,7 +418,13 @@ class TextToTextModelPipeline:
         if progress_bar:
             iterable = add_progress_bar(iterable, inputs=input, batch_size=batch_size)
         with span("pipeline.predict"):
-            return [x for y in iterable for x in y]
+            out = [x for y in iterable for x in y]
+        if order is None:
+            return out
+        restored: List[str] = [""] * len(out)
+        for k, i in enumerate(order):
+            restored[i] = out[k]
+        return restored
 
 
 class EmbeddingToTextModelPipeline:
@@ -453,6 +480,22 @@ def _prefix_len(tokenizer: Any, target_lang: Optional[str]) -> int:
     if lang is None:
         return 2  # NLLB target prefix: [</s>, lang]
     return len(tokenizer.create_encoder(lang=lang, mode="target").prefix_indices)
+
+
+def _resolve_encoder_decoder(encoder: Any, decoder: Any, device: Any = None) -> Any:
+    """The one runtime of an encoder-decoder model given as ``encoder`` (and
+    as ``decoder``, or None), or None for a SONAR encoder and decoder."""
+    from sonar_tpu_torch.generation.decoder_runtime import TorchEncoderDecoder
+    from sonar_tpu_torch.models.nllb_moe.model import NllbMoeModel
+
+    if not isinstance(encoder, (NllbMoeModel, TorchEncoderDecoder)):
+        return None
+    if decoder is not None and decoder is not encoder:
+        raise ValueError("an encoder-decoder model is its own decoder: pass it as both, "
+                         "or the decoder as None")
+    if isinstance(encoder, TorchEncoderDecoder):
+        return encoder
+    return TorchEncoderDecoder(encoder, device=device)
 
 
 def _resolve_decoder(decoder: Any, dtype: Any = None, quantize: bool = False,

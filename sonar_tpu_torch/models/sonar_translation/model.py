@@ -2,7 +2,9 @@
 (``sonar_tpu.models.sonar_translation.model``).
 
 ``encode_to_memory`` runs any SONAR encoder and hands the decoder a
-length-1 memory holding the pooled sentence embedding; ``generate``
+length-1 memory holding the pooled sentence embedding (an encoder-decoder
+model's encoder, ``TorchEncoderDecoder``, hands it the source's sequence
+memory and lengths, ``SequenceMemory``, as they are); ``generate``
 delegates to the decoder runtime (``TorchTextDecoder``): beam search, or
 sampling when it is given a sampler.
 """
@@ -31,14 +33,17 @@ class SonarEncoderDecoderModel:
         self.encoder = encoder
         self.decoder = decoder
 
-    def encode_to_memory(self, encoder_inputs: Any) -> np.ndarray:
-        """-> [B, 1, D] length-1 decoder memory."""
+    def encode_to_memory(self, encoder_inputs: Any) -> Any:
+        """-> [B, 1, D] length-1 decoder memory, or a sequence memory with
+        its lengths from an encoder that gives one."""
         if isinstance(self.encoder, DummyEncoderModel):
             emb = self.encoder.encode(encoder_inputs)
         elif hasattr(self.encoder, "encode_waveforms"):
             emb = self.encoder.encode_waveforms(encoder_inputs)
         else:
             emb = self.encoder.encode_batch(encoder_inputs)
+        if hasattr(emb, "lens"):  # a sequence memory, as the decoder takes it
+            return emb
         if torch.is_tensor(emb):
             emb = emb.float().cpu().numpy()
         return np.asarray(emb, np.float32)[:, None, :]

@@ -170,7 +170,15 @@ def fuse_qkv(params: Params, keep_split: bool = True) -> Params:
     return transform(params)
 
 
-def ffn(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+def ffn(params: Params, x: torch.Tensor, activation: str,
+        token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The layer's FFN: dense, or sparse when its parameters hold a router
+    (``nn.moe.moe_ffn``, whose experts are ReLU FFNs; ``token_mask`` keeps
+    padding tokens out of them)."""
+    if "router" in params:
+        from sonar_tpu_torch.nn.moe import moe_ffn
+
+        return moe_ffn(params, x, token_mask)
     inner, out = params["inner_proj"], params["output_proj"]
     n_tokens = x.numel() // x.shape[-1]
     group = model_group()
@@ -242,7 +250,10 @@ def encoder_layer(
     num_heads: int,
     activation: str,
     norm_order: str = "pre",
+    token_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    """One encoder layer; ``token_mask`` [B, S] (True for a real token)
+    keeps padding out of a sparse FFN's experts."""
     if _block_kernels_eligible(params, x, bias, num_heads, activation, norm_order):
         from sonar_tpu_torch.ops.cuda.attn_block import fused_attn_block
         from sonar_tpu_torch.ops.cuda.ffn import fused_int8_ffn_ln
@@ -273,29 +284,55 @@ def encoder_layer(
     )
     return _residual_block(
         params["ffn_layer_norm"], x,
-        lambda h: ffn(params["ffn"], h, activation), norm_order,
+        lambda h: ffn(params["ffn"], h, activation, token_mask), norm_order,
     )
 
 
-def layer_slices(stacked: Params) -> List[Params]:
+def layer_slices(stacked: Any) -> List[Params]:
     """Every layer of a stacked tree (views, no copies), from one ``unbind``
     of each tensor: under autograd its backward is one ``stack`` of the
     layers' gradients, where indexing layer i alone would give each layer a
-    zero-filled gradient of the whole stack to add up."""
+    zero-filled gradient of the whole stack to add up. A list of layer
+    trees (a stack whose layers differ, ``layer_plan``) is its own slices."""
+    if isinstance(stacked, list):
+        return stacked
     parts = {k: layer_slices(v) if isinstance(v, dict) else v.unbind(0)
              for k, v in stacked.items()}
     n = len(next(iter(parts.values())))
     return [{k: part[i] for k, part in parts.items()} for i in range(n)]
 
 
-def num_stacked_layers(stacked: Params) -> int:
+def num_stacked_layers(stacked: Any) -> int:
+    if isinstance(stacked, list):
+        return len(stacked)
     node: Any = stacked
     while isinstance(node, dict):
         node = next(iter(node.values()))
     return node.shape[0]
 
 
-def run_layers(stacked: Params, x: torch.Tensor,
+def layer_plan(num_layers: int, sparse_step: int) -> List[Tuple[bool, int]]:
+    """(sparse, index in its group) of each layer of a stack in which every
+    ``sparse_step``-th layer, (i + 1) % sparse_step == 0, has a sparse FFN
+    (NLLB-MoE's ``encoder_sparse_step`` / ``decoder_sparse_step``); 0 means
+    none. A stack keeps two stacked groups, ``layers`` and
+    ``sparse_layers``, walked in this order."""
+    plan, counts = [], [0, 0]
+    for i in range(num_layers):
+        sparse = sparse_step > 0 and (i + 1) % sparse_step == 0
+        plan.append((sparse, counts[sparse]))
+        counts[sparse] += 1
+    return plan
+
+
+def planned_layers(dense: Params, sparse: Optional[Params],
+                   plan: List[Tuple[bool, int]]) -> List[Params]:
+    """The layer trees of a two-group stack in ``plan``'s order (views)."""
+    groups = (layer_slices(dense), layer_slices(sparse) if sparse is not None else [])
+    return [groups[s][i] for s, i in plan]
+
+
+def run_layers(stacked: Any, x: torch.Tensor,
                layer_fn: Callable[[Params, torch.Tensor], torch.Tensor],
                remat: bool = False) -> torch.Tensor:
     """``x`` through ``layer_fn(layer_params, x)`` for each of the L stacked
@@ -319,10 +356,11 @@ def encoder_stack(
     activation: str,
     norm_order: str = "pre",
     remat: bool = False,
+    token_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Run the L stacked encoder layers in order."""
+    """Run the L stacked encoder layers (or a list of layer trees) in order."""
     return run_layers(stacked_params, x, lambda p, h: encoder_layer(
-        p, h, bias, num_heads, activation, norm_order), remat)
+        p, h, bias, num_heads, activation, norm_order, token_mask), remat)
 
 
 def decoder_layer(
@@ -334,6 +372,7 @@ def decoder_layer(
     num_heads: int,
     activation: str,
     norm_order: str = "pre",
+    token_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Self-attention, cross-attention on ``memory``, FFN; each residual."""
     x = _residual_block(
@@ -347,7 +386,7 @@ def decoder_layer(
     )
     return _residual_block(
         params["ffn_layer_norm"], x,
-        lambda h: ffn(params["ffn"], h, activation), norm_order,
+        lambda h: ffn(params["ffn"], h, activation, token_mask), norm_order,
     )
 
 
@@ -361,10 +400,12 @@ def decoder_stack(
     activation: str,
     norm_order: str = "pre",
     remat: bool = False,
+    token_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Run the L stacked decoder layers in order."""
+    """Run the L stacked decoder layers (or a list of layer trees) in order."""
     return run_layers(stacked_params, x, lambda p, h: decoder_layer(
-        p, h, self_bias, memory, memory_bias, num_heads, activation, norm_order), remat)
+        p, h, self_bias, memory, memory_bias, num_heads, activation, norm_order, token_mask),
+        remat)
 
 
 # ---------------------------------------------------------------------------
@@ -381,7 +422,11 @@ class DecoderCache:
     ``_beam_self_attend`` reads through the ancestry table without a
     transpose. ``decoder_step`` writes them IN PLACE (the JAX package
     returns updated copies): a cache is a buffer of one generation run.
-    cross_k / cross_v: [L, B, H, S_mem, Dh], projected once from memory.
+    cross_k / cross_v: [L, B, H, S_mem, Dh], projected once from memory;
+    in beam mode over a sequence memory [L, B / K, H, S_mem, Dh], once a
+    sentence, which its K beams read together (``_beam_cross_attend``).
+    cross_mask: [B or B / K, 1, 1, S_mem] bool (True for a real source
+    position) or None (every position real).
     cross_out: [L, B, 1, D] or None. For a length-1 unmasked memory (the
     SONAR embedding bottleneck) the cross-attention block is exactly
     ``output_proj(v_proj(memory))`` (softmax over one position is 1), so
@@ -397,6 +442,8 @@ class DecoderCache:
     cross_v: torch.Tensor
     index: torch.Tensor
     cross_out: Optional[torch.Tensor] = None
+    cross_mask: Optional[torch.Tensor] = None
+    beams_share_memory: bool = False
 
 
 def init_decoder_cache(
@@ -408,17 +455,26 @@ def init_decoder_cache(
     model_dim: int,
     dtype: torch.dtype,
     beam_size: Optional[int] = None,
+    memory_lens: Optional[torch.Tensor] = None,
 ) -> DecoderCache:
     """Allocate the cache (its index a 0-d tensor on ``memory.device``) and
     project the cross-attention K/V of every layer (or, for a length-1
-    memory, the constant ``cross_out``)."""
+    memory, the constant ``cross_out``). In beam mode a sequence memory
+    holds one row a sentence ([batch / beam_size, S_mem, D]), and its K/V
+    are projected and kept once a sentence; ``memory_lens`` masks its
+    padding."""
     n_layers = num_stacked_layers(stacked_params)
     head_dim = model_dim // num_heads
     group = model_group()
     heads = local_heads(num_heads, group)
     dev = memory.device
     layers = [p["encoder_decoder_attn"] for p in layer_slices(stacked_params)]
-    if memory.shape[1] == 1:
+    cross_mask = None
+    if memory_lens is not None:
+        from sonar_tpu_torch.ops.masks import length_mask
+
+        cross_mask = length_mask(memory_lens, memory.shape[1])[:, None, None, :]
+    if memory.shape[1] == 1 and cross_mask is None:
         mem = copy_to_group(memory, group)
         cross_out = torch.stack(
             [row_linear(p["output_proj"], linear(p["v_proj"], mem), group) for p in layers]
@@ -441,6 +497,9 @@ def init_decoder_cache(
         cross_v=cross_v,
         index=torch.zeros((), dtype=torch.long, device=dev),
         cross_out=cross_out,
+        cross_mask=cross_mask,
+        beams_share_memory=beam_size is not None and memory.shape[0] * beam_size == batch
+        and cross_out is None,
     )
 
 
@@ -490,6 +549,23 @@ def _beam_self_attend(
     return row_linear(params["output_proj"], out, group)
 
 
+def _beam_cross_attend(params: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       mask: Optional[torch.Tensor], num_heads: int,
+                       beam_size: int) -> torch.Tensor:
+    """Beam-decode cross-attention over a memory kept once a sentence: x
+    [N, 1, D], N = B*K; k / v [B, H, S, Dh]; mask [B, 1, 1, S] bool or None.
+    The K beams of a sentence are its query rows, so the sentence's K/V are
+    read once for all of them, in the model dtype (torch's fused
+    ``scaled_dot_product_attention``, which keeps the softmax in fp32)."""
+    b, h, _, dh = k.shape
+    group = model_group()
+    q = linear(params["q_proj"], copy_to_group(x, group))
+    q = q.reshape(b, beam_size, h, dh).transpose(1, 2)
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    out = out.transpose(1, 2).reshape(b * beam_size, 1, h * dh)
+    return row_linear(params["output_proj"], out, group)
+
+
 def decoder_step(
     stacked_params: Params,
     x: torch.Tensor,
@@ -531,6 +607,10 @@ def decoder_step(
             "cache was built for an unmasked length-1 memory (cross_out set); "
             "memory_bias is not applicable"
         )
+    if memory_bias is None and cache.cross_mask is not None and not cache.beams_share_memory:
+        from sonar_tpu_torch.ops.masks import additive_bias
+
+        memory_bias = additive_bias(cache.cross_mask)
     for layer, p in enumerate(layer_slices(stacked_params)):
         sk, sv = cache.self_k[layer], cache.self_v[layer]
         h = layer_norm(p["self_attn_layer_norm"], x)
@@ -548,6 +628,11 @@ def decoder_step(
             y = x + mha_attend(p["self_attn"], h, sk, sv, self_bias, num_heads)
         if cache.cross_out is not None:
             y = y + cache.cross_out[layer]
+        elif cache.beams_share_memory:
+            h = layer_norm(p["encoder_decoder_attn_layer_norm"], y)
+            y = y + _beam_cross_attend(p["encoder_decoder_attn"], h, cache.cross_k[layer],
+                                       cache.cross_v[layer], cache.cross_mask, num_heads,
+                                       beam_size)
         else:
             h = layer_norm(p["encoder_decoder_attn_layer_norm"], y)
             y = y + mha_attend(p["encoder_decoder_attn"], h, cache.cross_k[layer],

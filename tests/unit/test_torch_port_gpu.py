@@ -1903,3 +1903,68 @@ def test_no_launch_under_the_scope(dev):
     decodes["beam"]()
     decodes["sample"]()
     assert beam_attend.MASKED_LAUNCHES > masked and gm.LAUNCHES > draws
+
+
+# -- NLLB-MoE: the expert layer and the translation program on the card -------------
+
+
+def _moe_params(dev, d=256, f=512, experts=16, held=4, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def r(*shape, s=0.05):
+        return (torch.randn(*shape, generator=g) * s).to(torch.bfloat16).to(dev)
+
+    ids = torch.arange(experts)
+    return {"router": {"kernel": r(d, experts, s=0.1)},
+            "expert_slot": torch.where(ids < held, ids, held).int().to(dev),
+            "inner_proj": {"kernel": r(held, d, f), "bias": r(held, f)},
+            "output_proj": {"kernel": r(held, f, d), "bias": r(held, d)}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tokens", [1, 40, 640])
+def test_moe_grouped_gemm_matches_the_cpu_layer(dev, tokens):
+    """The expert layer's grouped GEMMs on the card against its plain groups
+    on the CPU (the same bf16 weights), over the tokens both route alike (a
+    near-tie of the fp32 router may flip on the other summation order); a
+    token with no held expert gets exactly 0."""
+    from sonar_tpu_torch.nn import moe
+
+    params = _moe_params(dev)
+    x = _rand(dev, tokens, 256, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        got = moe.moe_ffn(params, x)
+        cpu = {k: ({kk: vv.cpu().float() for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.cpu()) for k, v in params.items()}
+        want = moe.moe_ffn(cpu, x.cpu().float())
+        ids, _ = moe.route(params["router"], x)
+        ids_cpu, _ = moe.route(cpu["router"], x.cpu().float())
+    same = (ids.cpu() == ids_cpu).all(dim=-1)
+    assert same.float().mean() >= 0.99
+    held = (ids_cpu < 4).any(dim=-1) & same
+    assert (got.cpu()[same & ~held] == 0).all()
+    if held.any():
+        _assert_close(got.cpu(), want, rows=held)
+
+
+@pytest.mark.gpu
+def test_moe_layer_is_captured_and_replays_new_inputs(dev):
+    """Nothing of the routing is read on the host: the layer is captured in a
+    CUDA graph and a replay on new tokens gives the eager layer's output."""
+    from sonar_tpu_torch.nn import moe
+
+    params = _moe_params(dev)
+    x = _rand(dev, 320, 256, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe.moe_ffn(params, x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = moe.moe_ffn(params, x)
+        x.copy_(_rand(dev, 320, 256, dtype=torch.bfloat16, seed=9))
+        graph.replay()
+        want = moe.moe_ffn(params, x)
+    torch.testing.assert_close(y, want, atol=0, rtol=0)
